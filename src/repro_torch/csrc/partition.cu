@@ -1,0 +1,92 @@
+// Step ③ — single-predicate evaluation: route every record to its child.
+//
+// Replaces the TPU kernel src/repro/kernels/partition.py::_partition_kernel.
+// The TPU version fetched each record's split parameters with a one-hot
+// float matrix product over the level's split table; here the table
+// (NN x {feature, threshold, is_cat, default_left}, at most 512 x 16 B) sits
+// in shared memory and each thread indexes it directly with its node id.
+//
+// Bound on the H100: bytes.  Per record the function needs its node id
+// (4 B), one code byte and the new id (4 B); the work is a handful of
+// integer operations.  One thread per record, so consecutive threads read
+// consecutive node ids and write consecutive outputs.
+//
+// Two entries:
+//   * partition_rows_launch reads codes_lvl (n, C), the level's gathered
+//     columns in the JAX signature (split_feature indexes [0, C));
+//   * partition_cm_launch reads codes_cm[f, r] straight from the
+//     column-major copy (split_feature holds global field ids), so the
+//     grower never materialises the (NN, n) gather of the level's columns.
+// A node id outside [0, NN) or a feature outside the code matrix yields -1
+// (the plain version raises on such input; the kernel cannot).
+#include "launch.cuh"
+
+__global__ void partition_rows_kernel(const int32_t* __restrict__ node,
+                                      const uint8_t* __restrict__ codes,
+                                      const int4* __restrict__ table,
+                                      int32_t* __restrict__ out, long long n,
+                                      int C, int NN, int missing_bin) {
+    extern __shared__ int4 splits[];
+    for (int i = threadIdx.x; i < NN; i += blockDim.x) splits[i] = table[i];
+    __syncthreads();
+    const long long r = static_cast<long long>(blockIdx.x) * blockDim.x
+                        + threadIdx.x;
+    if (r >= n) return;
+    const int nd = node[r];
+    if (nd < 0 || nd >= NN) { out[r] = -1; return; }
+    const int4 p = splits[nd];           // x feature, y thr, z is_cat, w dl
+    if (p.x >= C) { out[r] = -1; return; }
+    const int code = p.x >= 0 ? codes[r * C + p.x] : 0;
+    out[r] = 2 * nd + 1 - go_left_of(code, p.x, p.y, p.z, p.w, missing_bin);
+}
+
+__global__ void partition_cm_kernel(const int32_t* __restrict__ node,
+                                    const uint8_t* __restrict__ codes_cm,
+                                    const int4* __restrict__ table,
+                                    int32_t* __restrict__ out, long long n,
+                                    int F, int NN, int missing_bin) {
+    extern __shared__ int4 splits[];
+    for (int i = threadIdx.x; i < NN; i += blockDim.x) splits[i] = table[i];
+    __syncthreads();
+    const long long r = static_cast<long long>(blockIdx.x) * blockDim.x
+                        + threadIdx.x;
+    if (r >= n) return;
+    const int nd = node[r];
+    if (nd < 0 || nd >= NN) { out[r] = -1; return; }
+    const int4 p = splits[nd];
+    if (p.x >= F) { out[r] = -1; return; }
+    const int code = p.x >= 0 ? codes_cm[static_cast<long long>(p.x) * n + r]
+                              : 0;
+    out[r] = 2 * nd + 1 - go_left_of(code, p.x, p.y, p.z, p.w, missing_bin);
+}
+
+static int blocks_for(long long n, int threads) {
+    return static_cast<int>((n + threads - 1) / threads);
+}
+
+extern "C" int partition_rows_launch(const void* node, const void* codes,
+                                     const void* table, void* out,
+                                     long long n, int C, int NN,
+                                     int missing_bin, int threads,
+                                     void* stream) {
+    partition_rows_kernel<<<blocks_for(n, threads), threads,
+                            NN * sizeof(int4),
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(node), static_cast<const uint8_t*>(codes),
+        static_cast<const int4*>(table), static_cast<int32_t*>(out), n, C, NN,
+        missing_bin);
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int partition_cm_launch(const void* node, const void* codes_cm,
+                                   const void* table, void* out, long long n,
+                                   int F, int NN, int missing_bin, int threads,
+                                   void* stream) {
+    partition_cm_kernel<<<blocks_for(n, threads), threads, NN * sizeof(int4),
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(node),
+        static_cast<const uint8_t*>(codes_cm),
+        static_cast<const int4*>(table), static_cast<int32_t*>(out), n, F, NN,
+        missing_bin);
+    return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,88 @@
+"""Dispatch over the CUDA kernels and their plain PyTorch versions.
+
+The counterparts of :mod:`repro.kernels.ops`.  Each entry reads its step's
+strategy from an :class:`~repro_torch.api.plan.ExecutionPlan`:
+``"reference"`` calls the plain version, ``"cuda"`` (what ``"auto"``
+resolves to) calls the kernel's wrapper, which launches the kernel for CUDA
+tensors — or raises — and takes the plain version for CPU tensors.  There
+is no fallback from a kernel that fails.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.api.plan import ExecutionPlan, resolve_plan
+from repro_torch.kernels import histogram as _hist_k
+from repro_torch.kernels import partition as _part_k
+from repro_torch.kernels import traversal as _trav_k
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.ref import TreeArrays
+
+__all__ = ["build_histogram", "partition_level", "partition_level_cm",
+           "traverse_tree", "predict_ensemble"]
+
+
+def build_histogram(codes, g, h, node_ids, *, n_nodes: int, n_bins: int,
+                    plan: Optional[ExecutionPlan] = None) -> torch.Tensor:
+    """(n, F) codes -> (n_nodes, F, n_bins, 2) float32 histogram."""
+    if g.ndim != 1:
+        raise NotImplementedError(
+            "class-batched (K, n) histograms are not ported yet (ROADMAP "
+            "Queue 1: K > 1)")
+    if resolve_plan(plan).hist_strategy == "reference":
+        return _ref.histogram_ref(codes, g, h, node_ids, n_nodes, n_bins)
+    return _hist_k.histogram_cuda(codes, g, h, node_ids, n_nodes=n_nodes,
+                                  n_bins=n_bins)
+
+
+def partition_level(node_ids, codes_lvl, split_feature, split_threshold,
+                    split_is_cat, split_default_left, *, missing_bin: int,
+                    plan: Optional[ExecutionPlan] = None) -> torch.Tensor:
+    """Step ③ over the level's gathered columns ``codes_lvl`` (n, C)."""
+    if resolve_plan(plan).partition_strategy == "reference":
+        return _ref.partition_ref(node_ids, codes_lvl, split_feature,
+                                  split_threshold, split_is_cat,
+                                  split_default_left, missing_bin)
+    return _part_k.partition_cuda(node_ids, codes_lvl, split_feature,
+                                  split_threshold, split_is_cat,
+                                  split_default_left, missing_bin=missing_bin)
+
+
+def partition_level_cm(node_ids, codes_cm, split_feature, split_threshold,
+                       split_is_cat, split_default_left, *, missing_bin: int,
+                       plan: Optional[ExecutionPlan] = None) -> torch.Tensor:
+    """Step ③ reading the (F, n) column-major copy directly; split_feature
+    holds global field ids (-1 = pass-through)."""
+    if resolve_plan(plan).partition_strategy == "reference":
+        return _part_k.partition_cm_plain(node_ids, codes_cm, split_feature,
+                                          split_threshold, split_is_cat,
+                                          split_default_left, missing_bin)
+    return _part_k.partition_cm_cuda(node_ids, codes_cm, split_feature,
+                                     split_threshold, split_is_cat,
+                                     split_default_left,
+                                     missing_bin=missing_bin)
+
+
+def traverse_tree(tree: TreeArrays, codes, *, missing_bin: int,
+                  plan: Optional[ExecutionPlan] = None) -> torch.Tensor:
+    if resolve_plan(plan).traversal_strategy == "reference":
+        return _ref.traverse_ref(tree, codes, missing_bin)
+    return _trav_k.traverse_cuda(tree, codes, missing_bin=missing_bin)
+
+
+def predict_ensemble(trees: TreeArrays, codes, *, missing_bin: int,
+                     depth: int, plan: Optional[ExecutionPlan] = None,
+                     n_classes: int = 1) -> torch.Tensor:
+    """Ensemble margins (n,) for scalar objectives."""
+    if n_classes != 1:
+        raise NotImplementedError(
+            "multi-class ensembles are not ported yet (ROADMAP Queue 1: "
+            "K > 1)")
+    if trees.leaf_value.shape[-1] != 2 ** depth:
+        raise ValueError(f"trees are not of depth {depth}")
+    if resolve_plan(plan).traversal_strategy == "reference":
+        return _trav_k.predict_ensemble_plain(trees, codes, missing_bin)
+    return _trav_k.predict_ensemble_cuda(trees, codes,
+                                         missing_bin=missing_bin)

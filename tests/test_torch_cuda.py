@@ -1,0 +1,126 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Imports nothing of JAX, so it runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+
+Without a CUDA device every test skips (the kernels have no CPU mode).
+Integer outputs are bit-equal; histograms bit-equal on dyadic g, h; the
+ensemble sum, taken in another order, to rtol 1e-5.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import binning, gbdt
+from repro_torch.data import make_tabular
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels import histogram as hist_k
+from repro_torch.kernels import partition as part_k
+from repro_torch.kernels import traversal as trav_k
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    """The CUDA device, or a skip where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _codes(n, C, n_bins, rng):
+    codes = rng.integers(0, n_bins, (n, C)).astype(np.uint8)
+    codes[rng.uniform(size=codes.shape) < 0.1] = n_bins - 1
+    return codes
+
+
+def _trees(T, depth, C, n_bins, rng, device):
+    n_int = 2 ** depth - 1
+    return ref.TreeArrays(*[torch.from_numpy(a).to(device) for a in (
+        rng.integers(-1, C, (T, n_int)).astype(np.int32),
+        rng.integers(0, n_bins - 1, (T, n_int)).astype(np.int32),
+        rng.integers(0, 2, (T, n_int)).astype(np.int32),
+        rng.integers(0, 2, (T, n_int)).astype(np.int32),
+        rng.normal(size=(T, 2 ** depth)).astype(np.float32))])
+
+
+@pytest.mark.parametrize("n,F,NB,NN", [(64, 3, 8, 1), (777, 13, 16, 4),
+                                       (5000, 28, 256, 32),
+                                       (5000, 28, 256, 512)])
+def test_histogram_kernel_matches_plain(cuda, n, F, NB, NN):
+    rng = np.random.default_rng(n + NN)
+    codes = torch.from_numpy(_codes(n, F, NB, rng)).to(cuda)
+    g = torch.from_numpy(rng.integers(-64, 64, n) / 64).float().to(cuda)
+    h = torch.from_numpy(rng.integers(1, 64, n) / 64).float().to(cuda)
+    nid = torch.from_numpy(rng.integers(0, NN, n).astype(np.int32)).to(cuda)
+    before = _build.launch_counts()["histogram"]
+    got = hist_k.histogram_cuda(codes, g, h, nid, n_nodes=NN, n_bins=NB)
+    assert _build.launch_counts()["histogram"] == before + 1
+    assert torch.equal(got, hist_k.histogram_plain(codes, g, h, nid, NN, NB))
+
+
+def test_partition_kernels_match_plain(cuda):
+    rng = np.random.default_rng(0)
+    n, nn, F, n_bins = 3001, 16, 28, 256
+    nid = torch.from_numpy(rng.integers(0, nn, n).astype(np.int32)).to(cuda)
+    codes = torch.from_numpy(_codes(n, F, n_bins, rng)).to(cuda)
+    split = [torch.from_numpy(a).to(cuda) for a in (
+        rng.integers(-1, F, nn).astype(np.int32),
+        rng.integers(0, n_bins, nn).astype(np.int32),
+        rng.integers(0, 2, nn).astype(np.int32),
+        rng.integers(0, 2, nn).astype(np.int32))]
+    assert torch.equal(
+        part_k.partition_cuda(nid, codes, *split, missing_bin=n_bins - 1),
+        part_k.partition_plain(nid, codes, *split, n_bins - 1))
+    codes_cm = codes.T.contiguous()
+    assert torch.equal(
+        part_k.partition_cm_cuda(nid, codes_cm, *split,
+                                 missing_bin=n_bins - 1),
+        part_k.partition_cm_plain(nid, codes_cm, *split, n_bins - 1))
+
+
+@pytest.mark.parametrize("T,depth", [(1, 6), (13, 3), (40, 10)])
+def test_traversal_kernels_match_plain(cuda, T, depth):
+    rng = np.random.default_rng(T)
+    trees = _trees(T, depth, 28, 256, rng, cuda)
+    codes = torch.from_numpy(_codes(4099, 28, 256, rng)).to(cuda)
+    one = ref.TreeArrays(*[a[0] for a in trees])
+    assert torch.equal(trav_k.traverse_cuda(one, codes, missing_bin=255),
+                       trav_k.traverse_plain(one, codes, 255))
+    torch.testing.assert_close(
+        trav_k.predict_ensemble_cuda(trees, codes, missing_bin=255),
+        trav_k.predict_ensemble_plain(trees, codes, 255),
+        rtol=1e-5, atol=1e-5)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    codes = torch.zeros((8, 3), dtype=torch.uint8, device=cuda)
+    g = torch.zeros(8, device=cuda)
+    nid = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        hist_k.histogram_cuda(codes, g.double(), g, nid, n_nodes=1, n_bins=4)
+    with pytest.raises(ValueError):
+        hist_k.histogram_cuda(codes.T, g, g, nid, n_nodes=1, n_bins=4)
+    tree = ref.TreeArrays(*[a.to(cuda) for a in (
+        torch.tensor([5], dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
+        torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
+        torch.zeros(2))])
+    with pytest.raises(ValueError, match="field 5"):
+        trav_k.traverse_cuda(tree, codes, missing_bin=3)
+
+
+def test_slice_on_card_matches_cpu(cuda):
+    X, y, cats = make_tabular(3000, 14, 2, n_cats=6, task="binary",
+                              missing_rate=0.05, seed=3)
+    b = binning.Binner(64, cats).fit(X)
+    cfg = gbdt.GBDTConfig(n_trees=4, max_depth=3,
+                          objective="binary:logistic")
+    cpu = gbdt.train(cfg, b.transform(X, device="cpu"), y, device="cpu")
+    card = gbdt.train(cfg, b.transform(X), y)
+    for field in ("feature", "threshold", "is_cat", "default_left"):
+        assert torch.equal(getattr(card.model.trees, field).cpu(),
+                           getattr(cpu.model.trees, field))
+    np.testing.assert_allclose(card.history["train_loss"],
+                               cpu.history["train_loss"], rtol=1e-5)
