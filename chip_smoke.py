@@ -14,6 +14,11 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    same inputs, with its time (CUDA events, median of 5 after a warm-up),
    the plain version's time, the least time the card could take and,
    where one PyTorch call computes the same function, that call's time.
+2b. Class-batched parity at the multi-class path's shapes (581,012
+   records, 54 fields, 256 bins, K = 7 classes, 32 nodes a class; the
+   ensemble at T = 504 trees = 72 rounds x 7 classes): the histogram,
+   partition, traversal and ensemble kernels with their class axis against
+   their plain versions on random codes, timed as in phase 2.
 3. The main path: a Higgs-shaped dataset (``paper_dataset("higgs")``, N
    training records plus N/10 held out), ``Binner(256)`` fit and transform
    to the card, ``train`` of 8 depth-6 ``binary:logistic`` trees and
@@ -21,7 +26,22 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    after; every kernel must have run, the train loss must fall every
    round, held-out accuracy must beat the majority class and prediction
    must replay the fit's margins.
-4. Where the time of one boosting round goes (``torch.profiler``).
+3b. The multi-class path: a Covertype-shaped dataset (UCI Covertype's
+   581,012 training records plus 58,101 held out, 10 numeric fields and 44
+   two-category fields, 7 classes; ``make_tabular`` with a data seed S),
+   ``Binner(256, categorical_fields=...)``, ``train`` of 8 rounds of
+   depth-6 ``multi:softmax`` (7 trees a round), then ``predict_margin`` and
+   ``predict``.  Launch counts are zeroed just before and read just after:
+   the class-batched histogram and partition once per level per round,
+   the traversal once per round, the ensemble at least once; the train
+   loss must fall every round, held-out argmax accuracy must beat the
+   majority class, ``predict_margin`` must replay the fit's (n, 7) margins
+   and ``predict``'s rows must sum to 1.  Then the class-batched
+   histogram's dyadic parity and timing of phase 2b on this path's own
+   codes, which give its kernel row (the random-code times stay as extra
+   keys).
+4. Where the time of one boosting round goes (``torch.profiler``), for
+   each of the two paths.
 
 The last two lines of standard output are JSON: the kernel table, then
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -46,6 +66,12 @@ SCALAR_OPS_PER_S = 67e12         # H100 SXM float32 rate outside tensor cores
 OPS_PER_HOP = 8                  # integer operations of one tree-walk hop
 N_FIELDS, N_BINS, DEPTH = 28, 256, 6
 ENSEMBLE_TREES = 500             # the paper's tree count
+# UCI Covertype: 581,012 records, 10 numeric fields, 44 binary indicators,
+# 7 classes; the multi-class path trains 8 rounds (56 trees) of it
+MC_NUMERIC, MC_BINARY, MC_CLASSES = 10, 44, 7
+MC_FIELDS = MC_NUMERIC + MC_BINARY
+MC_RECORDS, MC_ROUNDS = 581_012, 8
+MC_ROUNDS_TIMED = 72             # 504 trees in the timed ensemble
 
 
 def log(*parts) -> None:
@@ -105,6 +131,27 @@ def environment(build) -> None:
                     log("  ptxas " + line.strip())
 
 
+def random_trees(T: int, F: int, gen, dev):
+    """T random depth-6 trees over F fields with dyadic leaves (every order
+    of summation is exact), pass-through nodes and categorical splits."""
+    from repro_torch.kernels import ref
+
+    n_int = 2 ** DEPTH - 1
+    ints = [torch.randint(lo, hi, (T, n_int), generator=gen, device=dev,
+                          dtype=torch.int32)
+            for lo, hi in ((-1, F), (0, N_BINS - 1), (0, 2), (0, 2))]
+    leaves = torch.randint(-64, 65, (T, 2 ** DEPTH), generator=gen,
+                           device=dev) / 64.0
+    return ref.TreeArrays(*ints, leaves)
+
+
+def hist_within_tolerance(got, want, mag) -> bool:
+    """Float atomics reorder the sums (the plain version's too): rtol 1e-5
+    plus 1e-5 of the sum of |stat| over the node's records (``mag``)."""
+    return bool(torch.all((got - want).abs() <= 1e-5 * want.abs()
+                          + 1e-5 * mag))
+
+
 def kernel_parity(n: int, seed: int, dev) -> dict:
     """Phase 2: each kernel against its plain version at the main path's
     shapes.  Returns the kernel rows (without launch counts)."""
@@ -139,14 +186,11 @@ def kernel_parity(n: int, seed: int, dev) -> dict:
                                     n_nodes=NN, n_bins=NB)
         want = hist_k.histogram_plain(c, g[:nn_rows], h[:nn_rows], nid, NN,
                                       NB)
-        # float atomics reorder the sums (the plain version's too): rtol
-        # 1e-5 plus 1e-5 of the sum of |stat| over the node's records
         mag = hist_k.histogram_plain(c, g[:nn_rows].abs(), h[:nn_rows], nid,
                                      NN, NB).sum(dim=2, keepdim=True)
-        err = (got - want).abs()
-        check(bool(torch.all(err <= 1e-5 * want.abs() + 1e-5 * mag)),
+        check(hist_within_tolerance(got, want, mag),
               f"histogram NN={NN} within rtol 1e-5 + 1e-5 node sum|stat|")
-        hist_err = max(hist_err, float(err.max()))
+        hist_err = max(hist_err, float((got - want).abs().max()))
         del got, want, mag
         if NN != 2 ** (DEPTH - 1):
             log(f"histogram NN={NN} n={nn_rows}: parity ok")
@@ -217,17 +261,7 @@ def kernel_parity(n: int, seed: int, dev) -> dict:
     del codes_lvl, got, got_rows, want
 
     # -- traversal and ensemble ------------------------------------------
-    def random_trees(T):
-        n_int = 2 ** DEPTH - 1
-        ints = [torch.randint(lo, hi, (T, n_int), generator=gen, device=dev,
-                              dtype=torch.int32)
-                for lo, hi in ((-1, F), (0, NB - 1), (0, 2), (0, 2))]
-        # dyadic leaves: every order of summation is exact
-        leaves = torch.randint(-64, 65, (T, 2 ** DEPTH), generator=gen,
-                               device=dev) / 64.0
-        return ref.TreeArrays(*ints, leaves)
-
-    one = ref.TreeArrays(*[a[0] for a in random_trees(1)])
+    one = ref.TreeArrays(*[a[0] for a in random_trees(1, F, gen, dev)])
     got = trav_k.traverse_cuda(one, codes, missing_bin=NB - 1)
     want = trav_k.traverse_plain(one, codes, NB - 1)
     check(torch.equal(got, want), "traversal bit-equal")
@@ -245,7 +279,7 @@ def kernel_parity(n: int, seed: int, dev) -> dict:
         f"plain {plain_ms:.3f} ms  bound {b_ms:.3f} ms ({b_by})")
 
     T = ENSEMBLE_TREES
-    trees = random_trees(T)
+    trees = random_trees(T, F, gen, dev)
     got = trav_k.predict_ensemble_cuda(trees, codes, missing_bin=NB - 1)
     t0 = time.perf_counter()
     want = trav_k.predict_ensemble_plain(trees, codes, NB - 1)
@@ -344,9 +378,254 @@ def main_path(n: int, n_trees: int, seed: int, dev):
     return counts, steady_ms, (config, data, y_tr)
 
 
-def round_breakdown(config, data, y, steady_ms: float) -> None:
-    """Phase 4: device time by kernel over a one-tree fit, set against the
-    wall time of a steady round of the main path (``steady_ms``, profiler
+def class_histogram(codes, gen, dev, label: str, real_stats: bool) -> dict:
+    """The class-batched histogram (K = 7) on ``codes`` (n, F): parity with
+    its plain version at NN = 1 and 32 (dyadic g, h bit-equal; with
+    ``real_stats`` also real ones within tolerance), its time at both, and
+    at NN = 32 the plain version's time, a ``torch.bincount`` time and the
+    bound.  Real stats are checked on random codes only: where the codes
+    put ~290,000 records on one bin, as two-category fields do at NN = 1,
+    float32 sums in another order differ by about the tolerance itself."""
+    from repro_torch.kernels import histogram as hist_k
+
+    (n, F), NB, K, NN = codes.shape, N_BINS, MC_CLASSES, 2 ** (DEPTH - 1)
+    g_dy = torch.randint(-64, 64, (K, n), generator=gen, device=dev) / 64.0
+    h_dy = torch.randint(1, 64, (K, n), generator=gen, device=dev) / 64.0
+    g = torch.randn((K, n), generator=gen, device=dev)
+    h = torch.rand((K, n), generator=gen, device=dev) * 0.9 + 0.1
+    err, ms = 0.0, {}
+    for nn in (1, NN):
+        nid = torch.randint(0, nn, (K, n), generator=gen, device=dev,
+                            dtype=torch.int32)
+        got = hist_k.histogram_cuda(codes, g_dy, h_dy, nid, n_nodes=nn,
+                                    n_bins=NB)
+        check(torch.equal(got, hist_k.histogram_plain(codes, g_dy, h_dy, nid,
+                                                      nn, NB)),
+              f"class-batched histogram K={K} NN={nn} ({label}) dyadic "
+              "bit-equal")
+        if real_stats:
+            got = hist_k.histogram_cuda(codes, g, h, nid, n_nodes=nn,
+                                        n_bins=NB)
+            want = hist_k.histogram_plain(codes, g, h, nid, nn, NB)
+            mag = hist_k.histogram_plain(codes, g.abs(), h, nid, nn,
+                                         NB).sum(dim=3, keepdim=True)
+            check(hist_within_tolerance(got, want, mag),
+                  f"class-batched histogram K={K} NN={nn} ({label}) within "
+                  "rtol 1e-5 + 1e-5 node sum|stat|")
+            err = max(err, float((got - want).abs().max()))
+            del want, mag
+        del got
+        ms[nn] = time_ms(lambda: hist_k.histogram_cuda(
+            codes, g, h, nid, n_nodes=nn, n_bins=NB))
+    st, ft = hist_k.tile_shape(K * NN, F, NB)
+    plain_ms = time_ms(lambda: hist_k.histogram_plain(codes, g, h, nid, NN,
+                                                      NB), reps=3)
+    # the same function as one bincount per statistic over a precomputed
+    # class-aware (slot, field, bin) index
+    slot = nid.long() + torch.arange(K, device=dev)[:, None] * NN   # (K, n)
+    idx = ((slot[:, :, None] * F + torch.arange(F, device=dev)) * NB
+           + codes.long()[None]).reshape(-1)
+    wg = g[:, :, None].expand(K, n, F).reshape(-1)
+    wh = h[:, :, None].expand(K, n, F).reshape(-1)
+    lib_ms = time_ms(lambda: (
+        torch.bincount(idx, weights=wg, minlength=K * NN * F * NB),
+        torch.bincount(idx, weights=wh, minlength=K * NN * F * NB)), reps=3)
+    del slot, idx, wg, wh
+    b_ms, b_by = bound(n * F + 12 * K * n + K * NN * F * NB * 8,
+                       2 * K * n * F)
+    log(f"class-batched histogram K={K} n={n} ({label}): parity ok  kernel "
+        f"NN={NN} {ms[NN]:.3f} ms  (NN=1 {ms[1]:.3f} ms)  plain "
+        f"{plain_ms:.3f} ms  bincount {lib_ms:.3f} ms  bound {b_ms:.3f} ms "
+        f"({b_by})")
+    return dict(ms=ms[NN], ms_nn1=ms[1], plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, max_abs_err=err,
+                shape=f"n={n} F={F} NB={NB} K={K} NN={NN} slot tile {st} x "
+                f"field tile {ft}, {label}")
+
+
+def class_parity(n: int, seed: int, dev) -> dict:
+    """Phase 2b: each class-batched kernel against its plain version at the
+    multi-class path's shapes.  Returns the kernel rows (without launch
+    counts), named ``<kernel>_classes``."""
+    from repro_torch.kernels import partition as part_k
+    from repro_torch.kernels import traversal as trav_k
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    F, NB, K, NN = MC_FIELDS, N_BINS, MC_CLASSES, 2 ** (DEPTH - 1)
+    codes = torch.randint(0, NB, (n, F), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    codes_cm = codes.T.contiguous()
+    rows = {}
+    shape = f"n={n} F={F} NB={NB} K={K}"
+
+    # -- histogram on random codes; its row is timed on the multi-class
+    # path's own codes (phase 3b)
+    rand = class_histogram(codes, gen, dev, "random codes", True)
+    rows["histogram_classes"] = dict(
+        max_abs_err=rand["max_abs_err"], ms_random_codes=rand["ms"],
+        ms_random_codes_nn1=rand["ms_nn1"])
+    nid = torch.randint(0, NN, (K, n), generator=gen, device=dev,
+                        dtype=torch.int32)
+
+    # -- partition: the column-major entry, one launch for all classes ----
+    split = [torch.randint(lo, hi, (K, NN), generator=gen, device=dev,
+                           dtype=torch.int32)
+             for lo, hi in ((-1, F), (0, NB), (0, 2), (0, 2))]
+    got = part_k.partition_cm_cuda(nid, codes_cm, *split,
+                                   missing_bin=NB - 1)
+    want = part_k.partition_cm_plain(nid, codes_cm, *split, NB - 1)
+    check(torch.equal(got, want), "class-batched partition bit-equal")
+    ms = time_ms(lambda: part_k.partition_cm_cuda(nid, codes_cm, *split,
+                                                  missing_bin=NB - 1))
+    plain_ms = time_ms(lambda: part_k.partition_cm_plain(
+        nid, codes_cm, *split, NB - 1), reps=3)
+    b_ms, b_by = bound(9 * K * n + K * NN * 16, 6 * K * n)
+    rows["partition_classes"] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, max_abs_err=float((got - want).abs().max()),
+        shape=f"{shape} NN={NN}")
+    log(f"class-batched partition K={K} NN={NN} n={n}: parity ok  kernel "
+        f"{ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b_ms:.3f} ms ({b_by})")
+    del got, want
+
+    # -- traversal: one round's K trees over the shared codes --------------
+    forest = random_trees(K, F, gen, dev)
+    got = trav_k.traverse_forest_cuda(forest, codes, missing_bin=NB - 1)
+    want = trav_k.traverse_forest_plain(forest, codes, NB - 1)
+    check(got.shape == (n, K) and torch.equal(got, want),
+          "class-batched traversal bit-equal")
+    ms = time_ms(lambda: trav_k.traverse_forest_cuda(forest, codes,
+                                                     missing_bin=NB - 1))
+    plain_ms = time_ms(lambda: trav_k.traverse_forest_plain(forest, codes,
+                                                            NB - 1), reps=3)
+    n_words = 2 ** (DEPTH + 1) - 1
+    b_ms, b_by = bound(n * F + 4 * n * K + 4 * K * n_words,
+                       n * K * DEPTH * OPS_PER_HOP)
+    rows["traversal_classes"] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, max_abs_err=float((got - want).abs().max()),
+        shape=f"{shape} depth={DEPTH}")
+    log(f"class-batched traversal K={K} n={n}: parity ok  kernel {ms:.3f} ms"
+        f"  plain {plain_ms:.3f} ms  bound {b_ms:.3f} ms ({b_by})")
+
+    # -- ensemble: 72 rounds x 7 classes, tree t feeds column t % 7 --------
+    T = MC_ROUNDS_TIMED * K
+    trees = random_trees(T, F, gen, dev)
+    got = trav_k.predict_ensemble_cuda(trees, codes, missing_bin=NB - 1,
+                                       n_classes=K)
+    want = trav_k.predict_ensemble_plain(trees, codes, NB - 1, n_classes=K)
+    err = (got - want).abs()
+    check(got.shape == (n, K) and bool(torch.all(err <= 1e-5 * want.abs())),
+          "multi-class ensemble within rtol 1e-5 (dyadic leaves: exact)")
+    ms = time_ms(lambda: trav_k.predict_ensemble_cuda(
+        trees, codes, missing_bin=NB - 1, n_classes=K))
+    plain_ms = time_ms(lambda: trav_k.predict_ensemble_plain(
+        trees, codes, NB - 1, n_classes=K), reps=1)
+    hops = n * T * DEPTH
+    b_ms, b_by = bound(n * F + 4 * n * K + 4 * T * n_words,
+                       hops * OPS_PER_HOP)
+    rows["ensemble_classes"] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, max_abs_err=float(err.max()),
+        shape=f"{shape} T={T} depth={DEPTH}",
+        bytes_bound_ms=(n * F + 4 * n * K + 4 * T * n_words)
+        / HBM_BYTES_PER_S * 1e3)
+    log(f"multi-class ensemble K={K} n={n} T={T}: parity ok  kernel "
+        f"{ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b_ms:.3f} ms "
+        f"({b_by}; {hops:.3g} hops)")
+    return rows
+
+
+def mc_main_path(n: int, n_rounds: int, seed: int, dev):
+    """Phase 3b: fit and predict a Covertype-shaped multi-class GBDT
+    through the entry points a user calls.  Returns the run's launch
+    counts, the median wall time of its steady rounds (ms) and the fit's
+    inputs."""
+    from repro_torch.core.binning import Binner
+    from repro_torch.core.gbdt import GBDTConfig, train
+    from repro_torch.data import make_tabular
+    from repro_torch.kernels import _build
+
+    K = MC_CLASSES
+    n_eval = max(1, n // 10)
+    t0 = time.perf_counter()
+    X, y, cats = make_tabular(n + n_eval, MC_NUMERIC, MC_BINARY, n_cats=2,
+                              task="multiclass", n_classes=K, seed=seed)
+    t1 = time.perf_counter()
+    binner = Binner(N_BINS, categorical_fields=cats).fit(X[:n])
+    t2 = time.perf_counter()
+    data = binner.transform(X[:n], device=dev)
+    ev_data = binner.transform(X[n:], device=dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    y_tr, y_ev = y[:n], y[n:]
+    counts_ev = [int((y_ev == k).sum()) for k in range(K)]
+    log(f"data: Covertype-shaped n={n} held-out={n_eval} F={X.shape[1]} "
+        f"({len(cats)} categorical) K={K}  make {t1 - t0:.3f} s  "
+        f"Binner.fit {t2 - t1:.3f} s  transform {t3 - t2:.3f} s  "
+        f"held-out class counts {counts_ev}")
+    del X
+    config = GBDTConfig(n_trees=n_rounds, max_depth=DEPTH, learning_rate=0.1,
+                        objective="multi:softmax", n_classes=K, seed=seed)
+
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stamps = [t0]           # the loss read ends every round in a sync
+    res = train(config, data, y_tr, device=dev,
+                callback=lambda t, m: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ev_margin = res.model.predict_margin(ev_data)
+    tr_margin = res.model.predict_margin(data)
+    ev_prob = res.model.predict(ev_data)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = _build.launch_counts()
+
+    loss = res.history["train_loss"]
+    log(f"multi-class train: {t1 - t0:.3f} s  {n * n_rounds / (t1 - t0):.1f}"
+        f" record-rounds/s  ({K} trees a round)  step_times "
+        f"{json.dumps(res.step_times)}")
+    log(f"multi-class train_loss {loss}")
+    rounds_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    log("multi-class round wall ms "
+        + json.dumps([round(r, 3) for r in rounds_ms]))
+    log(f"multi-class predict_margin x2 + predict: {t2 - t1:.3f} s")
+    log(f"multi-class launches {json.dumps(counts)}")
+    check(res.model.n_trees == K * n_rounds and res.model.n_rounds == n_rounds,
+          f"{K} trees a round")
+    check(counts["histogram"] == DEPTH * n_rounds,
+          "class-batched histogram launched once per level")
+    check(counts["partition"] == DEPTH * n_rounds,
+          "class-batched partition launched once per level")
+    check(counts["traversal"] == n_rounds,
+          "class-batched traversal launched once per round")
+    check(counts["ensemble"] >= 1, "multi-class ensemble launched")
+    check(all(b < a for a, b in zip(loss, loss[1:])),
+          "multi-class train loss strictly decreases")
+    y_ev_t = torch.as_tensor(y_ev, device=dev).long()
+    acc = float((ev_margin.argmax(dim=1) == y_ev_t).float().mean())
+    majority = max(counts_ev) / len(y_ev)
+    log(f"multi-class held-out accuracy {acc:.6f} vs majority class "
+        f"{majority:.6f}")
+    check(acc > majority, "held-out argmax accuracy beats the majority class")
+    check(bool(torch.isfinite(tr_margin).all())
+          and tr_margin.shape == (n, K), f"finite margins of shape (n, {K})")
+    torch.testing.assert_close(tr_margin, res.margins, rtol=1e-5, atol=1e-6)
+    log("predict_margin on the training rows replays the fit's (n, 7) "
+        "margins (rtol 1e-5)")
+    torch.testing.assert_close(ev_prob.sum(dim=1),
+                               torch.ones(n_eval, device=dev), rtol=1e-5,
+                               atol=1e-5)
+    log("predict rows sum to 1")
+    steady_ms = statistics.median(rounds_ms[1:] or rounds_ms)
+    return counts, steady_ms, (config, data, y_tr)
+
+
+def round_breakdown(label: str, config, data, y, steady_ms: float) -> None:
+    """Phase 4: device time by kernel over a one-round fit, set against the
+    wall time of a steady round of a main path (``steady_ms``, profiler
     off), and the host operations that take the most time."""
     import dataclasses
 
@@ -372,12 +651,14 @@ def round_breakdown(config, data, y, steady_ms: float) -> None:
                       if "CUDA" in str(getattr(e, "device_type", ""))
                       and device_us(e) > 0), reverse=True)
     if not kernels:
-        log("round breakdown: torch.profiler reported no device time")
+        log(f"{label} round breakdown: torch.profiler reported no device "
+            "time")
         return
     total = sum(t for t, _, _ in kernels)
     # host-to-device copies are the fit's one-off label upload
     per_round = sum(t for t, key, _ in kernels if "Memcpy HtoD" not in key)
-    log(f"round breakdown (one-tree fit, torch.profiler): device total "
+    log(f"{label} round breakdown (one-round fit, torch.profiler): "
+        f"device total "
         f"{total / 1e3:.3f} ms, {per_round / 1e3:.3f} ms without "
         f"host-to-device copies; steady round wall {steady_ms:.3f} ms -> "
         f"device idle share {1 - per_round / 1e3 / steady_ms:.3f}")
@@ -386,7 +667,7 @@ def round_breakdown(config, data, y, steady_ms: float) -> None:
     host = sorted(((e.self_cpu_time_total, e.key, e.count) for e in events
                    if "CPU" in str(getattr(e, "device_type", ""))),
                   reverse=True)
-    log("host operations by self time:")
+    log(f"{label} host operations by self time:")
     for t, key, cnt in host[:10]:
         log(f"  {t / 1e3:10.3f} ms  x{cnt:<4d} {key[:90]}")
 
@@ -417,22 +698,52 @@ def main(argv=None) -> int:
     environment(_build)
     rows = kernel_parity(args.records, args.seed, dev)
     torch.cuda.empty_cache()
+    rows.update(class_parity(MC_RECORDS, args.seed, dev))
+    torch.cuda.empty_cache()
     counts, steady_ms, (config, data, y) = main_path(
         args.records, args.trees, args.seed, dev)
-    round_breakdown(config, data, y, steady_ms)
+    round_breakdown("Higgs", config, data, y, steady_ms)
+    del data
+    torch.cuda.empty_cache()
+    mc_counts, mc_steady_ms, (mc_config, mc_data, mc_y) = mc_main_path(
+        MC_RECORDS, MC_ROUNDS, args.seed, dev)
+    # the histogram's time depends on the codes: its row is timed on the
+    # multi-class path's own, after that path's launch counts were read
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    cover = class_histogram(mc_data.codes, gen, dev, "Covertype-shaped codes",
+                            False)
+    cover["max_abs_err"] = max(cover["max_abs_err"],
+                               rows["histogram_classes"]["max_abs_err"])
+    rows["histogram_classes"].update(cover)
+    round_breakdown("multi-class", mc_config, mc_data, mc_y, mc_steady_ms)
 
-    meta = {
-        "histogram": ("histogram.cu", "src/repro/kernels/histogram.py:77"),
-        "partition": ("partition.cu", "src/repro/kernels/partition.py:38"),
-        "traversal": ("traversal.cu", "src/repro/kernels/traversal.py:84"),
-        "ensemble": ("traversal.cu", "src/repro/kernels/traversal.py:125"),
-    }
+    # (row, kernel counter, source, TPU kernel, launches of which path)
+    meta = [
+        ("histogram", "histogram", "histogram.cu",
+         "src/repro/kernels/histogram.py:77", counts),
+        ("partition", "partition", "partition.cu",
+         "src/repro/kernels/partition.py:38", counts),
+        ("traversal", "traversal", "traversal.cu",
+         "src/repro/kernels/traversal.py:84", counts),
+        ("ensemble", "ensemble", "traversal.cu",
+         "src/repro/kernels/traversal.py:125", counts),
+        # the class axis of _stats_node, read by _hist_kernel_grouped (:77)
+        ("histogram_classes", "histogram", "histogram.cu",
+         "src/repro/kernels/histogram.py:58", mc_counts),
+        ("partition_classes", "partition", "partition.cu",
+         "src/repro/kernels/partition.py:38", mc_counts),
+        ("traversal_classes", "traversal", "traversal.cu",
+         "src/repro/kernels/traversal.py:84", mc_counts),
+        ("ensemble_classes", "ensemble", "traversal.cu",
+         "src/repro/kernels/traversal.py:125", mc_counts),
+    ]
     table = []
-    for name, (source, replaces) in meta.items():
+    for name, counter, source, replaces, path_counts in meta:
         row = rows[name]
         table.append({"name": name, "route": "cuda",
                       "source": f"src/repro_torch/csrc/{source}",
-                      "replaces": replaces, "launches": counts[name],
+                      "replaces": replaces,
+                      "launches": path_counts[counter],
                       "max_abs_err": row.pop("max_abs_err"),
                       "ms": row.pop("ms"), "plain_ms": row.pop("plain_ms"),
                       "bound_ms": row.pop("bound_ms"),

@@ -1,9 +1,9 @@
-"""Differentiable losses for gradient boosting (scalar objectives).
+"""Differentiable losses for gradient boosting.
 
 The counterpart of :mod:`repro.core.losses`.  Training only consumes the
 per-record first/second order statistics (g_i, h_i) of the loss at the
-current margin, which are closed-form and elementwise.  The multi-class
-softmax objective is not ported yet.
+current margin, which are closed-form and elementwise.  ``multi:softmax``
+has (n, K) margins and statistics, one column per class.
 """
 from __future__ import annotations
 
@@ -18,7 +18,8 @@ Tensor = torch.Tensor
 @dataclasses.dataclass(frozen=True)
 class Loss:
     """A boosting loss: value + (g, h) statistics at the current margin.
-    Scalar-margin losses leave ``n_outputs`` at ``None``."""
+    Scalar-margin losses leave ``n_outputs`` at ``None``; multi-class
+    losses set it to K (margins are then (n, K))."""
 
     name: str
     value_fn: Callable[[Tensor, Tensor], Tensor]
@@ -111,6 +112,48 @@ pseudo_huber = Loss(
     base_margin_fn=_median,
 )
 
+# --------------------------------------------------------------------------
+# multi-class softmax (vector margins, K per-class trees per round)
+# --------------------------------------------------------------------------
+def _softmax_value(margin, y):
+    # cross-entropy: logsumexp(m) - m[y], numerically stable
+    picked = torch.gather(margin, -1, y.long()[:, None])[:, 0]
+    return torch.logsumexp(margin, dim=-1) - picked
+
+
+def _softmax_grad_hess(margin, y):
+    """Diagonal of the softmax cross-entropy Hessian:
+    g_k = p_k - 1[y == k],  h_k = max(p_k (1 - p_k), 1e-16)."""
+    K = margin.shape[-1]
+    p = torch.softmax(margin, dim=-1)
+    g = p - torch.nn.functional.one_hot(y.long(), K).to(p.dtype)
+    h = torch.clamp(p * (1.0 - p), min=1e-16)
+    return g, h
+
+
+def multi_softmax(n_classes: int) -> Loss:
+    """The ``multi:softmax`` objective for a fixed class count ``K``."""
+    if n_classes < 2:
+        raise ValueError(f"multi:softmax needs n_classes >= 2, "
+                         f"got {n_classes}")
+
+    def base_margin(y):
+        # log class priors, centred (softmax is shift-invariant)
+        counts = torch.bincount(y.long(), minlength=n_classes)[:n_classes]
+        p = torch.clamp(counts / max(y.shape[0], 1), 1e-6, 1.0)
+        logp = torch.log(p.to(torch.float32))
+        return logp - torch.mean(logp)
+
+    return Loss(
+        name="multi:softmax",
+        value_fn=_softmax_value,
+        grad_hess_fn=_softmax_grad_hess,
+        transform_fn=lambda m: torch.softmax(m, dim=-1),
+        base_margin_fn=base_margin,
+        n_outputs=int(n_classes),
+    )
+
+
 LOSSES = {
     squared_error.name: squared_error,
     binary_logistic.name: binary_logistic,
@@ -122,9 +165,9 @@ MULTICLASS_OBJECTIVES = ("multi:softmax",)
 
 def get_loss(name: str, n_classes: Optional[int] = None) -> Loss:
     if name in MULTICLASS_OBJECTIVES:
-        raise NotImplementedError(
-            f"{name!r} is not ported yet (ROADMAP Queue 1: "
-            "K > 1)")
+        if n_classes is None:
+            raise ValueError(f"{name!r} requires n_classes")
+        return multi_softmax(n_classes)
     if name not in LOSSES:
         raise KeyError(f"unknown loss {name!r}; available: "
                        f"{sorted(LOSSES) + list(MULTICLASS_OBJECTIVES)}")

@@ -17,6 +17,10 @@
 //   * partition_cm_launch reads codes_cm[f, r] straight from the
 //     column-major copy (split_feature holds global field ids), so the
 //     grower never materialises the (NN, n) gather of the level's columns.
+//     It carries a class axis: node ids (K, n), split tables (K, NN) and
+//     output (K, n) over the shared codes, one launch with the class as
+//     blockIdx.y (the TPU build vmaps its kernel over the classes,
+//     src/repro/core/tree.py:159).  Each block stages its class's table.
 // A node id outside [0, NN) or a feature outside the code matrix yields -1
 // (the plain version raises on such input; the kernel cannot).
 #include "launch.cuh"
@@ -46,18 +50,21 @@ __global__ void partition_cm_kernel(const int32_t* __restrict__ node,
                                     int32_t* __restrict__ out, long long n,
                                     int F, int NN, int missing_bin) {
     extern __shared__ int4 splits[];
-    for (int i = threadIdx.x; i < NN; i += blockDim.x) splits[i] = table[i];
+    const int k = blockIdx.y;            // class
+    for (int i = threadIdx.x; i < NN; i += blockDim.x)
+        splits[i] = table[static_cast<long long>(k) * NN + i];
     __syncthreads();
     const long long r = static_cast<long long>(blockIdx.x) * blockDim.x
                         + threadIdx.x;
     if (r >= n) return;
-    const int nd = node[r];
-    if (nd < 0 || nd >= NN) { out[r] = -1; return; }
+    const long long kr = static_cast<long long>(k) * n + r;
+    const int nd = node[kr];
+    if (nd < 0 || nd >= NN) { out[kr] = -1; return; }
     const int4 p = splits[nd];
-    if (p.x >= F) { out[r] = -1; return; }
+    if (p.x >= F) { out[kr] = -1; return; }
     const int code = p.x >= 0 ? codes_cm[static_cast<long long>(p.x) * n + r]
                               : 0;
-    out[r] = 2 * nd + 1 - go_left_of(code, p.x, p.y, p.z, p.w, missing_bin);
+    out[kr] = 2 * nd + 1 - go_left_of(code, p.x, p.y, p.z, p.w, missing_bin);
 }
 
 static int blocks_for(long long n, int threads) {
@@ -80,9 +87,10 @@ extern "C" int partition_rows_launch(const void* node, const void* codes,
 
 extern "C" int partition_cm_launch(const void* node, const void* codes_cm,
                                    const void* table, void* out, long long n,
-                                   int F, int NN, int missing_bin, int threads,
-                                   void* stream) {
-    partition_cm_kernel<<<blocks_for(n, threads), threads, NN * sizeof(int4),
+                                   int F, int K, int NN, int missing_bin,
+                                   int threads, void* stream) {
+    const dim3 grid(blocks_for(n, threads), K);
+    partition_cm_kernel<<<grid, threads, NN * sizeof(int4),
                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(node),
         static_cast<const uint8_t*>(codes_cm),

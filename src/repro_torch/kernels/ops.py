@@ -21,16 +21,17 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.ref import TreeArrays
 
 __all__ = ["build_histogram", "partition_level", "partition_level_cm",
-           "traverse_tree", "predict_ensemble"]
+           "traverse_tree", "traverse_forest", "predict_ensemble"]
 
 
 def build_histogram(codes, g, h, node_ids, *, n_nodes: int, n_bins: int,
                     plan: Optional[ExecutionPlan] = None) -> torch.Tensor:
-    """(n, F) codes -> (n_nodes, F, n_bins, 2) float32 histogram."""
-    if g.ndim != 1:
-        raise NotImplementedError(
-            "class-batched (K, n) histograms are not ported yet (ROADMAP "
-            "Queue 1: K > 1)")
+    """(n, F) codes -> (n_nodes, F, n_bins, 2) float32 histogram.
+
+    Class-batched form: g, h and node_ids (K, n) — every class has its own
+    node partition over the shared codes — give (K, n_nodes, F, n_bins, 2)
+    from one launch.
+    """
     if resolve_plan(plan).hist_strategy == "reference":
         return _ref.histogram_ref(codes, g, h, node_ids, n_nodes, n_bins)
     return _hist_k.histogram_cuda(codes, g, h, node_ids, n_nodes=n_nodes,
@@ -54,7 +55,8 @@ def partition_level_cm(node_ids, codes_cm, split_feature, split_threshold,
                        split_is_cat, split_default_left, *, missing_bin: int,
                        plan: Optional[ExecutionPlan] = None) -> torch.Tensor:
     """Step ③ reading the (F, n) column-major copy directly; split_feature
-    holds global field ids (-1 = pass-through)."""
+    holds global field ids (-1 = pass-through).  Class-batched: node_ids
+    (K, n) and split tables (K, NN) give (K, n) in one launch."""
     if resolve_plan(plan).partition_strategy == "reference":
         return _part_k.partition_cm_plain(node_ids, codes_cm, split_feature,
                                           split_threshold, split_is_cat,
@@ -72,17 +74,26 @@ def traverse_tree(tree: TreeArrays, codes, *, missing_bin: int,
     return _trav_k.traverse_cuda(tree, codes, missing_bin=missing_bin)
 
 
+def traverse_forest(forest: TreeArrays, codes, *, missing_bin: int,
+                    plan: Optional[ExecutionPlan] = None) -> torch.Tensor:
+    """Step ⑤ for one round's K class trees (stacked (K, ...)) -> (n, K);
+    codes (n, C) shared by every class or (K, n, C) per class."""
+    if resolve_plan(plan).traversal_strategy == "reference":
+        return _ref.traverse_forest_ref(forest, codes, missing_bin)
+    return _trav_k.traverse_forest_cuda(forest, codes,
+                                        missing_bin=missing_bin)
+
+
 def predict_ensemble(trees: TreeArrays, codes, *, missing_bin: int,
                      depth: int, plan: Optional[ExecutionPlan] = None,
                      n_classes: int = 1) -> torch.Tensor:
-    """Ensemble margins (n,) for scalar objectives."""
-    if n_classes != 1:
-        raise NotImplementedError(
-            "multi-class ensembles are not ported yet (ROADMAP Queue 1: "
-            "K > 1)")
+    """Ensemble margins: (n,) for scalar objectives, (n, K) when
+    ``n_classes`` = K > 1 (trees round-major, tree t feeds class t % K)."""
     if trees.leaf_value.shape[-1] != 2 ** depth:
         raise ValueError(f"trees are not of depth {depth}")
     if resolve_plan(plan).traversal_strategy == "reference":
-        return _trav_k.predict_ensemble_plain(trees, codes, missing_bin)
+        return _trav_k.predict_ensemble_plain(trees, codes, missing_bin,
+                                              n_classes)
     return _trav_k.predict_ensemble_cuda(trees, codes,
-                                         missing_bin=missing_bin)
+                                         missing_bin=missing_bin,
+                                         n_classes=n_classes)

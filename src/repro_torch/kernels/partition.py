@@ -11,8 +11,11 @@ parameter fetch becomes an integer index).  Two entries:
     (n, C), the level's gathered columns;
   * :func:`partition_cm_cuda` reads ``codes_cm[f, r]`` straight from the
     (F, n) column-major copy, so the grower never materialises the (NN, n)
-    gather of a level's columns.  Its plain version is that gather plus
-    :func:`partition_ref`.
+    gather of a level's columns.  It takes a class axis — node ids (K, n),
+    split tables (K, NN), output (K, n) — in one launch with the class as
+    a grid axis (the TPU build vmaps ``partition_pallas`` over classes).
+    Its plain version is that gather plus :func:`partition_ref`, class by
+    class (:func:`repro_torch.kernels.ref.partition_cm_ref`).
 
 Integer-exact: both entries are bit-equal to their plain versions.
 """
@@ -21,59 +24,51 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import partition_cm_ref as partition_cm_plain
 from repro_torch.kernels.ref import partition_ref as partition_plain
 
 THREADS = 256
 MAX_NODES = 3072             # split table of 16-byte entries within 48 KB
 
 
-def partition_cm_plain(node_ids, codes_cm, split_feature, split_threshold,
-                       split_is_cat, split_default_left, missing_bin: int):
-    """Plain version of the column-major entry: gather the level's columns
-    from ``codes_cm`` (global field ids, -1 = pass-through), renumber the
-    splits onto them, and route with :func:`partition_ref`."""
-    nn = split_feature.shape[0]
-    codes_lvl = codes_cm[split_feature.clamp(min=0).long()].T      # (n, NN)
-    renum = torch.where(split_feature >= 0,
-                        torch.arange(nn, dtype=torch.int32,
-                                     device=split_feature.device), -1)
-    return partition_plain(node_ids, codes_lvl, renum, split_threshold,
-                           split_is_cat, split_default_left, missing_bin)
-
-
 def _split_table(node_ids, codes, split_feature, split_threshold,
                  split_is_cat, split_default_left, what: str) -> torch.Tensor:
-    """Check the kernel's inputs and pack the (NN, 4) int32 split table."""
+    """Check the kernel's inputs and pack the (NN, 4) — class-batched
+    (K, NN, 4) — int32 split table."""
     if codes.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {codes.device}")
     if codes.dtype != torch.uint8 or codes.ndim != 2 \
             or not codes.is_contiguous():
         raise ValueError(f"{what}: codes must be a contiguous 2-D uint8 "
                          "tensor")
-    if node_ids.dtype != torch.int32 or node_ids.ndim != 1 \
+    if node_ids.dtype != torch.int32 or node_ids.ndim not in (1, 2) \
             or not node_ids.is_contiguous() \
             or node_ids.device != codes.device:
-        raise ValueError(f"{what}: node_ids must be a contiguous 1-D int32 "
-                         f"tensor on {codes.device}")
-    nn = split_feature.shape[0]
+        raise ValueError(f"{what}: node_ids must be a contiguous (n,) or "
+                         f"(K, n) int32 tensor on {codes.device}")
+    nn = split_feature.shape[-1]
     if not 1 <= nn <= MAX_NODES:
         raise ValueError(f"{what}: {nn} split nodes outside [1, {MAX_NODES}]")
+    shape = node_ids.shape[:-1] + (nn,)
     parts = (split_feature, split_threshold, split_is_cat, split_default_left)
-    if any(p.shape != (nn,) or p.device != codes.device for p in parts):
-        raise ValueError(f"{what}: split tables must be ({nn},) tensors on "
-                         f"{codes.device}")
-    return torch.stack(parts, dim=1).to(torch.int32).contiguous()
+    if any(p.shape != shape or p.device != codes.device for p in parts):
+        raise ValueError(f"{what}: split tables must be {tuple(shape)} "
+                         f"tensors on {codes.device}")
+    return torch.stack(parts, dim=-1).to(torch.int32).contiguous()
 
 
 def _launch(symbol: str, what: str, node_ids, codes, table, n: int,
-            width: int, missing_bin: int) -> torch.Tensor:
-    out = torch.empty((n,), dtype=torch.int32, device=codes.device)
-    if n == 0:
+            dims, missing_bin: int) -> torch.Tensor:
+    """Launch a partition entry: ``dims`` are its int shape arguments
+    between n and the table's node count."""
+    out = torch.empty(node_ids.shape, dtype=torch.int32, device=codes.device)
+    if out.numel() == 0:
         return out
     P, I, I64 = _build.POINTER, _build.INT, _build.INT64
-    fn = _build.function("partition", symbol, [P, P, P, P, I64, I, I, I, I, P])
+    fn = _build.function("partition", symbol,
+                         [P, P, P, P, I64] + [I] * len(dims) + [I, I, I, P])
     err = fn(node_ids.data_ptr(), codes.data_ptr(), table.data_ptr(),
-             out.data_ptr(), n, width, table.shape[0], missing_bin, THREADS,
+             out.data_ptr(), n, *dims, table.shape[-2], missing_bin, THREADS,
              torch.cuda.current_stream(codes.device).cuda_stream)
     _build.check("partition", err, what)
     _build.count("partition")
@@ -95,17 +90,22 @@ def partition_cuda(node_ids, codes_lvl, split_feature, split_threshold,
     table = _split_table(node_ids, codes_lvl, split_feature, split_threshold,
                          split_is_cat, split_default_left, "partition")
     n, C = codes_lvl.shape
-    if node_ids.shape[0] != n:
-        raise ValueError("partition: node_ids and codes_lvl disagree on n")
+    if node_ids.shape != (n,):
+        raise ValueError("partition: node_ids must be (n,) with n the "
+                         "records of codes_lvl")
     return _launch("partition_rows_launch", "partition", node_ids, codes_lvl,
-                   table, n, C, missing_bin)
+                   table, n, (C,), missing_bin)
 
 
 def partition_cm_cuda(node_ids, codes_cm, split_feature, split_threshold,
                       split_is_cat, split_default_left, *,
                       missing_bin: int) -> torch.Tensor:
     """As :func:`partition_cuda`, reading the (F, n) column-major copy;
-    split_feature holds global field ids, or -1 (pass-through)."""
+    split_feature holds global field ids, or -1 (pass-through).
+
+    Class-batched: node_ids (K, n) and split_* (K, NN) route every class's
+    records in one launch; out (K, n).
+    """
     if codes_cm.device.type == "cpu":
         return partition_cm_plain(node_ids, codes_cm, split_feature,
                                   split_threshold, split_is_cat,
@@ -113,7 +113,10 @@ def partition_cm_cuda(node_ids, codes_cm, split_feature, split_threshold,
     table = _split_table(node_ids, codes_cm, split_feature, split_threshold,
                          split_is_cat, split_default_left, "partition_cm")
     F, n = codes_cm.shape
-    if node_ids.shape[0] != n:
+    if node_ids.shape[-1] != n:
         raise ValueError("partition_cm: node_ids and codes_cm disagree on n")
+    K = node_ids.shape[0] if node_ids.ndim == 2 else 1
+    if K > 65535:
+        raise ValueError(f"partition_cm: {K} classes exceed the grid")
     return _launch("partition_cm_launch", "partition_cm", node_ids, codes_cm,
-                   table, n, F, missing_bin)
+                   table, n, (F, K), missing_bin)

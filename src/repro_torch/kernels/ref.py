@@ -4,10 +4,17 @@ The counterparts of :mod:`repro.kernels.ref`.  They are the ground truth
 the CUDA kernels are held against, and the code that runs for tensors on
 the CPU:
 
-  * ``histogram_ref``            — step ① histogram binning
+  * ``histogram_ref``            — step ① histogram binning (one class
+                                   or class-batched)
   * ``partition_ref``            — step ③ single-predicate evaluation
+  * ``partition_cm_ref``         — step ③ read from the column-major copy
+                                   (one class or class-batched)
   * ``traverse_ref``             — step ⑤ one-tree traversal
+  * ``traverse_forest_ref``      — step ⑤ for one round's K class trees
   * ``predict_ensemble_batched`` — batch inference over a stacked ensemble
+
+The class-batched versions compute what ``jax.vmap`` over the class axis
+computes in the JAX package, one class after another.
 """
 from __future__ import annotations
 
@@ -44,8 +51,14 @@ def histogram_ref(codes: Tensor, g: Tensor, h: Tensor, node_ids: Tensor,
     """Scatter-add: hist[node, f, bin] += (g, h).
 
     codes: (n, F) uint; g, h: (n,); node_ids: (n,) int32 in [0, n_nodes).
-    Returns (n_nodes, F, n_bins, 2) float32.
+    Returns (n_nodes, F, n_bins, 2) float32.  Class-batched: g, h and
+    node_ids (K, n), every class with its own node partition over the
+    shared codes; returns (K, n_nodes, F, n_bins, 2).
     """
+    if g.ndim == 2:
+        return torch.stack([histogram_ref(codes, g[k], h[k], node_ids[k],
+                                          n_nodes, n_bins)
+                            for k in range(g.shape[0])])
     n, F = codes.shape
     stats = torch.stack([g, h], dim=-1).to(torch.float32)          # (n, 2)
     comb = node_ids.long()[:, None] * n_bins + codes.long()         # (n, F)
@@ -89,6 +102,30 @@ def partition_ref(node_ids: Tensor, codes_lvl: Tensor, split_feature: Tensor,
     return (2 * node_ids + (1 - go_left.to(torch.int32))).to(torch.int32)
 
 
+def partition_cm_ref(node_ids: Tensor, codes_cm: Tensor, split_feature: Tensor,
+                     split_threshold: Tensor, split_is_cat: Tensor,
+                     split_default_left: Tensor, missing_bin: int) -> Tensor:
+    """Step ③ as the grower runs it: gather the level's split columns from
+    the (F, n) column-major copy (``split_feature`` holds global field
+    ids, -1 = pass-through), renumber the splits onto them and route with
+    :func:`partition_ref`.
+
+    Class-batched: node_ids (K, n) and split tables (K, NN) give (K, n).
+    """
+    if node_ids.ndim == 2:
+        return torch.stack([partition_cm_ref(
+            node_ids[k], codes_cm, split_feature[k], split_threshold[k],
+            split_is_cat[k], split_default_left[k], missing_bin)
+            for k in range(node_ids.shape[0])])
+    nn = split_feature.shape[0]
+    codes_lvl = codes_cm[split_feature.clamp(min=0).long()].T      # (n, NN)
+    renum = torch.where(split_feature >= 0,
+                        torch.arange(nn, dtype=torch.int32,
+                                     device=split_feature.device), -1)
+    return partition_ref(node_ids, codes_lvl, renum, split_threshold,
+                         split_is_cat, split_default_left, missing_bin)
+
+
 # --------------------------------------------------------------------------
 # step ⑤ — one-tree traversal and batch inference
 # --------------------------------------------------------------------------
@@ -111,10 +148,26 @@ def traverse_ref(tree: TreeArrays, codes: Tensor, missing_bin: int) -> Tensor:
     return tree.leaf_value[node - (2 ** depth - 1)]
 
 
+def traverse_forest_ref(forest: TreeArrays, codes: Tensor,
+                        missing_bin: int) -> Tensor:
+    """One round's K class trees (stacked (K, ...)) over the same records;
+    returns (n, K) leaf values.
+
+    codes: (n, C) shared by every class, or (K, n, C) with class k's
+    columns (the renumbered-column fetch gathers per class).
+    """
+    return torch.stack([traverse_ref(TreeArrays(*[a[k] for a in forest]),
+                                     codes[k] if codes.ndim == 3 else codes,
+                                     missing_bin)
+                        for k in range(forest.feature.shape[0])], dim=1)
+
+
 def predict_ensemble_batched(trees: TreeArrays, codes: Tensor,
-                             missing_bin: int) -> Tensor:
+                             missing_bin: int, n_classes: int = 1) -> Tensor:
     """Tree-batched batch inference: all trees advance one level per pass
-    over an (n, T) node matrix; returns the (n,) sum over the T trees.
+    over an (n, T) node matrix; returns the (n,) sum over the T trees, or
+    (n, K) class margins when ``n_classes`` = K > 1 (trees round-major:
+    tree t feeds column t % K through a (T, K) one-hot fold).
 
     ``trees`` holds stacked arrays with a leading tree dimension (T, ...).
     Node paths and leaf choices are those of ``traverse_ref`` tree by tree;
@@ -135,4 +188,8 @@ def predict_ensemble_batched(trees: TreeArrays, codes: Tensor,
                                   torch.gather(dl_t, 0, node), missing_bin)
         node = 2 * node + 2 - go_left.long()
     vals = torch.gather(trees.leaf_value.T, 0, node - (2 ** depth - 1))
-    return vals.sum(dim=1)
+    if n_classes == 1:
+        return vals.sum(dim=1)
+    cls_oh = torch.nn.functional.one_hot(
+        torch.arange(T, device=codes.device) % n_classes, n_classes)
+    return vals @ cls_oh.to(torch.float32)

@@ -166,8 +166,14 @@ def test_losses_match_jax(name):
 
 def test_loss_registry():
     assert set(losses.LOSSES) == set(jax_losses.LOSSES)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        losses.get_loss("multi:softmax", 3)
+    soft = losses.get_loss("multi:softmax", 3)
+    assert soft.name == "multi:softmax" and soft.n_outputs == 3
+    assert jax_losses.get_loss("multi:softmax", 3).n_outputs == 3
+    for bad in (None, 1):
+        with pytest.raises(ValueError):
+            jax_losses.get_loss("multi:softmax", bad)
+        with pytest.raises(ValueError):
+            losses.get_loss("multi:softmax", bad)
     with pytest.raises(KeyError):
         losses.get_loss("rank:pairwise")
 

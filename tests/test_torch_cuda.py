@@ -6,7 +6,8 @@ Imports nothing of JAX, so it runs on a machine that has only PyTorch:
 
 Without a CUDA device every test skips (the kernels have no CPU mode).
 Integer outputs are bit-equal; histograms bit-equal on dyadic g, h; the
-ensemble sum, taken in another order, to rtol 1e-5.
+ensemble sum, taken in another order, to rtol 1e-5.  Each class-batched
+kernel is held against its plain version at K = 1 and K > 1.
 """
 import numpy as np
 import pytest
@@ -61,6 +62,28 @@ def test_histogram_kernel_matches_plain(cuda, n, F, NB, NN):
     assert torch.equal(got, hist_k.histogram_plain(codes, g, h, nid, NN, NB))
 
 
+@pytest.mark.parametrize("n,F,NB,NN,K", [
+    (777, 13, 16, 4, 1), (1000, 5, 16, 2, 3),
+    # 7 x 32 slots of 256 bins: 1.75 MB per field, tiled over 3 blocks
+    (5000, 54, 256, 32, 7),
+    # 3 x 512 slots: 16 slot tiles; a class boundary inside a tile
+    (3000, 3, 256, 512, 3)])
+def test_class_batched_histogram_kernel_matches_plain(cuda, n, F, NB, NN, K):
+    rng = np.random.default_rng(n + K)
+    codes = torch.from_numpy(_codes(n, F, NB, rng)).to(cuda)
+    g = torch.from_numpy(rng.integers(-64, 64, (K, n)) / 64).float().to(cuda)
+    h = torch.from_numpy(rng.integers(1, 64, (K, n)) / 64).float().to(cuda)
+    nid = torch.from_numpy(rng.integers(0, NN, (K, n)).astype(np.int32)
+                           ).to(cuda)
+    st, _ = hist_k.tile_shape(K * NN, F, NB)
+    assert (st < K * NN) == (K * NN * NB * 8 > hist_k.SMEM_BUDGET)
+    before = _build.launch_counts()["histogram"]
+    got = hist_k.histogram_cuda(codes, g, h, nid, n_nodes=NN, n_bins=NB)
+    assert _build.launch_counts()["histogram"] == before + 1
+    assert got.shape == (K, NN, F, NB, 2)
+    assert torch.equal(got, hist_k.histogram_plain(codes, g, h, nid, NN, NB))
+
+
 def test_partition_kernels_match_plain(cuda):
     rng = np.random.default_rng(0)
     n, nn, F, n_bins = 3001, 16, 28, 256
@@ -79,6 +102,63 @@ def test_partition_kernels_match_plain(cuda):
         part_k.partition_cm_cuda(nid, codes_cm, *split,
                                  missing_bin=n_bins - 1),
         part_k.partition_cm_plain(nid, codes_cm, *split, n_bins - 1))
+
+
+@pytest.mark.parametrize("K,nn", [(1, 16), (3, 4), (7, 32)])
+def test_class_batched_partition_kernel_matches_plain(cuda, K, nn):
+    rng = np.random.default_rng(K)
+    n, F, n_bins = 3001, 54, 256
+    nid = torch.from_numpy(rng.integers(0, nn, (K, n)).astype(np.int32)
+                           ).to(cuda)
+    codes_cm = torch.from_numpy(_codes(n, F, n_bins, rng).T.copy()).to(cuda)
+    split = [torch.from_numpy(a).to(cuda) for a in (
+        rng.integers(-1, F, (K, nn)).astype(np.int32),
+        rng.integers(0, n_bins, (K, nn)).astype(np.int32),
+        rng.integers(0, 2, (K, nn)).astype(np.int32),
+        rng.integers(0, 2, (K, nn)).astype(np.int32))]
+    before = _build.launch_counts()["partition"]
+    got = part_k.partition_cm_cuda(nid, codes_cm, *split,
+                                   missing_bin=n_bins - 1)
+    assert _build.launch_counts()["partition"] == before + 1
+    assert torch.equal(got, part_k.partition_cm_plain(nid, codes_cm, *split,
+                                                      n_bins - 1))
+
+
+@pytest.mark.parametrize("K,depth,per_class", [(1, 6, False), (7, 6, False),
+                                               (4, 3, True)])
+def test_class_batched_traversal_kernel_matches_plain(cuda, K, depth,
+                                                      per_class):
+    rng = np.random.default_rng(K + depth)
+    C, n = 54, 4099
+    forest = _trees(K, depth, C, 256, rng, cuda)
+    shape = (K, n, C) if per_class else (n, C)
+    codes = torch.from_numpy(
+        _codes(int(np.prod(shape[:-1])), C, 256, rng).reshape(shape)).to(cuda)
+    before = _build.launch_counts()["traversal"]
+    got = trav_k.traverse_forest_cuda(forest, codes, missing_bin=255)
+    assert _build.launch_counts()["traversal"] == before + 1
+    assert got.shape == (n, K)
+    assert torch.equal(got, trav_k.traverse_forest_plain(forest, codes, 255))
+
+
+@pytest.mark.parametrize("T,K,depth", [(504, 7, 6), (10, 3, 4), (97, 2, 10)])
+def test_multiclass_ensemble_kernel_matches_plain(cuda, T, K, depth):
+    """Tree blocks that start inside a round (T and the staged block count
+    share no factor with K)."""
+    rng = np.random.default_rng(T)
+    trees = _trees(T, depth, 54, 256, rng, cuda)
+    codes = torch.from_numpy(_codes(3001, 54, 256, rng)).to(cuda)
+    got = trav_k.predict_ensemble_cuda(trees, codes, missing_bin=255,
+                                       n_classes=K)
+    assert got.shape == (3001, K)
+    torch.testing.assert_close(
+        got, trav_k.predict_ensemble_plain(trees, codes, 255, n_classes=K),
+        rtol=1e-5, atol=1e-5)
+    dyadic = trees._replace(leaf_value=torch.round(trees.leaf_value * 64) / 64)
+    assert torch.equal(
+        trav_k.predict_ensemble_cuda(dyadic, codes, missing_bin=255,
+                                     n_classes=K),
+        trav_k.predict_ensemble_plain(dyadic, codes, 255, n_classes=K))
 
 
 @pytest.mark.parametrize("T,depth", [(1, 6), (13, 3), (40, 10)])
@@ -124,3 +204,25 @@ def test_slice_on_card_matches_cpu(cuda):
                            getattr(cpu.model.trees, field))
     np.testing.assert_allclose(card.history["train_loss"],
                                cpu.history["train_loss"], rtol=1e-5)
+
+
+def test_multiclass_slice_on_card_matches_cpu(cuda):
+    X, y, cats = make_tabular(3000, 6, 4, n_cats=3, task="multiclass",
+                              n_classes=4, missing_rate=0.05, seed=5)
+    b = binning.Binner(64, cats).fit(X)
+    cfg = gbdt.GBDTConfig(n_trees=3, max_depth=3, learning_rate=0.5,
+                          objective="multi:softmax", n_classes=4)
+    cpu = gbdt.train(cfg, b.transform(X, device="cpu"), y, device="cpu")
+    _build.reset_launch_counts()
+    card = gbdt.train(cfg, b.transform(X), y)
+    counts = _build.launch_counts()
+    assert counts["histogram"] == counts["partition"] == 3 * 3
+    assert counts["traversal"] == 3
+    for field in ("feature", "threshold", "is_cat", "default_left"):
+        assert torch.equal(getattr(card.model.trees, field).cpu(),
+                           getattr(cpu.model.trees, field))
+    np.testing.assert_allclose(card.history["train_loss"],
+                               cpu.history["train_loss"], rtol=1e-5)
+    margins = card.model.predict_margin(b.transform(X))
+    assert margins.shape == (3000, 4) and _build.launch_counts()["ensemble"]
+    torch.testing.assert_close(margins, card.margins, rtol=1e-5, atol=1e-5)

@@ -185,7 +185,8 @@ def test_state_round_trip():
 @pytest.mark.parametrize("kw", [
     dict(fused_rounds=True), dict(grow_policy="lossguide"),
     dict(goss_top_rate=0.2, goss_other_rate=0.1),
-    dict(objective="multi:softmax", n_classes=3)])
+    # multi-class is ported; an unported option beside it still raises
+    dict(objective="multi:softmax", n_classes=3, fused_rounds=True)])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gbdt.GBDTConfig(**kw)

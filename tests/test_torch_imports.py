@@ -1,5 +1,6 @@
-"""Import guard: the port and its chip smoke script import neither JAX nor
-the JAX package (``repro``), not even a numpy-only module of it."""
+"""Import guard: the port, its chip smoke script and its GPU scripts import
+neither JAX nor the JAX package (``repro``), not even a numpy-only module
+of it."""
 import ast
 import os
 import pathlib
@@ -10,7 +11,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*.py"))
 
 
 def _forbidden(module: str) -> bool:

@@ -264,15 +264,17 @@ def test_plan_resolution_and_refusals():
         ExecutionPlan(hist_strategy="pallas_grouped")
     with pytest.raises(NotImplementedError):
         ExecutionPlan(mesh=object())
-    with pytest.raises(NotImplementedError):
-        ops.build_histogram(torch.zeros((8, 2), dtype=torch.uint8),
-                            torch.zeros((2, 8)), torch.zeros((2, 8)),
-                            torch.zeros((2, 8), dtype=torch.int32),
-                            n_nodes=1, n_bins=4)
-    with pytest.raises(NotImplementedError):
-        ops.predict_ensemble(_as(_random_trees(2, 2, 3, 4, 0), ref, _t),
-                             _t(_codes(8, 3, 4, 0)), missing_bin=3, depth=2,
-                             n_classes=3)
+    # class-batched statistics and multi-class ensembles are ported
+    hist = ops.build_histogram(torch.zeros((8, 2), dtype=torch.uint8),
+                               torch.ones((2, 8)), torch.ones((2, 8)),
+                               torch.zeros((2, 8), dtype=torch.int32),
+                               n_nodes=1, n_bins=4)
+    assert hist.shape == (2, 1, 2, 4, 2) and float(hist[..., 0].sum()) \
+        == 2 * 2 * 8
+    margins = ops.predict_ensemble(_as(_random_trees(2, 2, 3, 4, 0), ref, _t),
+                                   _t(_codes(8, 3, 4, 0)), missing_bin=3,
+                                   depth=2, n_classes=3)
+    assert margins.shape == (8, 3) and torch.all(margins[:, 2] == 0)
 
 
 def test_library_names_carry_source_hash():
