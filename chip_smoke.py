@@ -40,8 +40,27 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    histogram's dyadic parity and timing of phase 2b on this path's own
    codes, which give its kernel row (the random-code times stay as extra
    keys).
+2c. 4-bit packed codes: the nibble histogram against its plain version
+   and against the uint8 kernel on the same codes, at the IoT-shaped
+   path's shape (2,000,000 records, 115 fields, 16 bins; NN = 1 and 32)
+   and at K = 7 (581,012 records, 54 fields, 224 slots); the nibble
+   column-major partition at an odd record count, K = 1 and 7; the
+   naive-packing histogram (the Fig. 9 ablation twin) against its plain
+   version and the grouped kernel at the Higgs shape (NN = 1 and 32).
+3a. A short fit of the Higgs-shaped data (2 trees) under
+   ``ExecutionPlan(hist_strategy="cuda_packed")``: the naive-packing
+   histogram must run once per level and the train loss must fall.
+3c. The packed path: an IoT-shaped dataset (``paper_dataset("iot")``,
+   paper Table III's botnet set, 115 numeric fields, binary; 2,000,000
+   training records plus 200,000 held out; data seed S + 1),
+   ``Binner(16)``, whose transform stores both copies as 4-bit
+   ``PackedCodes``, then ``train`` of 8 depth-6 ``binary:logistic`` trees
+   and ``predict_margin`` on the held-out packed codes.  The nibble histogram and the nibble partition
+   must run once per level, the traversal once per tree (on columns
+   gathered from the packed column-major copy, F = 115 > 63), the
+   ensemble at least once; the loss, accuracy and replay gates of phase 3.
 4. Where the time of one boosting round goes (``torch.profiler``), for
-   each of the two paths.
+   each of the three paths.
 
 The last two lines of standard output are JSON: the kernel table, then
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -72,6 +91,10 @@ MC_NUMERIC, MC_BINARY, MC_CLASSES = 10, 44, 7
 MC_FIELDS = MC_NUMERIC + MC_BINARY
 MC_RECORDS, MC_ROUNDS = 581_012, 8
 MC_ROUNDS_TIMED = 72             # 504 trees in the timed ensemble
+# paper Table III's IoT botnet set: 115 numeric fields, binary; 7 M records
+# in full, cut to 2 M (+10 % held out) to bound the host's quantile fit
+IOT_RECORDS, IOT_FIELDS, IOT_BINS = 2_000_000, 115, 16
+NAIVE_TREES = 2                  # trees of the cuda_packed fit (phase 3a)
 
 
 def log(*parts) -> None:
@@ -305,6 +328,345 @@ def kernel_parity(n: int, seed: int, dev) -> dict:
         f"  plain {plain_ms:.3f} ms (first run {plain_s * 1e3:.1f} ms)  "
         f"bound {b_ms:.3f} ms ({b_by}; {hops:.3g} hops)")
     return rows
+
+
+def dyadic_stats(shape, gen, dev):
+    """g, h on a 1/64 grid: every order of summation is exact."""
+    return (torch.randint(-64, 64, shape, generator=gen, device=dev) / 64.0,
+            torch.randint(1, 64, shape, generator=gen, device=dev) / 64.0)
+
+
+def real_stats(shape, gen, dev):
+    return (torch.randn(shape, generator=gen, device=dev),
+            torch.rand(shape, generator=gen, device=dev) * 0.9 + 0.1)
+
+
+def histogram_index(codes, nid, n_nodes: int, n_bins: int):
+    """The flat (class, node, field, bin) index of every (record, field)
+    pair, from the codes unpacked: the input of a ``torch.bincount``
+    histogram."""
+    from repro_torch.core.binning import as_unpacked
+
+    c = as_unpacked(codes).long()
+    n, F = c.shape
+    K = nid.numel() // n
+    slot = (nid.long().reshape(K, n)
+            + torch.arange(K, device=c.device)[:, None] * n_nodes)
+    return ((slot[:, :, None] * F + torch.arange(F, device=c.device))
+            * n_bins + c[None]).reshape(-1)
+
+
+def bincount_histogram(idx, g, h, size: int):
+    """The histogram as one ``torch.bincount`` a statistic over ``idx``."""
+    F = idx.numel() // g.numel()
+    return tuple(torch.bincount(idx, weights=w.reshape(-1, 1).expand(-1, F)
+                                .reshape(-1), minlength=size) for w in (g, h))
+
+
+def nibble_histogram(codes, K: int, nn_levels, gen, dev, label: str) -> dict:
+    """The nibble histogram on uint8 ``codes`` (n, F) <= 15, packed here:
+    at each NN of ``nn_levels`` bit-equal to its plain version and to the
+    uint8 kernel on dyadic g, h, within tolerance on real ones, and timed
+    beside the uint8 kernel on the same codes (nibble, uint8, uint8,
+    nibble).  At the last NN also the plain version, the bincount call and
+    the bound."""
+    from repro_torch.core.binning import PackedCodes
+    from repro_torch.kernels import histogram as hist_k
+
+    (n, F), NB = codes.shape, IOT_BINS
+    packed = PackedCodes.pack(codes)
+    shape = (n,) if K == 1 else (K, n)
+    g_dy, h_dy = dyadic_stats(shape, gen, dev)
+    g, h = real_stats(shape, gen, dev)
+    out, err = {}, 0.0
+    for nn in nn_levels:
+        nid = torch.randint(0, nn, shape, generator=gen, device=dev,
+                            dtype=torch.int32)
+        got = hist_k.histogram_cuda(packed, g_dy, h_dy, nid, n_nodes=nn,
+                                    n_bins=NB)
+        check(torch.equal(got, hist_k.histogram_plain(packed, g_dy, h_dy, nid,
+                                                      nn, NB)),
+              f"nibble histogram K={K} NN={nn} ({label}) dyadic bit-equal")
+        check(torch.equal(got, hist_k.histogram_cuda(codes, g_dy, h_dy, nid,
+                                                     n_nodes=nn, n_bins=NB)),
+              f"nibble histogram K={K} NN={nn} ({label}) bit-equal to the "
+              "uint8 kernel")
+        got = hist_k.histogram_cuda(packed, g, h, nid, n_nodes=nn, n_bins=NB)
+        want = hist_k.histogram_plain(packed, g, h, nid, nn, NB)
+        mag = hist_k.histogram_plain(packed, g.abs(), h, nid, nn,
+                                     NB).sum(dim=-2, keepdim=True)
+        check(hist_within_tolerance(got, want, mag),
+              f"nibble histogram K={K} NN={nn} ({label}) within rtol 1e-5 "
+              "+ 1e-5 node sum|stat|")
+        err = max(err, float((got - want).abs().max()))
+        del got, want, mag
+        nib = lambda: hist_k.histogram_cuda(packed, g, h, nid, n_nodes=nn,
+                                            n_bins=NB)
+        u8 = lambda: hist_k.histogram_cuda(codes, g, h, nid, n_nodes=nn,
+                                           n_bins=NB)
+        t = [time_ms(f) for f in (nib, u8, u8, nib)]
+        out[nn] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
+        log(f"nibble histogram K={K} NN={nn} n={n} F={F} ({label}): parity "
+            f"ok  nibble {t[0]:.3f}, {t[3]:.3f} ms  uint8 {t[1]:.3f}, "
+            f"{t[2]:.3f} ms")
+    nn = nn_levels[-1]
+    plain_ms = time_ms(lambda: hist_k.histogram_plain(packed, g, h, nid, nn,
+                                                      NB), reps=3)
+    # unpack, index and bincount: the index depends on the packed codes
+    lib_ms = time_ms(lambda: bincount_histogram(
+        histogram_index(packed, nid, nn, NB), g, h, K * nn * F * NB), reps=3)
+    b_ms, b_by = bound(n * ((F + 1) // 2) + 12 * K * n
+                       + K * nn * F * NB * 8, 2 * K * n * F)
+    st, ft = hist_k.tile_shape(K * nn, F, NB)
+    log(f"nibble histogram K={K} NN={nn} ({label}): plain {plain_ms:.3f} ms"
+        f"  unpack + bincount {lib_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})")
+    row = dict(ms=out[nn][0], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib_ms, max_abs_err=err, uint8_ms=out[nn][1],
+               shape=f"n={n} F={F} NB={NB} K={K} NN={nn} slot tile {st} x "
+               f"field tile {ft}, {label}")
+    if len(nn_levels) > 1:
+        row.update(ms_nn1=out[nn_levels[0]][0],
+                   uint8_ms_nn1=out[nn_levels[0]][1])
+    return row
+
+
+def nibble_partition(n: int, F: int, K: int, gen, dev) -> dict:
+    """The nibble column-major partition at ``n`` records (odd: every
+    packed row ends in a pad nibble): bit-equal to its plain version and
+    to the uint8 entry on the same codes; timed."""
+    from repro_torch.core.binning import PackedCodes
+    from repro_torch.kernels import partition as part_k
+
+    NN, NB = 2 ** (DEPTH - 1), IOT_BINS
+    codes_cm = torch.randint(0, NB, (F, n), generator=gen, device=dev,
+                             dtype=torch.uint8)
+    packed = PackedCodes.pack(codes_cm)
+    shape = (NN,) if K == 1 else (K, NN)
+    nid = torch.randint(0, NN, shape[:-1] + (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    split = [torch.randint(lo, hi, shape, generator=gen, device=dev,
+                           dtype=torch.int32)
+             for lo, hi in ((-1, F), (0, NB), (0, 2), (0, 2))]
+    got = part_k.partition_cm_cuda(nid, packed, *split, missing_bin=NB - 1)
+    want = part_k.partition_cm_plain(nid, packed, *split, NB - 1)
+    check(torch.equal(got, want), f"nibble partition K={K} n={n} bit-equal")
+    check(torch.equal(got, part_k.partition_cm_cuda(nid, codes_cm, *split,
+                                                    missing_bin=NB - 1)),
+          f"nibble partition K={K} n={n} bit-equal to the uint8 entry")
+    nib = lambda: part_k.partition_cm_cuda(nid, packed, *split,
+                                           missing_bin=NB - 1)
+    u8 = lambda: part_k.partition_cm_cuda(nid, codes_cm, *split,
+                                          missing_bin=NB - 1)
+    t = [time_ms(f) for f in (nib, u8, u8, nib)]
+    plain_ms = time_ms(lambda: part_k.partition_cm_plain(
+        nid, packed, *split, NB - 1), reps=3)
+    # per record: node id in, half a code byte, node id out
+    b_ms, b_by = bound(8.5 * K * n + K * NN * 16, 6 * K * n)
+    log(f"nibble partition K={K} NN={NN} n={n}: parity ok  nibble "
+        f"{t[0]:.3f}, {t[3]:.3f} ms  uint8 entry {t[1]:.3f}, {t[2]:.3f} ms  "
+        f"plain {plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})")
+    return dict(ms=(t[0] + t[3]) / 2, uint8_ms=(t[1] + t[2]) / 2,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, max_abs_err=float((got - want).abs().max()),
+                shape=f"n={n} F={F} NB={NB} K={K} NN={NN}")
+
+
+def naive_histogram(n: int, seed: int, dev) -> dict:
+    """The naive-packing histogram against its plain version and the
+    grouped kernel at the Higgs shape (NN = 1 and 32), both timed in turns
+    (naive, grouped, grouped, naive) on the same inputs."""
+    from repro_torch.kernels import histogram as hist_k
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    F, NB = N_FIELDS, N_BINS
+    codes = torch.randint(0, NB, (n, F), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    g_dy, h_dy = dyadic_stats((n,), gen, dev)
+    g, h = real_stats((n,), gen, dev)
+    ms, err = {}, 0.0
+    for nn in (1, 2 ** (DEPTH - 1)):
+        nid = torch.randint(0, nn, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        got = hist_k.histogram_naive_cuda(codes, g_dy, h_dy, nid, n_nodes=nn,
+                                          n_bins=NB)
+        check(torch.equal(got, hist_k.histogram_plain(codes, g_dy, h_dy, nid,
+                                                      nn, NB)),
+              f"naive histogram NN={nn} dyadic bit-equal")
+        check(torch.equal(got, hist_k.histogram_cuda(codes, g_dy, h_dy, nid,
+                                                     n_nodes=nn, n_bins=NB)),
+              f"naive histogram NN={nn} bit-equal to the grouped kernel")
+        got = hist_k.histogram_naive_cuda(codes, g, h, nid, n_nodes=nn,
+                                          n_bins=NB)
+        want = hist_k.histogram_plain(codes, g, h, nid, nn, NB)
+        mag = hist_k.histogram_plain(codes, g.abs(), h, nid, nn,
+                                     NB).sum(dim=2, keepdim=True)
+        check(hist_within_tolerance(got, want, mag),
+              f"naive histogram NN={nn} within rtol 1e-5 + 1e-5 node "
+              "sum|stat|")
+        err = max(err, float((got - want).abs().max()))
+        del got, want, mag
+        naive = lambda: hist_k.histogram_naive_cuda(codes, g, h, nid,
+                                                    n_nodes=nn, n_bins=NB)
+        grouped = lambda: hist_k.histogram_cuda(codes, g, h, nid, n_nodes=nn,
+                                                n_bins=NB)
+        t = [time_ms(f) for f in (naive, grouped, grouped, naive)]
+        ms[nn] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
+        log(f"naive histogram NN={nn} n={n}: parity ok  naive {t[0]:.3f}, "
+            f"{t[3]:.3f} ms  grouped {t[1]:.3f}, {t[2]:.3f} ms")
+    nn = 2 ** (DEPTH - 1)
+    plain_ms = time_ms(lambda: hist_k.histogram_plain(codes, g, h, nid, nn,
+                                                      NB), reps=3)
+    # bincount over a precomputed index, as the histogram row times it
+    idx = histogram_index(codes, nid, nn, NB)
+    lib_ms = time_ms(lambda: bincount_histogram(idx, g, h, nn * F * NB),
+                     reps=3)
+    del idx
+    b_ms, b_by = bound(n * F + 12 * n + nn * F * NB * 8, 2 * n * F)
+    log(f"naive histogram NN={nn}: plain {plain_ms:.3f} ms  bincount "
+        f"{lib_ms:.3f} ms  bound {b_ms:.3f} ms ({b_by})")
+    return dict(ms=ms[nn][0], ms_nn1=ms[1][0], grouped_ms=ms[nn][1],
+                grouped_ms_nn1=ms[1][1], plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, max_abs_err=err,
+                shape=f"n={n} F={F} NB={NB} NN={nn}")
+
+
+def packed_parity(n_higgs: int, seed: int, dev) -> dict:
+    """Phase 2c: the kernels that read 4-bit codes, and the naive-packing
+    twin.  Returns their kernel rows (without launch counts)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    codes = torch.randint(0, IOT_BINS, (IOT_RECORDS, IOT_FIELDS),
+                          generator=gen, device=dev, dtype=torch.uint8)
+    rows = {"histogram_nibble": nibble_histogram(
+        codes, 1, (1, 2 ** (DEPTH - 1)), gen, dev, "random codes")}
+    del codes
+    codes = torch.randint(0, IOT_BINS, (MC_RECORDS, MC_FIELDS), generator=gen,
+                          device=dev, dtype=torch.uint8)
+    k7 = nibble_histogram(codes, MC_CLASSES, (2 ** (DEPTH - 1),), gen, dev,
+                          "random codes")
+    del codes
+    rows["histogram_nibble"].update(
+        ms_k7=k7["ms"], uint8_ms_k7=k7["uint8_ms"], shape_k7=k7["shape"],
+        max_abs_err=max(rows["histogram_nibble"]["max_abs_err"],
+                        k7["max_abs_err"]))
+    part = nibble_partition(IOT_RECORDS + 1, IOT_FIELDS, 1, gen, dev)
+    k7 = nibble_partition(MC_RECORDS - 1, MC_FIELDS, MC_CLASSES, gen, dev)
+    part.update(ms_k7=k7["ms"], uint8_ms_k7=k7["uint8_ms"],
+                shape_k7=k7["shape"])
+    rows["partition_nibble"] = part
+    rows["histogram_naive"] = naive_histogram(n_higgs, seed, dev)
+    return rows
+
+
+def naive_fit(config, data, y) -> dict:
+    """Phase 3a: a short fit under the naive-packing histogram.  Returns
+    its launch counts."""
+    import dataclasses
+
+    from repro_torch.api.plan import ExecutionPlan
+    from repro_torch.core.gbdt import train
+    from repro_torch.kernels import _build
+
+    short = dataclasses.replace(config, n_trees=NAIVE_TREES)
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train(short, data, y,
+                plan=ExecutionPlan(hist_strategy="cuda_packed"))
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    loss = res.history["train_loss"]
+    log(f"cuda_packed fit ({NAIVE_TREES} trees): "
+        f"{time.perf_counter() - t0:.3f} s  train_loss {loss}  launches "
+        f"{json.dumps(counts)}")
+    check(counts["histogram_naive"] == DEPTH * NAIVE_TREES
+          and counts["histogram"] == 0,
+          "cuda_packed: the naive-packing histogram launched once per level")
+    check(all(b < a for a, b in zip(loss, loss[1:])),
+          "cuda_packed: train loss strictly decreases")
+    return counts
+
+
+def iot_main_path(n: int, n_trees: int, seed: int, dev):
+    """Phase 3c: fit and predict an IoT-shaped 16-bin GBDT on 4-bit packed
+    codes through the entry points a user calls.  Returns the run's launch
+    counts, the median wall time of its steady rounds (ms) and the fit's
+    inputs."""
+    from repro_torch.core.binning import Binner, PackedCodes
+    from repro_torch.core.gbdt import GBDTConfig, train
+    from repro_torch.data import paper_dataset
+    from repro_torch.kernels import _build
+
+    n_eval = n // 10
+    t0 = time.perf_counter()
+    X, y, _, spec = paper_dataset("iot", n_override=n + n_eval, seed=seed + 1)
+    t1 = time.perf_counter()
+    binner = Binner(IOT_BINS).fit(X[:n])
+    t2 = time.perf_counter()
+    data = binner.transform(X[:n])
+    ev_data = binner.transform(X[n:])
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    y_tr, y_ev = y[:n], y[n:]
+    F = X.shape[1]
+    log(f"data: {spec.name} n={n} held-out={n_eval} F={F}  make "
+        f"{t1 - t0:.3f} s  Binner.fit {t2 - t1:.3f} s  transform "
+        f"{t3 - t2:.3f} s  positives {float(y_tr.mean()):.4f}")
+    del X
+    check(isinstance(data.codes, PackedCodes)
+          and tuple(data.codes.data.shape) == (n, (F + 1) // 2)
+          and isinstance(data.codes_cm, PackedCodes)
+          and tuple(data.codes_cm.data.shape) == (F, (n + 1) // 2)
+          and isinstance(ev_data.codes, PackedCodes),
+          f"Binner({IOT_BINS}).transform packs both copies")
+    log(f"packed codes: row-major {tuple(data.codes.data.shape)} bytes, "
+        f"column-major {tuple(data.codes_cm.data.shape)} bytes")
+    config = GBDTConfig(n_trees=n_trees, max_depth=DEPTH, learning_rate=0.1,
+                        objective="binary:logistic", seed=seed)
+
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stamps = [t0]           # the loss read ends every round in a sync
+    res = train(config, data, y_tr,
+                callback=lambda t, m: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ev_margin = res.model.predict_margin(ev_data.codes)
+    tr_margin = res.model.predict_margin(data)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = _build.launch_counts()
+
+    loss = res.history["train_loss"]
+    log(f"packed train: {t1 - t0:.3f} s  {n * n_trees / (t1 - t0):.1f} "
+        f"record-rounds/s  step_times {json.dumps(res.step_times)}")
+    log(f"packed train_loss {loss}")
+    rounds_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    log("packed round wall ms " + json.dumps([round(r, 3) for r in rounds_ms]))
+    log(f"packed predict_margin (held-out + training rows): {t2 - t1:.3f} s")
+    log(f"packed launches {json.dumps(counts)}")
+    check(counts["histogram_nibble"] == DEPTH * n_trees
+          and counts["histogram"] == 0,
+          "nibble histogram launched once per level")
+    check(counts["partition_nibble"] == DEPTH * n_trees
+          and counts["partition"] == 0,
+          "nibble partition launched once per level")
+    check(counts["traversal"] == n_trees, "traversal launched once per tree")
+    check(counts["ensemble"] >= 1, "ensemble launched")
+    check(all(b < a for a, b in zip(loss, loss[1:])),
+          "packed train loss strictly decreases")
+    acc = float(((ev_margin > 0).cpu().numpy() == (y_ev > 0.5)).mean())
+    majority = float(max(y_ev.mean(), 1 - y_ev.mean()))
+    log(f"packed held-out accuracy {acc:.6f} vs majority class "
+        f"{majority:.6f}")
+    check(acc > majority, "packed held-out accuracy beats the majority class")
+    check(bool(torch.isfinite(tr_margin).all())
+          and tr_margin.shape == (n,), "finite margins of shape (n,)")
+    torch.testing.assert_close(tr_margin, res.margins, rtol=1e-5, atol=1e-6)
+    log("packed predict_margin on the training rows replays the fit's "
+        "margins (rtol 1e-5)")
+    steady_ms = statistics.median(rounds_ms[1:] or rounds_ms)
+    return counts, steady_ms, (config, data, y_tr)
 
 
 def main_path(n: int, n_trees: int, seed: int, dev):
@@ -680,6 +1042,9 @@ def main(argv=None) -> int:
     # 53 % signal).  Seed 0 makes 87 % negative, and 8 trees at learning
     # rate 0.1 then move no held-out margin across 0 from the base margin,
     # so its accuracy only ties the majority class.
+    # The IoT-shaped path draws its data with seed S + 1: at seed 1 (85 %
+    # positives) its 8-tree fit's held-out accuracy only ties the majority
+    # class.
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args(argv)
 
@@ -700,9 +1065,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows.update(class_parity(MC_RECORDS, args.seed, dev))
     torch.cuda.empty_cache()
+    rows.update(packed_parity(args.records, args.seed, dev))
+    torch.cuda.empty_cache()
     counts, steady_ms, (config, data, y) = main_path(
         args.records, args.trees, args.seed, dev)
     round_breakdown("Higgs", config, data, y, steady_ms)
+    naive_counts = naive_fit(config, data, y)
     del data
     torch.cuda.empty_cache()
     mc_counts, mc_steady_ms, (mc_config, mc_data, mc_y) = mc_main_path(
@@ -716,6 +1084,18 @@ def main(argv=None) -> int:
                                rows["histogram_classes"]["max_abs_err"])
     rows["histogram_classes"].update(cover)
     round_breakdown("multi-class", mc_config, mc_data, mc_y, mc_steady_ms)
+    del mc_data
+    torch.cuda.empty_cache()
+    iot_counts, iot_steady_ms, (iot_config, iot_data, iot_y) = iot_main_path(
+        IOT_RECORDS, args.trees, args.seed, dev)
+    # the nibble and uint8 kernels on the path's own codes, NN = 32
+    nib = nibble_histogram(iot_data.codes.unpack(), 1, (2 ** (DEPTH - 1),),
+                           torch.Generator(device=dev).manual_seed(
+                               args.seed + 5), dev, "IoT-shaped codes")
+    rows["histogram_nibble"].update(ms_path_codes=nib["ms"],
+                                    uint8_ms_path_codes=nib["uint8_ms"])
+    round_breakdown("IoT-shaped packed", iot_config, iot_data, iot_y,
+                    iot_steady_ms)
 
     # (row, kernel counter, source, TPU kernel, launches of which path)
     meta = [
@@ -736,6 +1116,13 @@ def main(argv=None) -> int:
          "src/repro/kernels/traversal.py:84", mc_counts),
         ("ensemble_classes", "ensemble", "traversal.cu",
          "src/repro/kernels/traversal.py:125", mc_counts),
+        # the nibble_packed branch of _hist_kernel_grouped (:93-95)
+        ("histogram_nibble", "histogram_nibble", "histogram.cu",
+         "src/repro/kernels/histogram.py:93", iot_counts),
+        ("partition_nibble", "partition_nibble", "partition.cu",
+         "src/repro/kernels/partition.py:38", iot_counts),
+        ("histogram_naive", "histogram_naive", "histogram.cu",
+         "src/repro/kernels/histogram.py:107", naive_counts),
     ]
     table = []
     for name, counter, source, replaces, path_counts in meta:

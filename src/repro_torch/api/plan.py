@@ -8,6 +8,10 @@ version for tensors that lie on the CPU and launch the kernel (or raise)
 for CUDA tensors, so ``"auto"`` means the kernel on the card and the plain
 version on the CPU.  Nothing probes a kernel or falls back from it: on a
 CUDA tensor the kernel runs or the call raises.
+
+Step ① also takes ``"cuda_packed"``, the counterpart of ``repro``'s
+``"pallas_packed"``: the naive-packing histogram of the paper's Fig. 9
+ablation, a twin for comparison that is never the default.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from typing import Optional
 import torch
 
 STRATEGIES = ("cuda", "reference")
+HIST_STRATEGIES = STRATEGIES + ("cuda_packed",)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -35,7 +40,8 @@ def resolve_device(device=None) -> torch.device:
 class ExecutionPlan:
     """Kernel selection for step ① (histogram), ③ (partition) and ⑤
     (traversal and batch inference).  Each field is ``"auto"``, ``"cuda"``
-    or ``"reference"``; ``mesh`` exists to refuse multi-device plans."""
+    or ``"reference"``, and ``hist_strategy`` may also be
+    ``"cuda_packed"``; ``mesh`` exists to refuse multi-device plans."""
 
     hist_strategy: str = "auto"
     partition_strategy: str = "auto"
@@ -47,12 +53,13 @@ class ExecutionPlan:
             raise NotImplementedError(
                 "multi-device plans are not ported yet (ROADMAP Queue 1: "
                 "Distributed)")
-        for name in ("hist_strategy", "partition_strategy",
-                     "traversal_strategy"):
+        for name, allowed in (("hist_strategy", HIST_STRATEGIES),
+                              ("partition_strategy", STRATEGIES),
+                              ("traversal_strategy", STRATEGIES)):
             value = getattr(self, name)
-            if value not in STRATEGIES + ("auto",):
+            if value not in allowed + ("auto",):
                 raise ValueError(f"unknown {name} {value!r}; choose from "
-                                 f"{STRATEGIES + ('auto',)}")
+                                 f"{allowed + ('auto',)}")
 
     def resolved(self) -> "ExecutionPlan":
         """Replace every ``"auto"`` with ``"cuda"``."""

@@ -11,9 +11,10 @@ Bin-code conventions (per field, ``n_bins = max_bins`` total):
   * categorical:    codes 0..n_categories-1,
                     missing/absent -> code ``max_bins - 1``
 
-4-bit packed codes (``PackedCodes``) are not ported yet (ROADMAP Queue 1:
-PackedCodes): codes are always stored as uint8, which every consumer reads
-bit-equal to the packed layout.
+When the bin count fits a nibble (``n_bins <= 16``) both copies of the
+dual layout are stored as :class:`PackedCodes`, two 4-bit codes per byte
+(paper §III-B's compressed representation); every consumer reads them
+bit-equal to the uint8 layout.
 """
 from __future__ import annotations
 
@@ -25,21 +26,121 @@ import torch
 
 from repro_torch.api.plan import resolve_device
 
-_PACKED_TODO = ("4-bit PackedCodes are not ported yet (ROADMAP Queue 1: "
-                "PackedCodes)")
+# --------------------------------------------------------------------------
+# 4-bit packed codes.  Two bin codes per byte along the LAST axis whenever
+# the bin count fits a nibble: the low nibble holds the even index, the high
+# nibble the odd one; an odd-length axis carries one zero pad nibble.
+# Packing is lossless, so every consumer stays bit-equal to the uint8 path.
+# --------------------------------------------------------------------------
+PACK_MAX_BINS = 16      # nibble capacity: codes 0..15
+
+
+def pack_nibbles(codes: torch.Tensor) -> torch.Tensor:
+    """Pack integer codes <= 15 two-per-byte along the last axis, on the
+    tensor's device: (..., n) -> (..., ceil(n/2)) uint8, contiguous."""
+    codes = codes.to(torch.uint8)
+    if codes.shape[-1] % 2:
+        codes = torch.nn.functional.pad(codes, (0, 1))
+    return (codes[..., 0::2] | (codes[..., 1::2] << 4)).contiguous()
+
+
+def unpack_nibbles(data: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_nibbles`: (..., ceil(n/2)) -> (..., n)."""
+    full = torch.stack([data & 0xF, data >> 4], dim=-1)
+    return full.reshape(data.shape[:-1] + (-1,))[..., :n].contiguous()
+
+
+def pack_nibbles_np(codes: np.ndarray) -> np.ndarray:
+    """Host (numpy) twin of :func:`pack_nibbles`."""
+    codes = np.ascontiguousarray(codes, np.uint8)
+    if codes.shape[-1] % 2:
+        pad = [(0, 0)] * (codes.ndim - 1) + [(0, 1)]
+        codes = np.pad(codes, pad)
+    return codes[..., 0::2] | (codes[..., 1::2] << 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedCodes:
+    """4-bit bin codes, two per byte along the last axis.
+
+    ``data`` holds the packed bytes (..., ceil(n/2)) and ``n`` the logical
+    last-axis length.  Leading-axis indexing (``pc[idx]``) selects rows
+    without unpacking: the packed axis is the last one in both layouts
+    (row-major packs fields, column-major packs records).
+    """
+
+    data: torch.Tensor   # (..., ceil(n/2)) uint8 packed bytes
+    n: int               # logical last-axis length
+    bits: int = 4
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size(self.data.shape[:-1] + (self.n,))
+
+    @property
+    def ndim(self) -> int:
+        return self.data.ndim
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.uint8
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @property
+    def nbytes(self) -> int:
+        return self.data.numel()        # uint8: 1 byte per element
+
+    def unpack(self) -> torch.Tensor:
+        return unpack_nibbles(self.data, self.n)
+
+    def __getitem__(self, idx) -> "PackedCodes":
+        """Leading-axis selection; the packed last axis is never indexed."""
+        return PackedCodes(self.data[idx], self.n, self.bits)
+
+    def __array__(self, dtype=None, copy=None):
+        """numpy conversion yields the UNPACKED logical matrix, so
+        ``np.asarray(codes)`` reads the same either layout."""
+        out = self.unpack().cpu().numpy()
+        return out if dtype is None else out.astype(dtype)
+
+    def to(self, device) -> "PackedCodes":
+        return PackedCodes(self.data.to(device), self.n, self.bits)
+
+    @classmethod
+    def pack(cls, codes: torch.Tensor) -> "PackedCodes":
+        """Pack a (..., n) code tensor on its device."""
+        return cls(pack_nibbles(codes), int(codes.shape[-1]))
+
+    @classmethod
+    def pack_np(cls, codes: np.ndarray) -> "PackedCodes":
+        """Pack on the host; the bytes stay on the CPU until ``to``."""
+        codes = np.asarray(codes, np.uint8)
+        return cls(torch.from_numpy(pack_nibbles_np(codes)),
+                   int(codes.shape[-1]))
+
+
+def as_unpacked(codes) -> torch.Tensor:
+    """``codes`` as a plain (..., n) uint8 tensor, whatever the layout."""
+    if isinstance(codes, PackedCodes):
+        return codes.unpack()
+    return codes
 
 
 @dataclasses.dataclass(frozen=True)
 class BinnedDataset:
     """A pre-processed dataset: bin codes in the redundant dual layout.
 
-    ``codes`` is the row-major (records, fields) uint8 copy consumed by
-    histogram binning (step ①); ``codes_cm`` the (fields, records) copy
-    consumed by partition (step ③) and the renumbered traversal (step ⑤).
+    ``codes`` is the row-major (records, fields) copy consumed by histogram
+    binning (step ①); ``codes_cm`` the (fields, records) copy consumed by
+    partition (step ③) and the renumbered traversal (step ⑤).  When
+    ``n_bins <= 16`` both are :class:`PackedCodes`.
     """
 
-    codes: torch.Tensor          # (n, F) uint8 row-major
-    codes_cm: torch.Tensor       # (F, n) uint8 column-major
+    codes: torch.Tensor          # (n, F) uint8, or PackedCodes over F
+    codes_cm: torch.Tensor       # (F, n) uint8, or PackedCodes over n
     is_categorical: torch.Tensor  # (F,) bool
     n_bins: int                  # total bins per field incl. the missing bin
     bin_edges: np.ndarray        # (F, n_bins-2) float64 upper edges
@@ -47,7 +148,7 @@ class BinnedDataset:
 
     @property
     def n_records(self) -> int:
-        return self.codes.shape[0]
+        return self.codes.shape[0]      # the logical shape, packed or not
 
     @property
     def n_fields(self) -> int:
@@ -58,7 +159,8 @@ class BinnedDataset:
         return self.n_bins - 1
 
     def to(self, device) -> "BinnedDataset":
-        """This dataset with its tensors on ``device`` (self if already)."""
+        """This dataset with its tensors, packed copies included, on
+        ``device`` (self if already)."""
         device = torch.device(device)
         if self.codes.device == device:
             return self
@@ -181,25 +283,37 @@ class Binner:
     def transform(self, X: np.ndarray, packed: Optional[bool] = None,
                   device=None) -> BinnedDataset:
         """Binned dataset in the redundant dual layout on ``device`` (CUDA
-        by default).  ``packed=True`` raises: 4-bit packing is not ported;
-        ``None`` and ``False`` store uint8."""
-        if packed:
-            raise NotImplementedError(_PACKED_TODO)
+        by default).
+
+        ``packed=None`` (auto) bit-packs both copies whenever the codes fit
+        a nibble (``max_bins <= 16``); ``False`` forces plain uint8, and
+        ``True`` requires packing (``ValueError`` above 16 bins).
+        """
         device = resolve_device(device)
-        return _dataset(self.transform_codes(X), self._is_cat, self.max_bins,
-                        self._edges, self._n_value_bins, device)
+        rm, cm = _dual_layout(self.transform_codes(X), self.max_bins, packed,
+                              device)
+        return BinnedDataset(codes=rm, codes_cm=cm,
+                             is_categorical=torch.as_tensor(self._is_cat,
+                                                            device=device),
+                             n_bins=self.max_bins, bin_edges=self._edges,
+                             n_value_bins=self._n_value_bins)
 
 
-def _dataset(codes_np: np.ndarray, is_cat, n_bins: int, edges, nvb,
-             device: torch.device) -> BinnedDataset:
-    """Ship host codes to ``device`` and build the column-major twin
-    there."""
+def _dual_layout(codes_np: np.ndarray, n_bins: int, packed: Optional[bool],
+                 device: torch.device):
+    """Ship host codes to ``device`` and build the (row-major, column-major)
+    pair there, bit-packing both copies when the bin count fits a
+    nibble."""
+    if packed is None:
+        packed = n_bins <= PACK_MAX_BINS
+    if packed and n_bins > PACK_MAX_BINS:
+        raise ValueError(
+            f"packed codes need n_bins <= {PACK_MAX_BINS}, got {n_bins}")
     codes = torch.from_numpy(np.ascontiguousarray(codes_np, np.uint8)).to(
         device)
-    return BinnedDataset(codes=codes, codes_cm=codes.T.contiguous(),
-                         is_categorical=torch.as_tensor(
-                             np.asarray(is_cat, bool), device=device),
-                         n_bins=n_bins, bin_edges=edges, n_value_bins=nvb)
+    if packed:
+        return PackedCodes.pack(codes), PackedCodes.pack(codes.T)
+    return codes, codes.T.contiguous()
 
 
 def bin_dataset(X: np.ndarray, max_bins: int = 256,
@@ -212,13 +326,16 @@ def bin_dataset(X: np.ndarray, max_bins: int = 256,
 def dataset_from_codes(codes, is_categorical=None, n_bins: int = 256,
                        packed: Optional[bool] = None,
                        device=None) -> BinnedDataset:
-    """Wrap pre-binned integer codes (tests / synthetic data) as a dataset."""
-    if packed:
-        raise NotImplementedError(_PACKED_TODO)
+    """Wrap pre-binned integer codes (tests / synthetic data) as a dataset;
+    ``packed`` as in :meth:`Binner.transform`."""
+    device = resolve_device(device)
     codes_np = np.asarray(codes, dtype=np.uint8)
     F = codes_np.shape[1]
     if is_categorical is None:
         is_categorical = np.zeros((F,), dtype=bool)
-    return _dataset(codes_np, is_categorical, n_bins,
-                    np.zeros((F, n_bins - 2)), np.full((F,), n_bins - 1),
-                    resolve_device(device))
+    rm, cm = _dual_layout(codes_np, n_bins, packed, device)
+    return BinnedDataset(codes=rm, codes_cm=cm,
+                         is_categorical=torch.as_tensor(
+                             np.asarray(is_categorical, bool), device=device),
+                         n_bins=n_bins, bin_edges=np.zeros((F, n_bins - 2)),
+                         n_value_bins=np.full((F,), n_bins - 1))

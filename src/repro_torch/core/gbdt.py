@@ -115,8 +115,8 @@ class GBDTModel:
     def predict_margin(self, codes, *, plan: Optional[ExecutionPlan] = None,
                        mode: Optional[str] = None) -> torch.Tensor:
         """Raw ensemble margins (n,) — (n, K) for a multi-class model — for
-        binned ``codes`` (a tensor on the model's device, or a
-        ``BinnedDataset``)."""
+        binned ``codes`` (a tensor or ``PackedCodes`` on the model's device,
+        or a ``BinnedDataset``, packed or not)."""
         codes = codes.codes if isinstance(codes, BinnedDataset) else codes
         if mode == "cached":
             raise NotImplementedError(
@@ -401,7 +401,8 @@ def _predict_forest(forest: TreeArrays, data: BinnedDataset,
     -> (n, K), in one launch.  Uses the paper's renumbered-column fetch
     when it saves bandwidth: a depth-D tree touches at most 2^D − 1
     columns, so for wide datasets only those columns are gathered from
-    the column-major copy, per class."""
+    the column-major copy (packed rows unpack after the gather), per
+    class."""
     K, n_int = forest.feature.shape
     if data.n_fields > n_int:
         # per-node column fetch: node i's field becomes renumbered column i

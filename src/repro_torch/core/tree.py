@@ -22,13 +22,17 @@ import torch
 
 from repro_torch.api.plan import ExecutionPlan, resolve_plan
 from repro_torch.core import splits as splits_mod
+from repro_torch.core.binning import PackedCodes
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import TreeArrays
 
 
 def _gather_fields(codes_cm, idx):
-    """Leading-axis (field) gather from the (F, n) column-major copy."""
-    return codes_cm[idx.long()]
+    """Leading-axis (field) gather from the (F, n) column-major copy,
+    unpacked.  Packed rows are selected WITHOUT unpacking the full matrix;
+    only the gathered rows expand to uint8."""
+    rows = codes_cm[idx.long()]
+    return rows.unpack() if isinstance(rows, PackedCodes) else rows
 
 
 def fit_tree(codes, codes_cm, g, h, *, depth: int, n_bins: int,
@@ -38,7 +42,8 @@ def fit_tree(codes, codes_cm, g, h, *, depth: int, n_bins: int,
     """Grow one depth-``depth`` tree: the K = 1 slice of :func:`fit_forest`.
 
     codes: (n, F) uint8 row-major (step-① input);
-    codes_cm: (F, n) uint8 column-major copy (step-③ input);
+    codes_cm: (F, n) uint8 column-major copy (step-③ input); both may be
+    ``PackedCodes``, which steps ① and ③ read as they are;
     g, h: (n,) float32 gradient statistics on the same device.
     """
     forest = fit_forest(codes, codes_cm, g[None], h[None], depth=depth,

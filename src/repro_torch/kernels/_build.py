@@ -29,7 +29,8 @@ SOURCES = ("histogram", "partition", "traversal")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-KERNELS = ("histogram", "partition", "traversal", "ensemble")
+KERNELS = ("histogram", "histogram_nibble", "histogram_naive", "partition",
+           "partition_nibble", "traversal", "ensemble")
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 _libs: Dict[str, ctypes.CDLL] = {}
 

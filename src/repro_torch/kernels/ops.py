@@ -6,6 +6,11 @@ strategy from an :class:`~repro_torch.api.plan.ExecutionPlan`:
 resolves to) calls the kernel's wrapper, which launches the kernel for CUDA
 tensors — or raises — and takes the plain version for CPU tensors.  There
 is no fallback from a kernel that fails.
+
+4-bit :class:`~repro_torch.core.binning.PackedCodes` go straight to the
+kernels that read them (the nibble histogram and the nibble column-major
+partition); every other consumer unpacks first, as ``repro.kernels.ops``
+does outside its Pallas kernels.
 """
 from __future__ import annotations
 
@@ -14,14 +19,27 @@ from typing import Optional
 import torch
 
 from repro_torch.api.plan import ExecutionPlan, resolve_plan
+from repro_torch.core.binning import PackedCodes, as_unpacked
 from repro_torch.kernels import histogram as _hist_k
 from repro_torch.kernels import partition as _part_k
 from repro_torch.kernels import traversal as _trav_k
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.ref import TreeArrays
 
-__all__ = ["build_histogram", "partition_level", "partition_level_cm",
-           "traverse_tree", "traverse_forest", "predict_ensemble"]
+__all__ = ["pack_codes", "unpack_codes", "build_histogram",
+           "partition_level", "partition_level_cm", "traverse_tree",
+           "traverse_forest", "predict_ensemble"]
+
+
+def pack_codes(codes) -> PackedCodes:
+    """(..., n) codes <= 15 -> 4-bit ``PackedCodes``, on their device;
+    wider codes lose bits, so callers gate on the bin count."""
+    return PackedCodes.pack(codes)
+
+
+def unpack_codes(codes) -> torch.Tensor:
+    """``PackedCodes`` -> plain uint8; a plain tensor passes through."""
+    return as_unpacked(codes)
 
 
 def build_histogram(codes, g, h, node_ids, *, n_nodes: int, n_bins: int,
@@ -30,10 +48,18 @@ def build_histogram(codes, g, h, node_ids, *, n_nodes: int, n_bins: int,
 
     Class-batched form: g, h and node_ids (K, n) — every class has its own
     node partition over the shared codes — give (K, n_nodes, F, n_bins, 2)
-    from one launch.
+    from one launch.  ``PackedCodes`` feed the nibble kernel under
+    ``"cuda"``; ``"cuda_packed"`` (the naive-packing ablation) and
+    ``"reference"`` unpack them first.
     """
-    if resolve_plan(plan).hist_strategy == "reference":
-        return _ref.histogram_ref(codes, g, h, node_ids, n_nodes, n_bins)
+    strategy = resolve_plan(plan).hist_strategy
+    if strategy == "reference":
+        return _ref.histogram_ref(unpack_codes(codes), g, h, node_ids,
+                                  n_nodes, n_bins)
+    if strategy == "cuda_packed":
+        return _hist_k.histogram_naive_cuda(unpack_codes(codes), g, h,
+                                            node_ids, n_nodes=n_nodes,
+                                            n_bins=n_bins)
     return _hist_k.histogram_cuda(codes, g, h, node_ids, n_nodes=n_nodes,
                                   n_bins=n_bins)
 
@@ -42,6 +68,7 @@ def partition_level(node_ids, codes_lvl, split_feature, split_threshold,
                     split_is_cat, split_default_left, *, missing_bin: int,
                     plan: Optional[ExecutionPlan] = None) -> torch.Tensor:
     """Step ③ over the level's gathered columns ``codes_lvl`` (n, C)."""
+    codes_lvl = unpack_codes(codes_lvl)
     if resolve_plan(plan).partition_strategy == "reference":
         return _ref.partition_ref(node_ids, codes_lvl, split_feature,
                                   split_threshold, split_is_cat,
@@ -54,9 +81,10 @@ def partition_level(node_ids, codes_lvl, split_feature, split_threshold,
 def partition_level_cm(node_ids, codes_cm, split_feature, split_threshold,
                        split_is_cat, split_default_left, *, missing_bin: int,
                        plan: Optional[ExecutionPlan] = None) -> torch.Tensor:
-    """Step ③ reading the (F, n) column-major copy directly; split_feature
-    holds global field ids (-1 = pass-through).  Class-batched: node_ids
-    (K, n) and split tables (K, NN) give (K, n) in one launch."""
+    """Step ③ reading the (F, n) column-major copy directly — a packed copy
+    through the nibble entry; split_feature holds global field ids (-1 =
+    pass-through).  Class-batched: node_ids (K, n) and split tables (K, NN)
+    give (K, n) in one launch."""
     if resolve_plan(plan).partition_strategy == "reference":
         return _part_k.partition_cm_plain(node_ids, codes_cm, split_feature,
                                           split_threshold, split_is_cat,
@@ -69,6 +97,7 @@ def partition_level_cm(node_ids, codes_cm, split_feature, split_threshold,
 
 def traverse_tree(tree: TreeArrays, codes, *, missing_bin: int,
                   plan: Optional[ExecutionPlan] = None) -> torch.Tensor:
+    codes = unpack_codes(codes)
     if resolve_plan(plan).traversal_strategy == "reference":
         return _ref.traverse_ref(tree, codes, missing_bin)
     return _trav_k.traverse_cuda(tree, codes, missing_bin=missing_bin)
@@ -78,6 +107,7 @@ def traverse_forest(forest: TreeArrays, codes, *, missing_bin: int,
                     plan: Optional[ExecutionPlan] = None) -> torch.Tensor:
     """Step ⑤ for one round's K class trees (stacked (K, ...)) -> (n, K);
     codes (n, C) shared by every class or (K, n, C) per class."""
+    codes = unpack_codes(codes)
     if resolve_plan(plan).traversal_strategy == "reference":
         return _ref.traverse_forest_ref(forest, codes, missing_bin)
     return _trav_k.traverse_forest_cuda(forest, codes,
@@ -91,6 +121,7 @@ def predict_ensemble(trees: TreeArrays, codes, *, missing_bin: int,
     ``n_classes`` = K > 1 (trees round-major, tree t feeds class t % K)."""
     if trees.leaf_value.shape[-1] != 2 ** depth:
         raise ValueError(f"trees are not of depth {depth}")
+    codes = unpack_codes(codes)
     if resolve_plan(plan).traversal_strategy == "reference":
         return _trav_k.predict_ensemble_plain(trees, codes, missing_bin,
                                               n_classes)

@@ -5,7 +5,7 @@ Replaces ``src/repro/kernels/partition.py::_partition_kernel``.
 Bound on the H100: bytes — per record a node id in, one code byte, a node
 id out.  One thread per record; the level's split table lives in shared
 memory and is indexed directly by node id (the TPU kernel's one-hot float
-parameter fetch becomes an integer index).  Two entries:
+parameter fetch becomes an integer index).  The entries:
 
   * :func:`partition_cuda` keeps the JAX signature and reads ``codes_lvl``
     (n, C), the level's gathered columns;
@@ -17,18 +17,33 @@ parameter fetch becomes an integer index).  Two entries:
     Its plain version is that gather plus :func:`partition_ref`, class by
     class (:func:`repro_torch.kernels.ref.partition_cm_ref`).
 
-Integer-exact: both entries are bit-equal to their plain versions.
+    Given 4-bit :class:`~repro_torch.core.binning.PackedCodes` over the
+    record axis it launches the nibble entry (counted as
+    ``partition_nibble``), which reads the packed bytes in place.
+
+Integer-exact: every entry is bit-equal to its plain version.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.binning import PackedCodes, as_unpacked
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import partition_cm_ref as partition_cm_plain
+from repro_torch.kernels.ref import partition_cm_ref
 from repro_torch.kernels.ref import partition_ref as partition_plain
 
 THREADS = 256
 MAX_NODES = 3072             # split table of 16-byte entries within 48 KB
+
+
+def partition_cm_plain(node_ids, codes_cm, split_feature, split_threshold,
+                       split_is_cat, split_default_left,
+                       missing_bin: int) -> torch.Tensor:
+    """Plain version of the column-major entries: unpack ``PackedCodes``,
+    then :func:`~repro_torch.kernels.ref.partition_cm_ref`."""
+    return partition_cm_ref(node_ids, as_unpacked(codes_cm), split_feature,
+                            split_threshold, split_is_cat, split_default_left,
+                            missing_bin)
 
 
 def _split_table(node_ids, codes, split_feature, split_threshold,
@@ -58,7 +73,8 @@ def _split_table(node_ids, codes, split_feature, split_threshold,
 
 
 def _launch(symbol: str, what: str, node_ids, codes, table, n: int,
-            dims, missing_bin: int) -> torch.Tensor:
+            dims, missing_bin: int, counter: str = "partition"
+            ) -> torch.Tensor:
     """Launch a partition entry: ``dims`` are its int shape arguments
     between n and the table's node count."""
     out = torch.empty(node_ids.shape, dtype=torch.int32, device=codes.device)
@@ -71,7 +87,7 @@ def _launch(symbol: str, what: str, node_ids, codes, table, n: int,
              out.data_ptr(), n, *dims, table.shape[-2], missing_bin, THREADS,
              torch.cuda.current_stream(codes.device).cuda_stream)
     _build.check("partition", err, what)
-    _build.count("partition")
+    _build.count(counter)
     return out
 
 
@@ -100,8 +116,9 @@ def partition_cuda(node_ids, codes_lvl, split_feature, split_threshold,
 def partition_cm_cuda(node_ids, codes_cm, split_feature, split_threshold,
                       split_is_cat, split_default_left, *,
                       missing_bin: int) -> torch.Tensor:
-    """As :func:`partition_cuda`, reading the (F, n) column-major copy;
-    split_feature holds global field ids, or -1 (pass-through).
+    """As :func:`partition_cuda`, reading the (F, n) column-major copy, a
+    uint8 tensor or ``PackedCodes`` over n; split_feature holds global
+    field ids, or -1 (pass-through).
 
     Class-batched: node_ids (K, n) and split_* (K, NN) route every class's
     records in one launch; out (K, n).
@@ -110,13 +127,22 @@ def partition_cm_cuda(node_ids, codes_cm, split_feature, split_threshold,
         return partition_cm_plain(node_ids, codes_cm, split_feature,
                                   split_threshold, split_is_cat,
                                   split_default_left, missing_bin)
-    table = _split_table(node_ids, codes_cm, split_feature, split_threshold,
-                         split_is_cat, split_default_left, "partition_cm")
-    F, n = codes_cm.shape
+    packed = isinstance(codes_cm, PackedCodes)
+    what = "partition_nibble" if packed else "partition_cm"
+    data = codes_cm.data if packed else codes_cm
+    table = _split_table(node_ids, data, split_feature, split_threshold,
+                         split_is_cat, split_default_left, what)
+    F, n = codes_cm.shape                # the logical shape
+    if packed and data.shape[1] != (n + 1) // 2:
+        raise ValueError(f"{what}: {data.shape[1]} packed bytes a field do "
+                         f"not hold {n} records")
     if node_ids.shape[-1] != n:
-        raise ValueError("partition_cm: node_ids and codes_cm disagree on n")
+        raise ValueError(f"{what}: node_ids and codes_cm disagree on n")
     K = node_ids.shape[0] if node_ids.ndim == 2 else 1
     if K > 65535:
-        raise ValueError(f"partition_cm: {K} classes exceed the grid")
-    return _launch("partition_cm_launch", "partition_cm", node_ids, codes_cm,
-                   table, n, (F, K), missing_bin)
+        raise ValueError(f"{what}: {K} classes exceed the grid")
+    if packed:
+        return _launch("partition_cm_nibble_launch", what, node_ids, data,
+                       table, n, (F, K), missing_bin, "partition_nibble")
+    return _launch("partition_cm_launch", what, node_ids, data, table, n,
+                   (F, K), missing_bin)

@@ -114,15 +114,37 @@ def test_transform_builds_dual_layout(mixed):
 
 
 def test_packed_codes_refused(mixed):
+    """Packing is refused above 16 bins, as ``repro`` refuses it; at 17
+    bins and more auto keeps plain uint8 codes."""
+    X, cats = mixed
+    b = binning.Binner(17, cats).fit(X)
+    with pytest.raises(ValueError, match="packed codes need n_bins <= 16"):
+        b.transform(X, packed=True, device="cpu")
+    with pytest.raises(ValueError, match="packed codes need n_bins <= 16"):
+        binning.dataset_from_codes(np.zeros((4, 2)), n_bins=17, packed=True,
+                                   device="cpu")
+    data = b.transform(X, device="cpu")
+    assert data.codes.dtype == torch.uint8
+    assert not isinstance(data.codes_cm, binning.PackedCodes)
+
+
+@pytest.mark.parametrize("packed", [None, True])
+def test_sixteen_bins_auto_pack(mixed, packed):
+    """At 16 bins both copies are 4-bit PackedCodes, the codes of the
+    uint8 layout bit for bit."""
     X, cats = mixed
     b = binning.Binner(16, cats).fit(X)
-    with pytest.raises(NotImplementedError, match="PackedCodes"):
-        b.transform(X, packed=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="PackedCodes"):
-        binning.dataset_from_codes(np.zeros((4, 2)), n_bins=16, packed=True,
-                                   device="cpu")
-    # auto keeps plain uint8 codes, which read bit-equal to packed ones
-    assert b.transform(X, device="cpu").codes.dtype == torch.uint8
+    data = b.transform(X, packed=packed, device="cpu")
+    plain = b.transform(X, packed=False, device="cpu")
+    assert isinstance(data.codes, binning.PackedCodes)
+    assert isinstance(data.codes_cm, binning.PackedCodes)
+    assert data.codes.data.shape == (X.shape[0], (X.shape[1] + 1) // 2)
+    assert data.codes_cm.data.shape == (X.shape[1], (X.shape[0] + 1) // 2)
+    assert torch.equal(data.codes.unpack(), plain.codes)
+    assert torch.equal(data.codes_cm.unpack(), plain.codes_cm)
+    assert (data.n_records, data.n_fields) == X.shape
+    np.testing.assert_array_equal(data.codes.unpack().numpy(),
+                                  b.transform_codes(X))
 
 
 def test_transform_without_cuda_raises(mixed):

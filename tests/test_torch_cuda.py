@@ -7,13 +7,16 @@ Imports nothing of JAX, so it runs on a machine that has only PyTorch:
 Without a CUDA device every test skips (the kernels have no CPU mode).
 Integer outputs are bit-equal; histograms bit-equal on dyadic g, h; the
 ensemble sum, taken in another order, to rtol 1e-5.  Each class-batched
-kernel is held against its plain version at K = 1 and K > 1.
+kernel is held against its plain version at K = 1 and K > 1, and each
+kernel that reads 4-bit ``PackedCodes`` also against its uint8 twin.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.api.plan import ExecutionPlan
 from repro_torch.core import binning, gbdt
+from repro_torch.core.binning import PackedCodes
 from repro_torch.data import make_tabular
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import histogram as hist_k
@@ -82,6 +85,87 @@ def test_class_batched_histogram_kernel_matches_plain(cuda, n, F, NB, NN, K):
     assert _build.launch_counts()["histogram"] == before + 1
     assert got.shape == (K, NN, F, NB, 2)
     assert torch.equal(got, hist_k.histogram_plain(codes, g, h, nid, NN, NB))
+
+
+def _dyadic_stats(K, n, NN, rng, cuda):
+    shape = (n,) if K == 1 else (K, n)
+    g = torch.from_numpy(rng.integers(-64, 64, shape) / 64).float().to(cuda)
+    h = torch.from_numpy(rng.integers(1, 64, shape) / 64).float().to(cuda)
+    nid = torch.from_numpy(rng.integers(0, NN, shape).astype(np.int32)
+                           ).to(cuda)
+    return g, h, nid
+
+
+@pytest.mark.parametrize("n,F,NN,K", [
+    (777, 13, 4, 1),
+    # 512 slots of 16 bins leave 3 fields a tile: tiles start at fields 3
+    # and 9, inside a packed byte
+    (1001, 9, 512, 1),
+    # the IoT shape's fields: F odd, one pad nibble a record
+    (3001, 115, 32, 1),
+    (3001, 54, 32, 7), (500, 5, 3, 3)])
+def test_nibble_histogram_kernel_matches_plain(cuda, n, F, NN, K):
+    rng = np.random.default_rng(n + F + K)
+    codes = torch.from_numpy(_codes(n, F, 16, rng)).to(cuda)
+    packed = PackedCodes.pack(codes)
+    assert packed.data.shape == (n, (F + 1) // 2)
+    g, h, nid = _dyadic_stats(K, n, NN, rng, cuda)
+    _, ft = hist_k.tile_shape(K * NN, F, 16)
+    assert NN != 512 or ft % 2 == 1
+    before = _build.launch_counts()
+    got = hist_k.histogram_cuda(packed, g, h, nid, n_nodes=NN, n_bins=16)
+    after = _build.launch_counts()
+    assert after["histogram_nibble"] == before["histogram_nibble"] + 1
+    assert after["histogram"] == before["histogram"]
+    assert torch.equal(got, hist_k.histogram_plain(packed, g, h, nid, NN, 16))
+    # bit-equal to the uint8 kernel on the same codes
+    assert torch.equal(got, hist_k.histogram_cuda(codes, g, h, nid,
+                                                  n_nodes=NN, n_bins=16))
+
+
+@pytest.mark.parametrize("n,F,NB,NN,K", [
+    (777, 13, 16, 4, 1), (5000, 28, 256, 32, 1), (5000, 28, 256, 1, 1),
+    (3001, 54, 256, 32, 7), (1000, 5, 16, 2, 3)])
+def test_naive_histogram_kernel_matches_plain(cuda, n, F, NB, NN, K):
+    rng = np.random.default_rng(n + NN + K)
+    codes = torch.from_numpy(_codes(n, F, NB, rng)).to(cuda)
+    g, h, nid = _dyadic_stats(K, n, NN, rng, cuda)
+    before = _build.launch_counts()["histogram_naive"]
+    got = hist_k.histogram_naive_cuda(codes, g, h, nid, n_nodes=NN,
+                                      n_bins=NB)
+    assert _build.launch_counts()["histogram_naive"] == before + 1
+    assert torch.equal(got, hist_k.histogram_plain(codes, g, h, nid, NN, NB))
+    assert torch.equal(got, hist_k.histogram_cuda(codes, g, h, nid,
+                                                  n_nodes=NN, n_bins=NB))
+
+
+@pytest.mark.parametrize("n,K,nn", [(3001, 1, 16), (3001, 7, 32),
+                                    (2, 3, 4)])
+def test_nibble_partition_kernel_matches_plain(cuda, n, K, nn):
+    """Odd n: each packed row of the column-major copy holds ceil(n/2)
+    bytes and ends in a pad nibble."""
+    rng = np.random.default_rng(n + K)
+    F = 115
+    codes_cm = torch.from_numpy(_codes(n, F, 16, rng).T.copy()).to(cuda)
+    packed = PackedCodes.pack(codes_cm)
+    assert packed.data.shape == (F, (n + 1) // 2)
+    shape = (nn,) if K == 1 else (K, nn)
+    nid = torch.from_numpy(rng.integers(0, nn, shape[:-1] + (n,))
+                           .astype(np.int32)).to(cuda)
+    split = [torch.from_numpy(a).to(cuda) for a in (
+        rng.integers(-1, F, shape).astype(np.int32),
+        rng.integers(0, 16, shape).astype(np.int32),
+        rng.integers(0, 2, shape).astype(np.int32),
+        rng.integers(0, 2, shape).astype(np.int32))]
+    before = _build.launch_counts()
+    got = part_k.partition_cm_cuda(nid, packed, *split, missing_bin=15)
+    after = _build.launch_counts()
+    assert after["partition_nibble"] == before["partition_nibble"] + 1
+    assert after["partition"] == before["partition"]
+    assert torch.equal(got, part_k.partition_cm_plain(nid, packed, *split,
+                                                      15))
+    assert torch.equal(got, part_k.partition_cm_cuda(nid, codes_cm, *split,
+                                                     missing_bin=15))
 
 
 def test_partition_kernels_match_plain(cuda):
@@ -189,6 +273,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         torch.zeros(2))])
     with pytest.raises(ValueError, match="field 5"):
         trav_k.traverse_cuda(tree, codes, missing_bin=3)
+    packed = PackedCodes.pack(codes)
+    with pytest.raises(ValueError, match="at most 16 bins"):
+        hist_k.histogram_cuda(packed, g, g, nid, n_nodes=1, n_bins=17)
+    with pytest.raises(ValueError, match="unpacked"):
+        hist_k.histogram_naive_cuda(packed, g, g, nid, n_nodes=1, n_bins=4)
+    with pytest.raises(ValueError, match="do not hold"):
+        hist_k.histogram_cuda(PackedCodes(packed.data, 5), g, g, nid,
+                              n_nodes=1, n_bins=4)
 
 
 def test_slice_on_card_matches_cpu(cuda):
@@ -226,3 +318,38 @@ def test_multiclass_slice_on_card_matches_cpu(cuda):
     margins = card.model.predict_margin(b.transform(X))
     assert margins.shape == (3000, 4) and _build.launch_counts()["ensemble"]
     torch.testing.assert_close(margins, card.margins, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("objective,K", [("binary:logistic", None),
+                                         ("multi:softmax", 3)])
+def test_packed_slice_on_card_matches_cpu(cuda, objective, K):
+    """A 16-bin fit on PackedCodes: the nibble histogram and partition on
+    the card grow the CPU fit's trees, and the Fig. 9 twin
+    (``hist_strategy="cuda_packed"``) grows them too."""
+    X, y, cats = make_tabular(3001, 15, 0, task="binary" if K is None
+                              else "multiclass", n_classes=K or 4,
+                              missing_rate=0.05, seed=7)
+    b = binning.Binner(16).fit(X)
+    cfg = gbdt.GBDTConfig(n_trees=3, max_depth=3, learning_rate=0.5,
+                          objective=objective, n_classes=K)
+    cpu = gbdt.train(cfg, b.transform(X, device="cpu"), y, device="cpu")
+    data = b.transform(X)
+    assert isinstance(data.codes, PackedCodes)
+    assert isinstance(data.codes_cm, PackedCodes)
+    _build.reset_launch_counts()
+    card = gbdt.train(cfg, data, y)
+    counts = _build.launch_counts()
+    assert counts["histogram_nibble"] == counts["partition_nibble"] == 3 * 3
+    assert counts["histogram"] == counts["partition"] == 0
+    naive = gbdt.train(cfg, data, y,
+                       plan=ExecutionPlan(hist_strategy="cuda_packed"))
+    assert _build.launch_counts()["histogram_naive"] == 3 * 3
+    for run in (card, naive):
+        assert torch.equal(run.model.trees.feature.cpu(),
+                           cpu.model.trees.feature)
+        np.testing.assert_allclose(run.history["train_loss"],
+                                   cpu.history["train_loss"], rtol=1e-5)
+    margins = card.model.predict_margin(data)
+    torch.testing.assert_close(margins, card.margins, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(card.model.predict_margin(data.codes),
+                               margins)
