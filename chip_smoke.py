@@ -39,7 +39,9 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    and ``predict``'s rows must sum to 1.  Then the class-batched
    histogram's dyadic parity and timing of phase 2b on this path's own
    codes, which give its kernel row (the random-code times stay as extra
-   keys).
+   keys), and on real g, h its agreement with a float64 sum of the plain
+   version, within rtol 1e-5 of each bin's sum of |stat|, at NN = 1 and
+   32.
 2c. 4-bit packed codes: the nibble histogram against its plain version
    and against the uint8 kernel on the same codes, at the IoT-shaped
    path's shape (2,000,000 records, 115 fields, 16 bins; NN = 1 and 32)
@@ -236,8 +238,8 @@ def kernel_parity(n: int, seed: int, dev) -> dict:
         b_ms, b_by = bound(n * F + 12 * n + NN * F * NB * 8, 2 * n * F)
         rows["histogram"] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms, shape=f"n={n} F={F} NB={NB} NN={NN}",
-            ms_nn1=ms_nn1)
+            library_ms=lib_ms, shape=f"n={n} F={F} NB={NB} NN={NN}, "
+            f"{grouped_label(n, 1, NN, F, NB)}", ms_nn1=ms_nn1)
         log(f"histogram NN={NN} n={n}: parity ok  kernel {ms:.3f} ms  "
             f"(NN=1 {ms_nn1:.3f} ms)  plain {plain_ms:.3f} ms  "
             f"bincount {lib_ms:.3f} ms  bound {b_ms:.3f} ms ({b_by})")
@@ -363,6 +365,36 @@ def bincount_histogram(idx, g, h, size: int):
                                 .reshape(-1), minlength=size) for w in (g, h))
 
 
+def grouped_label(n: int, K: int, NN: int, F: int, NB: int) -> str:
+    """The grouped kernel's launch at this shape, for a row's ``shape``."""
+    from repro_torch.kernels import histogram as hist_k
+
+    geo = hist_k.grouped_geometry(n, K, NN, F, NB,
+                                  hist_k.grouped_limits("cuda:0"))
+    sort = "one slot, no sort" if K * NN == 1 else "counting sort"
+    return (f"records sorted by slot ({sort}), "
+            f"{geo.blocks} blocks x {geo.n_ftiles} field tile(s) of "
+            f"{geo.field_tile} fields, {geo.per_block} positions a block, a "
+            f"warp per record and a lane per field")
+
+
+def histogram_f64(codes, g, h, nid, n_nodes: int, n_bins: int):
+    """The plain histogram's scatter-add in float64 (g, h, nid (K, n)),
+    and beside it each bin's sum of |g| and of h: (K, NN, F, NB, 2) each."""
+    idx = histogram_index(codes, nid, n_nodes, n_bins)
+    K, (n, F) = g.shape[0], codes.shape
+    size = K * n_nodes * F * n_bins
+
+    def total(w):
+        return torch.bincount(idx, weights=w.double().reshape(-1, 1)
+                              .expand(-1, F).reshape(-1), minlength=size)
+
+    shape = (K, n_nodes, F, n_bins, 2)
+    want = torch.stack([total(g), total(h)], dim=-1).reshape(shape)
+    mag = torch.stack([total(g.abs()), total(h)], dim=-1).reshape(shape)
+    return want, mag
+
+
 def nibble_histogram(codes, K: int, nn_levels, gen, dev, label: str) -> dict:
     """The nibble histogram on uint8 ``codes`` (n, F) <= 15, packed here:
     at each NN of ``nn_levels`` bit-equal to its plain version and to the
@@ -417,13 +449,12 @@ def nibble_histogram(codes, K: int, nn_levels, gen, dev, label: str) -> dict:
         histogram_index(packed, nid, nn, NB), g, h, K * nn * F * NB), reps=3)
     b_ms, b_by = bound(n * ((F + 1) // 2) + 12 * K * n
                        + K * nn * F * NB * 8, 2 * K * n * F)
-    st, ft = hist_k.tile_shape(K * nn, F, NB)
     log(f"nibble histogram K={K} NN={nn} ({label}): plain {plain_ms:.3f} ms"
         f"  unpack + bincount {lib_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})")
     row = dict(ms=out[nn][0], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                library_ms=lib_ms, max_abs_err=err, uint8_ms=out[nn][1],
-               shape=f"n={n} F={F} NB={NB} K={K} NN={nn} slot tile {st} x "
-               f"field tile {ft}, {label}")
+               shape=f"n={n} F={F} NB={NB} K={K} NN={nn}, "
+               f"{grouped_label(n, K, nn, F, NB)}, {label}")
     if len(nn_levels) > 1:
         row.update(ms_nn1=out[nn_levels[0]][0],
                    uint8_ms_nn1=out[nn_levels[0]][1])
@@ -742,12 +773,18 @@ def main_path(n: int, n_trees: int, seed: int, dev):
 
 def class_histogram(codes, gen, dev, label: str, real_stats: bool) -> dict:
     """The class-batched histogram (K = 7) on ``codes`` (n, F): parity with
-    its plain version at NN = 1 and 32 (dyadic g, h bit-equal; with
-    ``real_stats`` also real ones within tolerance), its time at both, and
-    at NN = 32 the plain version's time, a ``torch.bincount`` time and the
-    bound.  Real stats are checked on random codes only: where the codes
-    put ~290,000 records on one bin, as two-category fields do at NN = 1,
-    float32 sums in another order differ by about the tolerance itself."""
+    its plain version at NN = 1 and 32, its time at both, and at NN = 32 the
+    plain version's time, a ``torch.bincount`` time and the bound.
+
+    Dyadic g, h: bit-equal.  Real g, h: within rtol 1e-5 of each bin's
+    sum of |stat| of a float64 sum of the plain version's scatter-add (the
+    kernel sums in float32 within a block, then across blocks), with the
+    kernel's and the float32 plain version's largest error beside each
+    other; with ``real_stats`` also within rtol 1e-5 + 1e-5 node sum|stat|
+    of the float32 plain version.  That second check is made on random
+    codes only: where the codes put ~290,000 records on one bin, as
+    two-category fields do at NN = 1, the plain version's own float32 sum
+    in one order differs from float64 by about that tolerance itself."""
     from repro_torch.kernels import histogram as hist_k
 
     (n, F), NB, K, NN = codes.shape, N_BINS, MC_CLASSES, 2 ** (DEPTH - 1)
@@ -755,7 +792,7 @@ def class_histogram(codes, gen, dev, label: str, real_stats: bool) -> dict:
     h_dy = torch.randint(1, 64, (K, n), generator=gen, device=dev) / 64.0
     g = torch.randn((K, n), generator=gen, device=dev)
     h = torch.rand((K, n), generator=gen, device=dev) * 0.9 + 0.1
-    err, ms = 0.0, {}
+    err, err64, plain_err64, ms = 0.0, 0.0, 0.0, {}
     for nn in (1, NN):
         nid = torch.randint(0, nn, (K, n), generator=gen, device=dev,
                             dtype=torch.int32)
@@ -765,21 +802,34 @@ def class_histogram(codes, gen, dev, label: str, real_stats: bool) -> dict:
                                                       nn, NB)),
               f"class-batched histogram K={K} NN={nn} ({label}) dyadic "
               "bit-equal")
+        got = hist_k.histogram_cuda(codes, g, h, nid, n_nodes=nn, n_bins=NB)
+        want = hist_k.histogram_plain(codes, g, h, nid, nn, NB)
+        want64, mag64 = histogram_f64(codes, g, h, nid, nn, NB)
+        e_kernel = (got.double() - want64).abs()
+        e_plain = (want.double() - want64).abs()
+        check(bool(torch.all(e_kernel <= 1e-5 * mag64)),
+              f"class-batched histogram K={K} NN={nn} ({label}) within rtol "
+              "1e-5 of the bin's sum|stat| of a float64 sum")
+        err64 = max(err64, float(e_kernel.max()))
+        plain_err64 = max(plain_err64, float(e_plain.max()))
+        log(f"class-batched histogram K={K} NN={nn} ({label}) real stats "
+            f"against float64: kernel max abs err {float(e_kernel.max()):.3e}"
+            f" (max err / bin sum|stat| "
+            f"{float((e_kernel / mag64.clamp(min=1e-30)).max()):.3e}), "
+            f"float32 plain version {float(e_plain.max()):.3e} "
+            f"({float((e_plain / mag64.clamp(min=1e-30)).max()):.3e})")
+        del want64, mag64, e_kernel, e_plain
         if real_stats:
-            got = hist_k.histogram_cuda(codes, g, h, nid, n_nodes=nn,
-                                        n_bins=NB)
-            want = hist_k.histogram_plain(codes, g, h, nid, nn, NB)
             mag = hist_k.histogram_plain(codes, g.abs(), h, nid, nn,
                                          NB).sum(dim=3, keepdim=True)
             check(hist_within_tolerance(got, want, mag),
                   f"class-batched histogram K={K} NN={nn} ({label}) within "
                   "rtol 1e-5 + 1e-5 node sum|stat|")
             err = max(err, float((got - want).abs().max()))
-            del want, mag
-        del got
+            del mag
+        del got, want
         ms[nn] = time_ms(lambda: hist_k.histogram_cuda(
             codes, g, h, nid, n_nodes=nn, n_bins=NB))
-    st, ft = hist_k.tile_shape(K * NN, F, NB)
     plain_ms = time_ms(lambda: hist_k.histogram_plain(codes, g, h, nid, NN,
                                                       NB), reps=3)
     # the same function as one bincount per statistic over a precomputed
@@ -801,8 +851,9 @@ def class_histogram(codes, gen, dev, label: str, real_stats: bool) -> dict:
         f"({b_by})")
     return dict(ms=ms[NN], ms_nn1=ms[1], plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms, max_abs_err=err,
-                shape=f"n={n} F={F} NB={NB} K={K} NN={NN} slot tile {st} x "
-                f"field tile {ft}, {label}")
+                max_abs_err_f64=err64, plain_max_abs_err_f64=plain_err64,
+                shape=f"n={n} F={F} NB={NB} K={K} NN={NN}, "
+                f"{grouped_label(n, K, NN, F, NB)}, {label}")
 
 
 def class_parity(n: int, seed: int, dev) -> dict:
@@ -825,7 +876,8 @@ def class_parity(n: int, seed: int, dev) -> dict:
     rand = class_histogram(codes, gen, dev, "random codes", True)
     rows["histogram_classes"] = dict(
         max_abs_err=rand["max_abs_err"], ms_random_codes=rand["ms"],
-        ms_random_codes_nn1=rand["ms_nn1"])
+        ms_random_codes_nn1=rand["ms_nn1"],
+        max_abs_err_f64_random_codes=rand["max_abs_err_f64"])
     nid = torch.randint(0, NN, (K, n), generator=gen, device=dev,
                         dtype=torch.int32)
 

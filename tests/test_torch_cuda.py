@@ -50,36 +50,67 @@ def _trees(T, depth, C, n_bins, rng, device):
         rng.normal(size=(T, 2 ** depth)).astype(np.float32))])
 
 
-@pytest.mark.parametrize("n,F,NB,NN", [(64, 3, 8, 1), (777, 13, 16, 4),
-                                       (5000, 28, 256, 32),
-                                       (5000, 28, 256, 512)])
-def test_histogram_kernel_matches_plain(cuda, n, F, NB, NN):
+def _layout(layout, n, F, NB, NN, shape, rng):
+    """Codes and node ids of one test layout: ``random`` (10 % missing,
+    nodes uniform), ``two`` (every code on bins 0-1, as two-category fields
+    put them: many records of one code, merged before they are added),
+    ``one_slot`` (every record in the last node, the others empty) or
+    ``sparse`` (even nodes only: every other slot empty)."""
+    codes = _codes(n, F, NB, rng)
+    if layout == "two":
+        codes = rng.integers(0, 2, (n, F)).astype(np.uint8)
+    nid = rng.integers(0, NN, shape).astype(np.int32)
+    if layout == "one_slot":
+        nid[:] = NN - 1
+    elif layout == "sparse":
+        nid -= nid % 2
+    return codes, nid
+
+
+@pytest.mark.parametrize("n,F,NB,NN,layout", [
+    (64, 3, 8, 1, "random"), (777, 13, 16, 4, "random"),
+    (5000, 28, 256, 32, "random"), (5000, 28, 256, 512, "random"),
+    # one slot: no sort, the list is the identity
+    (5000, 28, 256, 1, "random"), (3000, 28, 256, 1, "two"),
+    # two-category codes; empty slots; one slot holding every record
+    (5000, 28, 256, 32, "two"), (4000, 28, 256, 32, "sparse"),
+    (4000, 28, 256, 32, "one_slot"),
+    # F > 32 and not a multiple of 32: lanes take fields l, l + 32, ...
+    (3000, 54, 256, 16, "random"), (3000, 54, 256, 32, "two"),
+    # 115 fields of 256 bins pass the shared-memory budget: field tiles
+    (3000, 115, 256, 8, "random"), (3000, 115, 256, 1, "two"),
+    # many blocks, each share crossing slot boundaries
+    (200_000, 28, 256, 32, "random"), (200_000, 28, 256, 64, "sparse")])
+def test_histogram_kernel_matches_plain(cuda, n, F, NB, NN, layout):
     rng = np.random.default_rng(n + NN)
-    codes = torch.from_numpy(_codes(n, F, NB, rng)).to(cuda)
+    codes, nid = _layout(layout, n, F, NB, NN, (n,), rng)
+    codes, nid = torch.from_numpy(codes).to(cuda), torch.from_numpy(nid).to(cuda)
     g = torch.from_numpy(rng.integers(-64, 64, n) / 64).float().to(cuda)
     h = torch.from_numpy(rng.integers(1, 64, n) / 64).float().to(cuda)
-    nid = torch.from_numpy(rng.integers(0, NN, n).astype(np.int32)).to(cuda)
     before = _build.launch_counts()["histogram"]
     got = hist_k.histogram_cuda(codes, g, h, nid, n_nodes=NN, n_bins=NB)
     assert _build.launch_counts()["histogram"] == before + 1
     assert torch.equal(got, hist_k.histogram_plain(codes, g, h, nid, NN, NB))
 
 
-@pytest.mark.parametrize("n,F,NB,NN,K", [
-    (777, 13, 16, 4, 1), (1000, 5, 16, 2, 3),
-    # 7 x 32 slots of 256 bins: 1.75 MB per field, tiled over 3 blocks
-    (5000, 54, 256, 32, 7),
-    # 3 x 512 slots: 16 slot tiles; a class boundary inside a tile
-    (3000, 3, 256, 512, 3)])
-def test_class_batched_histogram_kernel_matches_plain(cuda, n, F, NB, NN, K):
+@pytest.mark.parametrize("n,F,NB,NN,K,layout", [
+    (777, 13, 16, 4, 1, "random"), (1000, 5, 16, 2, 3, "random"),
+    # 7 x 32 slots of 256 bins: 1.75 MB per field
+    (5000, 54, 256, 32, 7, "random"),
+    # 3 x 512 slots
+    (3000, 3, 256, 512, 3, "random"), (3000, 28, 256, 512, 3, "sparse"),
+    # the Covertype shape's collision case: two-category codes, K = 7
+    (5000, 54, 256, 32, 7, "two"), (5000, 54, 256, 1, 7, "two"),
+    (4000, 54, 256, 32, 7, "one_slot"),
+    # field tiles at K > 1; many blocks
+    (2000, 115, 256, 4, 3, "sparse"), (100_000, 54, 256, 32, 7, "random")])
+def test_class_batched_histogram_kernel_matches_plain(cuda, n, F, NB, NN, K,
+                                                      layout):
     rng = np.random.default_rng(n + K)
-    codes = torch.from_numpy(_codes(n, F, NB, rng)).to(cuda)
+    codes, nid = _layout(layout, n, F, NB, NN, (K, n), rng)
+    codes, nid = torch.from_numpy(codes).to(cuda), torch.from_numpy(nid).to(cuda)
     g = torch.from_numpy(rng.integers(-64, 64, (K, n)) / 64).float().to(cuda)
     h = torch.from_numpy(rng.integers(1, 64, (K, n)) / 64).float().to(cuda)
-    nid = torch.from_numpy(rng.integers(0, NN, (K, n)).astype(np.int32)
-                           ).to(cuda)
-    st, _ = hist_k.tile_shape(K * NN, F, NB)
-    assert (st < K * NN) == (K * NN * NB * 8 > hist_k.SMEM_BUDGET)
     before = _build.launch_counts()["histogram"]
     got = hist_k.histogram_cuda(codes, g, h, nid, n_nodes=NN, n_bins=NB)
     assert _build.launch_counts()["histogram"] == before + 1
@@ -103,7 +134,9 @@ def _dyadic_stats(K, n, NN, rng, cuda):
     (1001, 9, 512, 1),
     # the IoT shape's fields: F odd, one pad nibble a record
     (3001, 115, 32, 1),
-    (3001, 54, 32, 7), (500, 5, 3, 3)])
+    (3001, 54, 32, 7), (500, 5, 3, 3),
+    # odd F past one warp's lanes; one slot (no sort); K > 1 at odd F
+    (2001, 33, 8, 1), (2001, 115, 1, 1), (2001, 63, 64, 3)])
 def test_nibble_histogram_kernel_matches_plain(cuda, n, F, NN, K):
     rng = np.random.default_rng(n + F + K)
     codes = torch.from_numpy(_codes(n, F, 16, rng)).to(cuda)
@@ -259,6 +292,21 @@ def test_traversal_kernels_match_plain(cuda, T, depth):
         rtol=1e-5, atol=1e-5)
 
 
+def test_grouped_limits_read_from_the_card(cuda):
+    """The limits that size a grouped launch come from the built kernel
+    and the card, and leave room for the paths' bins and sort counters."""
+    limits = hist_k.grouped_limits(cuda)
+    props = torch.cuda.get_device_properties(cuda)
+    assert limits.sms == props.multi_processor_count
+    assert limits.blocks_per_sm >= 1 and limits.sort_node_bytes == 12
+    assert 0 < limits.block_reserved < limits.block_shared \
+        <= limits.sm_shared
+    # Higgs's 28 fields of 256 bins fit one block (padded to 32 fields)
+    assert 8 * 256 * 32 <= limits.budget
+    assert limits.max_sort_nodes >= 2 ** 14
+    assert hist_k.grouped_limits(cuda) is limits     # read once a device
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     codes = torch.zeros((8, 3), dtype=torch.uint8, device=cuda)
     g = torch.zeros(8, device=cuda)
@@ -267,6 +315,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         hist_k.histogram_cuda(codes, g.double(), g, nid, n_nodes=1, n_bins=4)
     with pytest.raises(ValueError):
         hist_k.histogram_cuda(codes.T, g, g, nid, n_nodes=1, n_bins=4)
+    # more nodes than the counting sort's shared counters hold
+    limits = hist_k.grouped_limits(cuda)
+    with pytest.raises(ValueError, match="nodes"):
+        hist_k.histogram_cuda(codes, g, g, nid,
+                              n_nodes=limits.max_sort_nodes + 1, n_bins=4)
     tree = ref.TreeArrays(*[a.to(cuda) for a in (
         torch.tensor([5], dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
         torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
@@ -310,9 +363,32 @@ def test_multiclass_slice_on_card_matches_cpu(cuda):
     counts = _build.launch_counts()
     assert counts["histogram"] == counts["partition"] == 3 * 3
     assert counts["traversal"] == 3
-    for field in ("feature", "threshold", "is_cat", "default_left"):
+    for field in ("feature", "is_cat"):
         assert torch.equal(getattr(card.model.trees, field).cpu(),
                            getattr(cpu.model.trees, field))
+    # A node holding two categories of a 3-category field offers two mirror
+    # splits (either category left, the missing records beside it) that
+    # route every record alike with the children swapped; their gains tie
+    # in real arithmetic, so the order of the float32 histogram sums picks
+    # one (ROADMAP Queue 3).  A node's (threshold, default_left) equals the
+    # CPU fit's, or that of a CPU fit of the same records in another order
+    # (the witness) at that node.
+    def words(fit):
+        return torch.stack([getattr(fit.model.trees, f).cpu()
+                            for f in ("threshold", "default_left")], -1)
+
+    seen = [words(cpu)]
+    for seed in range(8):
+        p = np.random.default_rng(seed).permutation(len(y))
+        seen.append(words(gbdt.train(cfg, b.transform(X[p], device="cpu"),
+                                     y[p], device="cpu")))
+    got = words(card)
+    witnessed = (torch.stack(seen) == got).all(-1).any(0)
+    assert witnessed.all(), (
+        f"nodes {torch.nonzero(~witnessed).tolist()}: card "
+        f"{got[~witnessed].tolist()}, CPU {seen[0][~witnessed].tolist()}")
+    torch.testing.assert_close(card.margins.cpu(), cpu.margins, rtol=1e-5,
+                               atol=1e-5)
     np.testing.assert_allclose(card.history["train_loss"],
                                cpu.history["train_loss"], rtol=1e-5)
     margins = card.model.predict_margin(b.transform(X))

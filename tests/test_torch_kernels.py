@@ -87,11 +87,83 @@ def test_histogram_wrapper_takes_plain_version_on_cpu():
 
 
 @pytest.mark.parametrize("n_nodes,n_fields,n_bins", [
-    (1, 28, 256), (32, 28, 256), (512, 28, 256), (4, 9, 16), (1, 1, 2)])
+    (1, 28, 256), (32, 28, 256), (512, 28, 256), (4, 9, 16), (1, 1, 2),
+    # the naive twin's class-batched slots (K x NN): 7 x 32 and 3 x 512
+    # slots of 256 bins pass the budget, 3 x 4 of 16 bins do not
+    (7 * 32, 54, 256), (3 * 512, 3, 256), (3 * 4, 5, 16), (96, 1, 256)])
 def test_histogram_tiles_fit_shared_memory(n_nodes, n_fields, n_bins):
     nt, ft = hist_k.tile_shape(n_nodes, n_fields, n_bins)
     assert 1 <= nt <= n_nodes and 1 <= ft <= n_fields
     assert nt * ft * n_bins * 2 * 4 <= hist_k.SMEM_BUDGET
+    # slots are tiled exactly when one field's bins of every slot do not fit
+    assert (nt < n_nodes) == (n_nodes * n_bins * 8 > hist_k.SMEM_BUDGET)
+
+
+# What csrc/histogram.cu's launch bounds and an H100 SXM give
+# (hist_grouped_limits): 3 blocks an SM, 12 sort bytes a node, 132 SMs,
+# 228 KB an SM, 1 KB of it kept a block, 227 KB a block at most.
+H100 = hist_k.GroupedLimits(blocks_per_sm=3, sort_node_bytes=12, sms=132,
+                            sm_shared=233_472, block_reserved=1_024,
+                            block_shared=232_448)
+
+
+def test_grouped_limits_budget():
+    """Two blocks' bins an SM; a sort block's counters for 19,370 nodes."""
+    assert H100.budget == 233_472 // 2 - 1_024
+    assert H100.max_sort_nodes == 232_448 // 12
+    small = H100._replace(sm_shared=100_000, block_shared=40_000)
+    assert small.budget == 40_000
+
+
+@pytest.mark.parametrize("n,K,NN,F,NB", [
+    (10_000_000, 1, 1, 28, 256), (10_000_000, 1, 32, 28, 256),
+    (581_012, 7, 32, 54, 256), (581_012, 7, 1, 54, 256),
+    (2_000_000, 1, 32, 115, 16), (3000, 1, 8, 115, 256),
+    (3000, 3, 512, 3, 256), (1, 1, 1, 1, 2), (777, 2, 3, 13, 15)])
+def test_grouped_geometry_covers_every_slot_and_field(n, K, NN, F, NB):
+    geo = hist_k.grouped_geometry(n, K, NN, F, NB, H100)
+    # bins [bin][field], a tile's fields padded to a multiple of 32 (lane l
+    # always on bank l), g and h; within 227 KB
+    assert geo.row % 32 == 0 and geo.field_tile <= geo.row < \
+        geo.field_tile + 32
+    assert geo.smem == 8 * NB * geo.row
+    assert geo.smem <= 227 * 1024
+    assert 2 * (geo.smem + H100.block_reserved) <= H100.sm_shared \
+        or geo.n_ftiles == 1
+    # the field tiles cover every field once, none empty
+    assert (geo.n_ftiles - 1) * geo.field_tile < F <= \
+        geo.n_ftiles * geo.field_tile
+    assert geo.n_ftiles == 1 or geo.smem <= H100.budget
+    # the blocks' shares cover every sorted (class, record) position, and
+    # the blocks fit the card at once
+    assert geo.blocks * geo.per_block >= K * n
+    assert (geo.blocks - 1) * geo.per_block < K * n
+    assert geo.blocks * geo.n_ftiles <= H100.blocks_per_sm * H100.sms
+    # the sort's blocks cover every record of a class; none at one slot
+    if K * NN == 1:
+        assert geo.sort_blocks == geo.sort_chunk == 0
+    else:
+        assert geo.sort_blocks * geo.sort_chunk >= n
+        assert (geo.sort_blocks - 1) * geo.sort_chunk < n
+        assert NN <= H100.max_sort_nodes
+        assert NN * H100.sort_node_bytes <= H100.block_shared
+
+
+def test_grouped_geometry_at_the_paths_shapes():
+    """Higgs's 28 fields of 256 bins sit in one block (64 KB, three blocks
+    an SM); Covertype's 54 pad to 64 and would pass the budget, so they
+    take two tiles of 27; IoT's 115 fields of 16 bins one; 115 fields of
+    256 bins four tiles of 29."""
+    higgs = hist_k.grouped_geometry(10_000_000, 1, 32, 28, 256, H100)
+    cover = hist_k.grouped_geometry(581_012, 7, 32, 54, 256, H100)
+    iot = hist_k.grouped_geometry(2_000_000, 1, 32, 115, 16, H100)
+    wide = hist_k.grouped_geometry(3000, 1, 8, 115, 256, H100)
+    assert (higgs.n_ftiles, higgs.row, higgs.smem) == (1, 32, 65536)
+    assert higgs.blocks == 3 * 132                  # one wave
+    assert (cover.n_ftiles, cover.field_tile, cover.row) == (2, 27, 32)
+    assert cover.blocks == 3 * 132 // 2
+    assert (iot.n_ftiles, iot.row, iot.smem) == (1, 128, 16384)
+    assert (wide.n_ftiles, wide.field_tile) == (4, 29)
 
 
 def _splits(nn, n_cols, n_bins, rng, passthrough=True):
