@@ -14,6 +14,14 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    same inputs, with its time (CUDA events, median of 5 after a warm-up),
    the plain version's time, the least time the card could take and,
    where one PyTorch call computes the same function, that call's time.
+   The ensemble (here and in 2b) is held bit-equal on dyadic leaves, then
+   on real leaves against a float64 sum of the plain version's leaf
+   choices within rtol 1e-5 of each record's sum of |leaf| (its largest
+   error printed beside the float32 plain version's); its row names the
+   launch's geometry (R records a block, U a thread, TB trees a staged
+   block).  The ensemble's wide entry (code rows read from global memory,
+   one field past the staged limit, 20,000 records) gets a row of its own,
+   with 0 launches: no path is that wide.
 2b. Class-batched parity at the multi-class path's shapes (581,012
    records, 54 fields, 256 bins, K = 7 classes, 32 nodes a class; the
    ensemble at T = 504 trees = 72 rounds x 7 classes): the histogram,
@@ -97,6 +105,7 @@ MC_ROUNDS_TIMED = 72             # 504 trees in the timed ensemble
 # in full, cut to 2 M (+10 % held out) to bound the host's quantile fit
 IOT_RECORDS, IOT_FIELDS, IOT_BINS = 2_000_000, 115, 16
 NAIVE_TREES = 2                  # trees of the cuda_packed fit (phase 3a)
+WIDE_RECORDS = 20_000            # records of the wide ensemble entry's row
 
 
 def log(*parts) -> None:
@@ -320,16 +329,106 @@ def kernel_parity(n: int, seed: int, dev) -> dict:
                                                              NB - 1), reps=1)
     hops = n * T * DEPTH
     b_ms, b_by = bound(n * F + 4 * n + 4 * T * n_words, hops * OPS_PER_HOP)
+    real = ensemble_real_leaves(trees, codes, 1, gen, dev, "ensemble")
     rows["ensemble"] = dict(
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None, max_abs_err=float(err.max()),
-        shape=f"n={n} F={F} T={T} depth={DEPTH}",
+        shape=f"n={n} F={F} T={T} depth={DEPTH}, "
+        f"{ensemble_label(n, F, T, dev)}",
         bytes_bound_ms=(n * F + 4 * n + 4 * T * n_words)
-        / HBM_BYTES_PER_S * 1e3)
+        / HBM_BYTES_PER_S * 1e3, **real)
     log(f"ensemble n={n} T={T} depth={DEPTH}: parity ok  kernel {ms:.3f} ms"
         f"  plain {plain_ms:.3f} ms (first run {plain_s * 1e3:.1f} ms)  "
         f"bound {b_ms:.3f} ms ({b_by}; {hops:.3g} hops)")
+    rows["ensemble_wide"] = ensemble_wide(seed, dev)
     return rows
+
+
+def ensemble_label(n: int, F: int, T: int, dev) -> str:
+    """The ensemble launch's geometry: records a block, a thread, trees a
+    staged block, and the entry."""
+    from repro_torch.kernels import traversal as trav_k
+
+    geo = trav_k.ensemble_geometry(n, F, T, DEPTH,
+                                   trav_k.ensemble_limits(dev))
+    return (f"R={geo.records} U={geo.per_thread} TB={geo.trees} "
+            f"({geo.entry})")
+
+
+def ensemble_real_leaves(trees, codes, K: int, gen, dev, label: str) -> dict:
+    """The ensemble kernel on real (normal) leaves against a float64 sum of
+    the plain version's leaf choices, within rtol 1e-5 of each record's
+    sum of |leaf| (per class).  Returns the kernel's and the float32 plain
+    version's largest errors, absolute and relative to that sum."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import traversal as trav_k
+
+    n, mb = codes.shape[0], N_BINS - 1
+    real = trees._replace(leaf_value=0.1 * torch.randn(
+        tuple(trees.leaf_value.shape), generator=gen, device=dev))
+    got = trav_k.predict_ensemble_cuda(real, codes, missing_bin=mb,
+                                       n_classes=K).reshape(n, K).double()
+    plain = trav_k.predict_ensemble_plain(real, codes, mb,
+                                          K).reshape(n, K).double()
+    want = torch.zeros((n, K), dtype=torch.float64, device=dev)
+    mag = torch.zeros_like(want)
+    for c in range(K):          # class c: trees c, c + K, ... in f64
+        cls = ref.TreeArrays(*[a[c::K] for a in real])
+        leaf = cls.leaf_value.double()
+        if leaf.shape[0]:
+            want[:, c] = trav_k.predict_ensemble_plain(
+                cls._replace(leaf_value=leaf), codes, mb)
+            mag[:, c] = trav_k.predict_ensemble_plain(
+                cls._replace(leaf_value=leaf.abs()), codes, mb)
+    err, plain_err = (got - want).abs(), (plain - want).abs()
+    check(bool(torch.all(err <= 1e-5 * mag)),
+          f"{label} on real leaves within rtol 1e-5 of sum|leaf| (float64)")
+    tiny = torch.finfo(torch.float64).tiny
+    out = dict(real_max_abs_err=float(err.max()),
+               real_max_rel_err=float((err / mag.clamp(min=tiny)).max()),
+               plain_real_max_abs_err=float(plain_err.max()),
+               plain_real_max_rel_err=float(
+                   (plain_err / mag.clamp(min=tiny)).max()))
+    log(f"{label} real leaves vs float64: kernel max err "
+        f"{out['real_max_abs_err']:.3g} ({out['real_max_rel_err']:.3g} of "
+        f"sum|leaf|), float32 plain {out['plain_real_max_abs_err']:.3g} "
+        f"({out['plain_real_max_rel_err']:.3g})")
+    return out
+
+
+def ensemble_wide(seed: int, dev) -> dict:
+    """The ensemble kernel's wide entry (code rows read from global memory)
+    at one field past the staged limit, WIDE_RECORDS records, against its
+    plain version on dyadic and real leaves.  Returns its kernel row."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import traversal as trav_k
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    n, T, NB = WIDE_RECORDS, ENSEMBLE_TREES, N_BINS
+    F = trav_k.max_staged_fields(DEPTH, trav_k.ensemble_limits(dev)) + 1
+    codes = torch.randint(0, NB, (n, F), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    trees = random_trees(T, F, gen, dev)
+    before = _build.launch_counts()["ensemble_wide"]
+    got = trav_k.predict_ensemble_cuda(trees, codes, missing_bin=NB - 1)
+    check(_build.launch_counts()["ensemble_wide"] == before + 1,
+          f"F={F} takes the wide entry")
+    want = trav_k.predict_ensemble_plain(trees, codes, NB - 1)
+    check(torch.equal(got, want), "wide ensemble bit-equal (dyadic leaves)")
+    real = ensemble_real_leaves(trees, codes, 1, gen, dev, "wide ensemble")
+    ms = time_ms(lambda: trav_k.predict_ensemble_cuda(trees, codes,
+                                                      missing_bin=NB - 1))
+    plain_ms = time_ms(lambda: trav_k.predict_ensemble_plain(trees, codes,
+                                                             NB - 1), reps=1)
+    hops = n * T * DEPTH
+    n_words = 2 ** (DEPTH + 1) - 1
+    b_ms, b_by = bound(n * F + 4 * n + 4 * T * n_words, hops * OPS_PER_HOP)
+    log(f"wide ensemble n={n} F={F} T={T}: parity ok  kernel {ms:.3f} ms  "
+        f"plain {plain_ms:.3f} ms  bound {b_ms:.3f} ms ({b_by})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, max_abs_err=float((got - want).abs().max()),
+                shape=f"n={n} F={F} T={T} depth={DEPTH}, "
+                f"{ensemble_label(n, F, T, dev)}; on no path", **real)
 
 
 def dyadic_stats(shape, gen, dev):
@@ -938,12 +1037,14 @@ def class_parity(n: int, seed: int, dev) -> dict:
     hops = n * T * DEPTH
     b_ms, b_by = bound(n * F + 4 * n * K + 4 * T * n_words,
                        hops * OPS_PER_HOP)
+    real = ensemble_real_leaves(trees, codes, K, gen, dev,
+                                "multi-class ensemble")
     rows["ensemble_classes"] = dict(
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None, max_abs_err=float(err.max()),
-        shape=f"{shape} T={T} depth={DEPTH}",
+        shape=f"{shape} T={T} depth={DEPTH}, {ensemble_label(n, F, T, dev)}",
         bytes_bound_ms=(n * F + 4 * n * K + 4 * T * n_words)
-        / HBM_BYTES_PER_S * 1e3)
+        / HBM_BYTES_PER_S * 1e3, **real)
     log(f"multi-class ensemble K={K} n={n} T={T}: parity ok  kernel "
         f"{ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b_ms:.3f} ms "
         f"({b_by}; {hops:.3g} hops)")
@@ -1168,6 +1269,9 @@ def main(argv=None) -> int:
          "src/repro/kernels/traversal.py:84", mc_counts),
         ("ensemble_classes", "ensemble", "traversal.cu",
          "src/repro/kernels/traversal.py:125", mc_counts),
+        # the wide entry (rows past the staged limit): on no path, 0 launches
+        ("ensemble_wide", "ensemble_wide", "traversal.cu",
+         "src/repro/kernels/traversal.py:125", counts),
         # the nibble_packed branch of _hist_kernel_grouped (:93-95)
         ("histogram_nibble", "histogram_nibble", "histogram.cu",
          "src/repro/kernels/histogram.py:93", iot_counts),

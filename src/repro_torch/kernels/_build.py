@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 KERNELS = ("histogram", "histogram_nibble", "histogram_naive", "partition",
-           "partition_nibble", "traversal", "ensemble")
+           "partition_nibble", "traversal", "ensemble", "ensemble_wide")
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 _libs: Dict[str, ctypes.CDLL] = {}
 

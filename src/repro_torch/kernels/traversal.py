@@ -14,16 +14,25 @@ D hops down with implicit children.
     is its K = 1 case.  Bound by bytes (each record's code row in, K
     floats out).
   * :func:`predict_ensemble_cuda` — bound by operations: n·T·D dependent
-    hops against one pass over the codes.  Trees are staged in shared
-    memory a block at a time and leaves sum in a register in tree order,
-    class by class (tree t feeds margin column t % K), so the sum matches
-    :func:`predict_ensemble_plain` to float tolerance while the leaf each
-    tree picks is identical.
+    hops against one pass over the codes.  A block stages its R records'
+    code rows in shared memory in a bank-free layout, then blocks of TB
+    trees in turn; a thread walks U records hop by hop
+    (:func:`ensemble_geometry` sizes it).  Leaves sum in a register per
+    record in tree order, class by class (tree t feeds margin column
+    t % K), so the sum matches :func:`predict_ensemble_plain` to float
+    tolerance while the leaf each tree picks is identical.  Rows too wide
+    to stage take the wide entry, which reads the codes from global memory
+    (counted as ``ensemble_wide``).
 
 Decisions are integer-exact: :func:`traverse_forest_cuda` is bit-equal to
 :func:`traverse_forest_plain`.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -34,9 +43,110 @@ from repro_torch.kernels.ref import (TreeArrays, predict_ensemble_batched,
                                      traverse_ref as traverse_plain)
 
 THREADS = 256
-TREE_SMEM = 48 * 1024        # shared memory for one block of staged trees
+MIN_STAGED_TREES = 16        # trees a staged block holds where room allows
 PLAIN_ROWS = 1 << 18         # records per pass of the plain ensemble walk
 MAX_FIELDS = 1 << 15         # field ids must fit the packed node word
+
+
+class EnsembleLimits(NamedTuple):
+    """What sizes an ensemble launch on one card (:func:`ensemble_limits`):
+    the threads a block at most, the records a thread of the staged entry
+    (U) and the blocks an SM that the launch bounds allow, all fixed in
+    ``csrc/traversal.cu``; then the card's shared memory an SM, what the
+    runtime keeps of it for every block, and the most a block may opt
+    into."""
+    threads: int
+    per_thread: int
+    blocks_per_sm: int
+    sm_shared: int
+    block_reserved: int
+    block_shared: int
+
+    @property
+    def budget(self) -> int:
+        """Shared bytes a block may hold with ``blocks_per_sm`` blocks an
+        SM."""
+        return min(self.block_shared,
+                   self.sm_shared // self.blocks_per_sm - self.block_reserved)
+
+
+class EnsembleGeometry(NamedTuple):
+    """One ensemble launch: ``records`` (R) records a block, ``per_thread``
+    (U) of them a thread, ``trees`` (TB) trees a staged block, ``smem``
+    shared bytes a block, and the entry, ``"staged"`` (code rows in shared
+    memory) or ``"wide"`` (code rows read from global memory)."""
+    records: int
+    per_thread: int
+    trees: int
+    smem: int
+    entry: str
+
+    @property
+    def threads(self) -> int:
+        return self.records // self.per_thread
+
+
+@functools.lru_cache(maxsize=None)
+def _limits(index: int) -> EnsembleLimits:
+    out = (ctypes.c_int * len(EnsembleLimits._fields))()
+    fn = _build.function("traversal", "ensemble_limits",
+                         [_build.INT, _build.POINTER])
+    _build.check("traversal", fn(index, ctypes.addressof(out)),
+                 "ensemble limits")
+    return EnsembleLimits(*out)
+
+
+def ensemble_limits(device) -> EnsembleLimits:
+    """The ensemble kernel's :class:`EnsembleLimits` on a CUDA device, read
+    from the built kernel and the card."""
+    device = torch.device(device)
+    return _limits(torch.cuda.current_device() if device.index is None
+                   else device.index)
+
+
+def max_staged_fields(depth: int, limits: EnsembleLimits) -> int:
+    """The widest code row the staged entry takes: 32 records' rows
+    (padded to 4 bytes) and one depth-``depth`` tree in a block's shared
+    memory."""
+    tree_bytes = 4 * ((2 << depth) - 1)
+    return (limits.block_shared - tree_bytes) // 32 // 4 * 4
+
+
+def ensemble_geometry(n: int, F: int, T: int, depth: int,
+                      limits: EnsembleLimits) -> EnsembleGeometry:
+    """The ensemble kernel's launch for n records of F fields over T trees
+    of depth ``depth``.
+
+    Staged entry (F up to :func:`max_staged_fields`): a block holds R
+    records' code rows, ``4·ceil(F/4)`` bytes each, then TB trees.  R is the
+    largest of U·threads, U·threads − 32U, ..., 32U, 32 (a multiple of 32,
+    so lane l reads bank l) whose rows leave room for
+    ``min(T, MIN_STAGED_TREES)`` trees, else for one, within
+    ``limits.budget`` (``blocks_per_sm`` blocks an SM), or within the
+    block's whole shared memory where not even 32 rows fit the budget; no
+    larger than n needs.  TB fills the rest.  Wide entry: one record a
+    thread, ``limits.threads`` threads, TB trees within the budget.
+    """
+    tree_bytes = 4 * ((2 << depth) - 1)
+    if F > max_staged_fields(depth, limits):
+        tb = max(1, min(T, limits.budget // tree_bytes))
+        return EnsembleGeometry(limits.threads, 1, tb, tb * tree_bytes,
+                                "wide")
+    row = 4 * math.ceil(F / 4)
+    U = limits.per_thread
+    step = 32 * U
+    budget = limits.budget
+    if 32 * row + tree_bytes > budget:
+        budget = limits.block_shared
+    top = min(U * limits.threads, step * max(1, math.ceil(n / step)))
+    cands = list(range(top, 0, -step)) + [32]
+    for need in (min(T, MIN_STAGED_TREES), 1):
+        fits = [r for r in cands if r * row + need * tree_bytes <= budget]
+        if fits:
+            R = fits[0]
+            break
+    tb = min(T, (budget - R * row) // tree_bytes)
+    return EnsembleGeometry(R, U, tb, R * row + tb * tree_bytes, "staged")
 
 
 def pack_node_table(tree: TreeArrays) -> torch.Tensor:
@@ -159,14 +269,15 @@ def predict_ensemble_cuda(trees: TreeArrays, codes: torch.Tensor, *,
     out = torch.zeros((n, n_classes), dtype=torch.float32,
                       device=codes.device)
     if n > 0 and T > 0:
-        tree_bytes = ((2 << depth) - 1) * 4
-        tb = max(1, min(T, TREE_SMEM // tree_bytes))
+        geo = ensemble_geometry(n, F, T, depth, ensemble_limits(codes.device))
         P, I, I64 = _build.POINTER, _build.INT, _build.INT64
         fn = _build.function("traversal", "ensemble_launch",
-                             [P, P, P, P, I64, I, I, I, I, I, I, I, P])
+                             [P, P, P, P, I64, I, I, I, I, I, I, I, I, I, P])
+        wide = geo.entry == "wide"
         err = fn(codes.data_ptr(), tables.data_ptr(), leaves.data_ptr(),
-                 out.data_ptr(), n, F, T, n_classes, depth, missing_bin, tb,
-                 THREADS, torch.cuda.current_stream(codes.device).cuda_stream)
+                 out.data_ptr(), n, F, T, n_classes, depth, missing_bin,
+                 geo.records, geo.trees, geo.smem, int(wide),
+                 torch.cuda.current_stream(codes.device).cuda_stream)
         _build.check("traversal", err, "predict_ensemble")
-        _build.count("ensemble")
+        _build.count("ensemble_wide" if wide else "ensemble")
     return out[:, 0] if n_classes == 1 else out

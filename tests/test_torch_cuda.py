@@ -292,6 +292,84 @@ def test_traversal_kernels_match_plain(cuda, T, depth):
         rtol=1e-5, atol=1e-5)
 
 
+def _ensemble_matches_plain(trees, codes, K, missing_bin, counter):
+    """The kernel against the plain version: rtol 1e-5 on the trees' real
+    leaves, bit-equal on their leaves rounded to 1/64; each launch counted
+    once under ``counter``."""
+    before = _build.launch_counts()[counter]
+    got = trav_k.predict_ensemble_cuda(trees, codes, missing_bin=missing_bin,
+                                       n_classes=K)
+    assert _build.launch_counts()[counter] == before + 1
+    assert got.shape == ((codes.shape[0],) if K == 1 else (codes.shape[0], K))
+    torch.testing.assert_close(
+        got, trav_k.predict_ensemble_plain(trees, codes, missing_bin,
+                                           n_classes=K), rtol=1e-5, atol=1e-5)
+    dyadic = trees._replace(leaf_value=torch.round(trees.leaf_value * 64) / 64)
+    assert torch.equal(
+        trav_k.predict_ensemble_cuda(dyadic, codes, missing_bin=missing_bin,
+                                     n_classes=K),
+        trav_k.predict_ensemble_plain(dyadic, codes, missing_bin,
+                                      n_classes=K))
+
+
+@pytest.mark.parametrize("n,F,T,K,depth", [
+    (1001, 28, 13, 1, 6),        # n not a multiple of R
+    (7, 28, 13, 1, 6),           # n < 32
+    (5, 54, 21, 7, 6),
+    (2053, 115, 40, 1, 6),       # F odd, padded to 4 bytes
+    (2053, 115, 40, 7, 6),
+    (3001, 28, 1, 1, 6),         # one tree
+    (3001, 54, 1, 7, 6),         # one tree: classes 1..6 stay 0
+    (3001, 28, "TB+3", 1, 6),    # T not a multiple of TB
+    (3001, 54, "TB+3", 7, 6),
+    (3001, 115, "TB+3", 7, 6),
+    (2999, 28, 9, 1, 1),         # depth 1
+    (2999, 54, 16, 3, 1),
+    (1025, 28, "TB+3", 1, 10),   # depth 10: 2047-word trees
+    (1025, 54, 11, 7, 10)])
+def test_staged_ensemble_kernel_matches_plain(cuda, n, F, T, K, depth):
+    """The staged entry (code rows in shared memory) at the edges of its
+    geometry: partial record blocks, odd widths, partial tree blocks."""
+    limits = trav_k.ensemble_limits(cuda)
+    if T == "TB+3":
+        T = trav_k.ensemble_geometry(n, F, 100_000, depth, limits).trees + 3
+    geo = trav_k.ensemble_geometry(n, F, T, depth, limits)
+    assert geo.entry == "staged" and geo.records % 32 == 0
+    rng = np.random.default_rng(n + F + T + K + depth)
+    trees = _trees(T, depth, F, 256, rng, cuda)
+    codes = torch.from_numpy(_codes(n, F, 256, rng)).to(cuda)
+    _ensemble_matches_plain(trees, codes, K, 255, "ensemble")
+
+
+@pytest.mark.parametrize("K", [1, 3])
+def test_wide_ensemble_entry_past_the_staged_limit(cuda, K):
+    """Code rows one field past the staged limit take the wide entry
+    (counted as ``ensemble_wide``); rows at the limit are still staged."""
+    limits = trav_k.ensemble_limits(cuda)
+    top = trav_k.max_staged_fields(6, limits)
+    rng = np.random.default_rng(top + K)
+    for F, counter in ((top, "ensemble"), (top + 1, "ensemble_wide")):
+        assert trav_k.ensemble_geometry(300, F, 20, 6, limits).entry == \
+            ("staged" if counter == "ensemble" else "wide")
+        trees = _trees(20, 6, F, 256, rng, cuda)
+        codes = torch.from_numpy(_codes(300, F, 256, rng)).to(cuda)
+        _ensemble_matches_plain(trees, codes, K, 255, counter)
+
+
+def test_ensemble_limits_read_from_the_card(cuda):
+    """The limits that size an ensemble launch come from the built kernel
+    and the card, and leave room for the paths' staged rows."""
+    limits = trav_k.ensemble_limits(cuda)
+    assert limits.threads % 32 == 0 and limits.per_thread >= 1
+    assert limits.blocks_per_sm >= 3
+    assert 0 < limits.block_reserved < limits.block_shared \
+        <= limits.sm_shared
+    higgs = trav_k.ensemble_geometry(10_000_000, 28, 500, 6, limits)
+    assert higgs.entry == "staged"
+    assert limits.sm_shared // (higgs.smem + limits.block_reserved) >= 3
+    assert trav_k.ensemble_limits(cuda) is limits     # read once a device
+
+
 def test_grouped_limits_read_from_the_card(cuda):
     """The limits that size a grouped launch come from the built kernel
     and the card, and leave room for the paths' bins and sort counters."""

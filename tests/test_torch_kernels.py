@@ -166,6 +166,75 @@ def test_grouped_geometry_at_the_paths_shapes():
     assert (wide.n_ftiles, wide.field_tile) == (4, 29)
 
 
+H100_ENSEMBLE = trav_k.EnsembleLimits(threads=256, per_thread=2,
+                                      blocks_per_sm=4, sm_shared=233_472,
+                                      block_reserved=1_024,
+                                      block_shared=232_448)
+
+
+@pytest.mark.parametrize("depth", [1, 6, 10])
+@pytest.mark.parametrize("F", [1, 28, 54, 115, 1000])
+@pytest.mark.parametrize("n,T", [(10_000_000, 500), (581_012, 504),
+                                 (3001, 13), (7, 1)])
+def test_ensemble_geometry_fits_shared_memory(n, F, T, depth):
+    """Staged rows of R records (a multiple of 32: lane l reads bank l) and
+    TB trees within the block's shared memory, the budget of four blocks
+    an SM wherever 32 rows fit it; R and TB no larger than n and T need."""
+    L = H100_ENSEMBLE
+    geo = trav_k.ensemble_geometry(n, F, T, depth, L)
+    tree_bytes = 4 * ((2 << depth) - 1)
+    row = 4 * -(-F // 4)
+    assert geo.entry == "staged"
+    assert geo.records % 32 == 0 and geo.records % geo.per_thread == 0
+    assert geo.per_thread == L.per_thread
+    assert 1 <= geo.threads <= L.threads
+    assert geo.records <= max(32, 64 * -(-n // 64))
+    assert 1 <= geo.trees <= T
+    assert geo.smem == geo.records * row + geo.trees * tree_bytes
+    assert geo.smem <= L.block_shared
+    if 32 * row + tree_bytes <= L.budget:
+        assert geo.smem <= L.budget
+
+
+@pytest.mark.parametrize("F", [28, 54])
+def test_ensemble_geometry_keeps_three_blocks_an_sm(F):
+    """At the Higgs and Covertype widths a block stages 512 records (256
+    threads of 2) and at least 16 trees, and four blocks fit an SM."""
+    L = H100_ENSEMBLE
+    geo = trav_k.ensemble_geometry(10_000_000, F, 500, 6, L)
+    assert (geo.records, geo.per_thread, geo.threads) == (512, 2, 256)
+    assert geo.trees >= trav_k.MIN_STAGED_TREES
+    assert L.sm_shared // (geo.smem + L.block_reserved) >= 3
+    iot = trav_k.ensemble_geometry(2_000_000, 115, 500, 6, L)
+    assert iot.records == 384 and iot.trees >= trav_k.MIN_STAGED_TREES
+
+
+@pytest.mark.parametrize("depth", [1, 6, 10])
+def test_ensemble_geometry_wide_entry_exactly_past_the_staged_limit(depth):
+    """32 records' rows plus one tree fill a block at the limit; one field
+    more takes the wide entry (one record a thread, trees only)."""
+    L = H100_ENSEMBLE
+    tree_bytes = 4 * ((2 << depth) - 1)
+    top = trav_k.max_staged_fields(depth, L)
+    assert 32 * top + tree_bytes <= L.block_shared \
+        < 32 * (top + 4) + tree_bytes
+    at = trav_k.ensemble_geometry(100, top, 500, depth, L)
+    assert at.entry == "staged" and at.records == 32 and at.trees >= 1
+    assert at.smem <= L.block_shared
+    past = trav_k.ensemble_geometry(100, top + 1, 500, depth, L)
+    assert past.entry == "wide" and past.per_thread == 1
+    assert past.records == past.threads == L.threads
+    assert past.smem == past.trees * tree_bytes <= L.budget
+    assert trav_k.ensemble_geometry(100, trav_k.MAX_FIELDS - 1, 500, depth,
+                                    L).entry == "wide"
+
+
+def test_ensemble_limits_budget():
+    assert H100_ENSEMBLE.budget == 233_472 // 4 - 1_024
+    small = H100_ENSEMBLE._replace(sm_shared=100_000, block_shared=20_000)
+    assert small.budget == 20_000
+
+
 def _splits(nn, n_cols, n_bins, rng, passthrough=True):
     f = rng.integers(-1 if passthrough else 0, n_cols, nn).astype(np.int32)
     thr = rng.integers(0, n_bins, nn).astype(np.int32)
