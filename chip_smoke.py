@@ -14,6 +14,11 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    same inputs, with its time (CUDA events, median of 5 after a warm-up),
    the plain version's time, the least time the card could take and,
    where one PyTorch call computes the same function, that call's time.
+   The partition and traversal rows give the kernel's own device time
+   (``torch.profiler``) as ``ms`` and the wrapper's as ``wrapper_ms``; the
+   partition rows add the bound that reads the 32-byte sectors of the
+   split columns that the node ids touch.  Step ⑤ (the traversal rows) is
+   the ensemble kernel at T = K, also added into margins.
    The ensemble (here and in 2b) is held bit-equal on dyadic leaves, then
    on real leaves against a float64 sum of the plain version's leaf
    choices within rtol 1e-5 of each record's sum of |leaf| (its largest
@@ -54,7 +59,8 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    and against the uint8 kernel on the same codes, at the IoT-shaped
    path's shape (2,000,000 records, 115 fields, 16 bins; NN = 1 and 32)
    and at K = 7 (581,012 records, 54 fields, 224 slots); the nibble
-   column-major partition at an odd record count, K = 1 and 7; the
+   column-major partition at an odd record count, K = 1 and 7; step ⑤ on
+   packed rows (the traversal's nibble entry, the IoT shape); the
    naive-packing histogram (the Fig. 9 ablation twin) against its plain
    version and the grouped kernel at the Higgs shape (NN = 1 and 32).
 3a. A short fit of the Higgs-shaped data (2 trees) under
@@ -65,10 +71,11 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    training records plus 200,000 held out; data seed S + 1),
    ``Binner(16)``, whose transform stores both copies as 4-bit
    ``PackedCodes``, then ``train`` of 8 depth-6 ``binary:logistic`` trees
-   and ``predict_margin`` on the held-out packed codes.  The nibble histogram and the nibble partition
-   must run once per level, the traversal once per tree (on columns
-   gathered from the packed column-major copy, F = 115 > 63), the
-   ensemble at least once; the loss, accuracy and replay gates of phase 3.
+   and ``predict_margin`` on the held-out packed codes.  The nibble
+   histogram and the nibble partition must run once per level, the
+   traversal once per tree (its nibble entry, on the packed row-major
+   codes as they lie), the ensemble at least once; the loss, accuracy and
+   replay gates of phase 3; then the device time of one round's step ⑤.
 4. Where the time of one boosting round goes (``torch.profiler``), for
    each of the three paths.
 
@@ -133,6 +140,45 @@ def time_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, kernel: str, reps: int = 3) -> float:
+    """Device time of one call of ``fn`` spent in kernels whose name holds
+    ``kernel`` (``torch.profiler``, mean of ``reps`` calls after a
+    warm-up); fails where the profiler sees none."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(_device_us(e) for e in prof.key_averages()
+                if kernel in e.key
+                and "CUDA" in str(getattr(e, "device_type", "")))
+    check(total > 0, f"torch.profiler saw device time of {kernel}")
+    return total / reps / 1e3
+
+
+def _device_us(e) -> float:
+    for attr in ("device_time_total", "cuda_time_total"):
+        if hasattr(e, attr):
+            return getattr(e, attr)
+    return 0.0
+
+
+def sector_reading(nid, split_feature, row_len: int, packed: bool) -> int:
+    """Bytes of the 32-byte sectors of the split columns that the node ids
+    ``nid`` ((n,) or (K, n)) touch, over all classes (a sector read by two
+    classes counted once): record r of a node splitting on field f reads
+    byte f * row_len + r (r // 2 packed) of the column-major copy."""
+    feat = torch.gather(split_feature.reshape(-1, split_feature.shape[-1]),
+                        1, nid.reshape(split_feature.numel()
+                                       // split_feature.shape[-1], -1).long())
+    r = torch.arange(feat.shape[1], device=feat.device)
+    byte = feat.long() * row_len + ((r >> 1) if packed else r)
+    return 32 * int(torch.unique((byte[feat >= 0]) >> 5).numel())
+
+
 def bound(n_bytes: float, n_ops: float):
     """(least time in ms, what bounds it) for this much work."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -184,6 +230,57 @@ def hist_within_tolerance(got, want, mag) -> bool:
     plus 1e-5 of the sum of |stat| over the node's records (``mag``)."""
     return bool(torch.all((got - want).abs() <= 1e-5 * want.abs()
                           + 1e-5 * mag))
+
+
+def partition_times(fn, nid, split_feature, row_len: int,
+                    packed: bool) -> dict:
+    """A partition launch's times: the kernel's device time (``ms``), the
+    wrapper's (CUDA events around the call), the 9-bytes-a-record bound
+    (node id in, code byte, node id out), and beside it the bound that
+    reads the 32-byte sectors of the split columns that these node ids
+    touch (:func:`sector_reading`) instead of one byte a record."""
+    n_ids = nid.numel()
+    code_bytes = n_ids / 2 if packed else n_ids
+    b_ms, b_by = bound(8 * n_ids + code_bytes + 16 * split_feature.numel(),
+                       6 * n_ids)
+    sectors = sector_reading(nid, split_feature, row_len, packed)
+    return dict(ms=device_ms(fn, "partition_kernel"), wrapper_ms=time_ms(fn),
+                bound_ms=b_ms, bound_by=b_by, sector_bytes=sectors,
+                sector_bound_ms=(8 * n_ids + sectors
+                                 + 16 * split_feature.numel())
+                / HBM_BYTES_PER_S * 1e3)
+
+
+def row_summary(row: dict) -> str:
+    """A kernel row's times for the log."""
+    out = (f"kernel {row['ms']:.4f} ms (device)  wrapper "
+           f"{row['wrapper_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
+           f"({row['bound_by']})")
+    if "sector_bound_ms" in row:
+        out += (f"  split-column sectors {row['sector_bytes'] / 1e6:.1f} MB"
+                f" -> {row['sector_bound_ms']:.4f} ms")
+    return out
+
+
+def traversal_times(forest, codes, row_bytes: int, missing_bin: int,
+                    gen) -> dict:
+    """A step-⑤ launch's times as a round makes it (leaves added into
+    (n, K) margins in place, no field check): the kernel's device time
+    (``ms``), the wrapper's, and the bound (each record's code row read,
+    its K margins read and written, the trees read; 8 operations a hop)."""
+    from repro_torch.kernels import traversal as trav_k
+
+    K = forest.feature.shape[0]
+    n = codes.shape[0]
+    margins = torch.randn((n, K), generator=gen, device=codes.device)
+    fn = lambda: trav_k.traverse_forest_cuda(
+        forest, codes, missing_bin=missing_bin, margins=margins,
+        check_fields=False)
+    b_ms, b_by = bound(n * row_bytes + 8 * n * K
+                       + 4 * K * (2 ** (DEPTH + 1) - 1),
+                       n * K * DEPTH * OPS_PER_HOP)
+    return dict(ms=device_ms(fn, "ensemble_kernel"), wrapper_ms=time_ms(fn),
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def kernel_parity(n: int, seed: int, dev) -> dict:
@@ -276,22 +373,24 @@ def kernel_parity(n: int, seed: int, dev) -> dict:
     got_rows = part_k.partition_cuda(nid, codes_lvl, renum, *split[1:],
                                      missing_bin=NB - 1)
     check(torch.equal(got_rows, want), "partition (row entry) bit-equal")
-    ms = time_ms(lambda: part_k.partition_cm_cuda(nid, codes_cm, *split,
-                                                  missing_bin=NB - 1))
-    ms_rows = time_ms(lambda: part_k.partition_cuda(
-        nid, codes_lvl, renum, *split[1:], missing_bin=NB - 1))
+    cm = lambda: part_k.partition_cm_cuda(nid, codes_cm, *split,
+                                          missing_bin=NB - 1)
+    by_rows = lambda: part_k.partition_cuda(nid, codes_lvl, renum,
+                                            *split[1:], missing_bin=NB - 1)
     plain_ms = time_ms(lambda: part_k.partition_cm_plain(
         nid, codes_cm, *split, NB - 1), reps=3)
-    b_ms, b_by = bound(9 * n + NN * 16, 6 * n)
     rows["partition"] = dict(
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, max_abs_err=float(
+        **partition_times(cm, nid, split[0], n, False),
+        plain_ms=plain_ms, library_ms=None, max_abs_err=float(
             torch.maximum((got - want).abs().max(),
                           (got_rows - want).abs().max())),
-        shape=f"n={n} F={F} NN={NN}", rows_entry_ms=ms_rows)
-    log(f"partition n={n} NN={NN}: parity ok (both entries)  kernel "
-        f"{ms:.3f} ms (row entry {ms_rows:.3f} ms)  plain {plain_ms:.3f} ms"
-        f"  bound {b_ms:.3f} ms ({b_by})")
+        shape=f"n={n} F={F} NN={NN}",
+        rows_entry_ms=device_ms(by_rows, "partition_kernel"),
+        rows_entry_wrapper_ms=time_ms(by_rows))
+    log(f"partition n={n} NN={NN}: parity ok (both entries)  "
+        f"{row_summary(rows['partition'])}  row entry "
+        f"{rows['partition']['rows_entry_ms']:.4f} ms  plain "
+        f"{plain_ms:.3f} ms")
     del codes_lvl, got, got_rows, want
 
     # -- traversal and ensemble ------------------------------------------
@@ -299,20 +398,18 @@ def kernel_parity(n: int, seed: int, dev) -> dict:
     got = trav_k.traverse_cuda(one, codes, missing_bin=NB - 1)
     want = trav_k.traverse_plain(one, codes, NB - 1)
     check(torch.equal(got, want), "traversal bit-equal")
-    ms = time_ms(lambda: trav_k.traverse_cuda(one, codes,
-                                              missing_bin=NB - 1))
     plain_ms = time_ms(lambda: trav_k.traverse_plain(one, codes, NB - 1),
                        reps=3)
-    n_words = 2 ** (DEPTH + 1) - 1
-    b_ms, b_by = bound(n * F + 4 * n + 4 * n_words, n * DEPTH * OPS_PER_HOP)
     rows["traversal"] = dict(
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, max_abs_err=float((got - want).abs().max()),
-        shape=f"n={n} F={F} depth={DEPTH}")
-    log(f"traversal n={n} depth={DEPTH}: parity ok  kernel {ms:.3f} ms  "
-        f"plain {plain_ms:.3f} ms  bound {b_ms:.3f} ms ({b_by})")
+        **traversal_times(ref.TreeArrays(*[a[None] for a in one]), codes, F,
+                          NB - 1, gen),
+        plain_ms=plain_ms, library_ms=None,
+        max_abs_err=float((got - want).abs().max()),
+        shape=f"n={n} F={F} depth={DEPTH}, {ensemble_label(n, F, 1, dev)}")
+    log(f"traversal n={n} depth={DEPTH}: parity ok  "
+        f"{row_summary(rows['traversal'])}  plain {plain_ms:.3f} ms")
 
-    T = ENSEMBLE_TREES
+    T, n_words = ENSEMBLE_TREES, 2 ** (DEPTH + 1) - 1
     trees = random_trees(T, F, gen, dev)
     got = trav_k.predict_ensemble_cuda(trees, codes, missing_bin=NB - 1)
     t0 = time.perf_counter()
@@ -344,13 +441,13 @@ def kernel_parity(n: int, seed: int, dev) -> dict:
     return rows
 
 
-def ensemble_label(n: int, F: int, T: int, dev) -> str:
-    """The ensemble launch's geometry: records a block, a thread, trees a
+def ensemble_label(n: int, F: int, T: int, dev, packed: bool = False) -> str:
+    """The traversal kernel's geometry: records a block, a thread, trees a
     staged block, and the entry."""
     from repro_torch.kernels import traversal as trav_k
 
     geo = trav_k.ensemble_geometry(n, F, T, DEPTH,
-                                   trav_k.ensemble_limits(dev))
+                                   trav_k.ensemble_limits(dev), packed)
     return (f"R={geo.records} U={geo.per_thread} TB={geo.trees} "
             f"({geo.entry})")
 
@@ -587,18 +684,63 @@ def nibble_partition(n: int, F: int, K: int, gen, dev) -> dict:
                                            missing_bin=NB - 1)
     u8 = lambda: part_k.partition_cm_cuda(nid, codes_cm, *split,
                                           missing_bin=NB - 1)
-    t = [time_ms(f) for f in (nib, u8, u8, nib)]
+    t = [device_ms(f, "partition_kernel") for f in (nib, u8, u8, nib)]
     plain_ms = time_ms(lambda: part_k.partition_cm_plain(
         nid, packed, *split, NB - 1), reps=3)
     # per record: node id in, half a code byte, node id out
-    b_ms, b_by = bound(8.5 * K * n + K * NN * 16, 6 * K * n)
+    row = partition_times(nib, nid, split[0], (n + 1) // 2, True)
+    row.update(ms=(t[0] + t[3]) / 2, uint8_ms=(t[1] + t[2]) / 2)
     log(f"nibble partition K={K} NN={NN} n={n}: parity ok  nibble "
-        f"{t[0]:.3f}, {t[3]:.3f} ms  uint8 entry {t[1]:.3f}, {t[2]:.3f} ms  "
-        f"plain {plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})")
-    return dict(ms=(t[0] + t[3]) / 2, uint8_ms=(t[1] + t[2]) / 2,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, max_abs_err=float((got - want).abs().max()),
+        f"{t[0]:.4f}, {t[3]:.4f} ms  uint8 entry {t[1]:.4f}, {t[2]:.4f} ms "
+        f"(device)  {row_summary(row)}  plain {plain_ms:.3f} ms")
+    return dict(**row, plain_ms=plain_ms, library_ms=None,
+                max_abs_err=float((got - want).abs().max()),
                 shape=f"n={n} F={F} NB={NB} K={K} NN={NN}")
+
+
+def nibble_traversal(n: int, F: int, gen, dev) -> dict:
+    """Step ⑤ on 4-bit packed rows (the nibble entry) at the IoT-shaped
+    path's shape: one tree, bit-equal to its plain version and to the uint8
+    entry on the same codes, and added into margins bit-equal to
+    ``margins + leaf``; timed (nibble, uint8, uint8, nibble)."""
+    from repro_torch.core.binning import PackedCodes
+    from repro_torch.kernels import traversal as trav_k
+
+    NB = IOT_BINS
+    codes = torch.randint(0, NB, (n, F), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    packed = PackedCodes.pack(codes)
+    forest = random_trees(1, F, gen, dev)
+    forest = forest._replace(threshold=forest.threshold % NB)
+    got = trav_k.traverse_forest_cuda(forest, packed, missing_bin=NB - 1)
+    want = trav_k.traverse_forest_plain(forest, packed, NB - 1)
+    check(torch.equal(got, want), "nibble traversal bit-equal")
+    check(torch.equal(got, trav_k.traverse_forest_cuda(
+        forest, codes, missing_bin=NB - 1)),
+          "nibble traversal bit-equal to the uint8 entry")
+    margins = torch.randn((n,), generator=gen, device=dev)
+    expect = margins + want[:, 0]
+    check(torch.equal(trav_k.traverse_forest_cuda(
+        forest, packed, missing_bin=NB - 1, margins=margins), expect),
+          "nibble traversal into the margins bit-equal to margins + leaf")
+    nib = lambda: trav_k.traverse_forest_cuda(
+        forest, packed, missing_bin=NB - 1, margins=margins,
+        check_fields=False)
+    u8 = lambda: trav_k.traverse_forest_cuda(
+        forest, codes, missing_bin=NB - 1, margins=margins,
+        check_fields=False)
+    t = [device_ms(f, "ensemble_kernel") for f in (nib, u8, u8, nib)]
+    plain_ms = time_ms(lambda: trav_k.traverse_forest_plain(
+        forest, packed, NB - 1), reps=3)
+    row = traversal_times(forest, packed, (F + 1) // 2, NB - 1, gen)
+    row.update(ms=(t[0] + t[3]) / 2, uint8_ms=(t[1] + t[2]) / 2)
+    log(f"nibble traversal n={n} F={F}: parity ok  nibble {t[0]:.4f}, "
+        f"{t[3]:.4f} ms  uint8 entry {t[1]:.4f}, {t[2]:.4f} ms (device)  "
+        f"{row_summary(row)}  plain {plain_ms:.3f} ms")
+    return dict(**row, plain_ms=plain_ms, library_ms=None,
+                max_abs_err=float((got - want).abs().max()),
+                shape=f"n={n} F={F} NB={NB} depth={DEPTH}, "
+                f"{ensemble_label(n, F, 1, dev, packed=True)}")
 
 
 def naive_histogram(n: int, seed: int, dev) -> dict:
@@ -681,8 +823,10 @@ def packed_parity(n_higgs: int, seed: int, dev) -> dict:
     part = nibble_partition(IOT_RECORDS + 1, IOT_FIELDS, 1, gen, dev)
     k7 = nibble_partition(MC_RECORDS - 1, MC_FIELDS, MC_CLASSES, gen, dev)
     part.update(ms_k7=k7["ms"], uint8_ms_k7=k7["uint8_ms"],
-                shape_k7=k7["shape"])
+                wrapper_ms_k7=k7["wrapper_ms"], shape_k7=k7["shape"])
     rows["partition_nibble"] = part
+    rows["traversal_nibble"] = nibble_traversal(IOT_RECORDS, IOT_FIELDS, gen,
+                                                dev)
     rows["histogram_naive"] = naive_histogram(n_higgs, seed, dev)
     return rows
 
@@ -782,6 +926,8 @@ def iot_main_path(n: int, n_trees: int, seed: int, dev):
           and counts["partition"] == 0,
           "nibble partition launched once per level")
     check(counts["traversal"] == n_trees, "traversal launched once per tree")
+    check(counts["traversal_wide"] == 0 and counts["ensemble_wide"] == 0,
+          "step ⑤ and prediction took the staged entry")
     check(counts["ensemble"] >= 1, "ensemble launched")
     check(all(b < a for a, b in zip(loss, loss[1:])),
           "packed train loss strictly decreases")
@@ -795,8 +941,35 @@ def iot_main_path(n: int, n_trees: int, seed: int, dev):
     torch.testing.assert_close(tr_margin, res.margins, rtol=1e-5, atol=1e-6)
     log("packed predict_margin on the training rows replays the fit's "
         "margins (rtol 1e-5)")
+    step5_ms = step5_device_ms(res.model, data)
+    log(f"packed step ⑤ of one round (training rows): {step5_ms:.4f} ms of "
+        "device time (torch.profiler, every kernel)")
     steady_ms = statistics.median(rounds_ms[1:] or rounds_ms)
-    return counts, steady_ms, (config, data, y_tr)
+    return counts, steady_ms, step5_ms, (config, data, y_tr)
+
+
+def step5_device_ms(model, data) -> float:
+    """Device time of step ⑤ of one round (the first tree's leaves added
+    into a copy of the margins), every kernel it runs, from
+    ``torch.profiler`` (mean of 3 calls after a warm-up)."""
+    from repro_torch.core import gbdt
+    from repro_torch.kernels.ref import TreeArrays
+
+    tree = TreeArrays(*[a[0] for a in model.trees])
+    margins = torch.zeros((data.n_records,), device=tree.feature.device)
+    step = lambda: gbdt._predict_one_tree(tree, data, None, margins)
+    step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+    total = sum(_device_us(e) for e in prof.key_averages()
+                if "CUDA" in str(getattr(e, "device_type", "")))
+    check(total > 0, "torch.profiler saw step ⑤'s device time")
+    return total / 3 / 1e3
 
 
 def main_path(n: int, n_trees: int, seed: int, dev):
@@ -853,6 +1026,8 @@ def main_path(n: int, n_trees: int, seed: int, dev):
     check(counts["partition"] == DEPTH * n_trees,
           "partition launched once per level")
     check(counts["traversal"] == n_trees, "traversal launched once per tree")
+    check(counts["traversal_wide"] == 0 and counts["ensemble_wide"] == 0,
+          "step ⑤ and prediction took the staged entry")
     check(counts["ensemble"] >= 1, "ensemble launched")
     check(all(b < a for a, b in zip(loss, loss[1:])),
           "train loss strictly decreases")
@@ -988,17 +1163,17 @@ def class_parity(n: int, seed: int, dev) -> dict:
                                    missing_bin=NB - 1)
     want = part_k.partition_cm_plain(nid, codes_cm, *split, NB - 1)
     check(torch.equal(got, want), "class-batched partition bit-equal")
-    ms = time_ms(lambda: part_k.partition_cm_cuda(nid, codes_cm, *split,
-                                                  missing_bin=NB - 1))
     plain_ms = time_ms(lambda: part_k.partition_cm_plain(
         nid, codes_cm, *split, NB - 1), reps=3)
-    b_ms, b_by = bound(9 * K * n + K * NN * 16, 6 * K * n)
     rows["partition_classes"] = dict(
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, max_abs_err=float((got - want).abs().max()),
+        **partition_times(lambda: part_k.partition_cm_cuda(
+            nid, codes_cm, *split, missing_bin=NB - 1), nid, split[0], n,
+            False),
+        plain_ms=plain_ms, library_ms=None,
+        max_abs_err=float((got - want).abs().max()),
         shape=f"{shape} NN={NN}")
-    log(f"class-batched partition K={K} NN={NN} n={n}: parity ok  kernel "
-        f"{ms:.3f} ms  plain {plain_ms:.3f} ms  bound {b_ms:.3f} ms ({b_by})")
+    log(f"class-batched partition K={K} NN={NN} n={n}: parity ok  "
+        f"{row_summary(rows['partition_classes'])}  plain {plain_ms:.3f} ms")
     del got, want
 
     # -- traversal: one round's K trees over the shared codes --------------
@@ -1007,22 +1182,24 @@ def class_parity(n: int, seed: int, dev) -> dict:
     want = trav_k.traverse_forest_plain(forest, codes, NB - 1)
     check(got.shape == (n, K) and torch.equal(got, want),
           "class-batched traversal bit-equal")
-    ms = time_ms(lambda: trav_k.traverse_forest_cuda(forest, codes,
-                                                     missing_bin=NB - 1))
+    margins = torch.randn((n, K), generator=gen, device=dev)
+    expect = margins + want
+    check(torch.equal(trav_k.traverse_forest_cuda(
+        forest, codes, missing_bin=NB - 1, margins=margins), expect),
+          "class-batched traversal into the margins bit-equal to "
+          "margins + leaf")
     plain_ms = time_ms(lambda: trav_k.traverse_forest_plain(forest, codes,
                                                             NB - 1), reps=3)
-    n_words = 2 ** (DEPTH + 1) - 1
-    b_ms, b_by = bound(n * F + 4 * n * K + 4 * K * n_words,
-                       n * K * DEPTH * OPS_PER_HOP)
     rows["traversal_classes"] = dict(
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, max_abs_err=float((got - want).abs().max()),
-        shape=f"{shape} depth={DEPTH}")
-    log(f"class-batched traversal K={K} n={n}: parity ok  kernel {ms:.3f} ms"
-        f"  plain {plain_ms:.3f} ms  bound {b_ms:.3f} ms ({b_by})")
+        **traversal_times(forest, codes, F, NB - 1, gen),
+        plain_ms=plain_ms, library_ms=None,
+        max_abs_err=float((got - want).abs().max()),
+        shape=f"{shape} depth={DEPTH}, {ensemble_label(n, F, K, dev)}")
+    log(f"class-batched traversal K={K} n={n}: parity ok  "
+        f"{row_summary(rows['traversal_classes'])}  plain {plain_ms:.3f} ms")
 
     # -- ensemble: 72 rounds x 7 classes, tree t feeds column t % 7 --------
-    T = MC_ROUNDS_TIMED * K
+    T, n_words = MC_ROUNDS_TIMED * K, 2 ** (DEPTH + 1) - 1
     trees = random_trees(T, F, gen, dev)
     got = trav_k.predict_ensemble_cuda(trees, codes, missing_bin=NB - 1,
                                        n_classes=K)
@@ -1116,6 +1293,8 @@ def mc_main_path(n: int, n_rounds: int, seed: int, dev):
           "class-batched partition launched once per level")
     check(counts["traversal"] == n_rounds,
           "class-batched traversal launched once per round")
+    check(counts["traversal_wide"] == 0 and counts["ensemble_wide"] == 0,
+          "step ⑤ and prediction took the staged entry")
     check(counts["ensemble"] >= 1, "multi-class ensemble launched")
     check(all(b < a for a, b in zip(loss, loss[1:])),
           "multi-class train loss strictly decreases")
@@ -1155,16 +1334,9 @@ def round_breakdown(label: str, config, data, y, steady_ms: float) -> None:
         train(one, data, y)
         torch.cuda.synchronize()
     events = prof.key_averages()
-
-    def device_us(e):
-        for attr in ("device_time_total", "cuda_time_total"):
-            if hasattr(e, attr):
-                return getattr(e, attr)
-        return 0.0
-
-    kernels = sorted(((device_us(e), e.key, e.count) for e in events
+    kernels = sorted(((_device_us(e), e.key, e.count) for e in events
                       if "CUDA" in str(getattr(e, "device_type", ""))
-                      and device_us(e) > 0), reverse=True)
+                      and _device_us(e) > 0), reverse=True)
     if not kernels:
         log(f"{label} round breakdown: torch.profiler reported no device "
             "time")
@@ -1239,8 +1411,10 @@ def main(argv=None) -> int:
     round_breakdown("multi-class", mc_config, mc_data, mc_y, mc_steady_ms)
     del mc_data
     torch.cuda.empty_cache()
-    iot_counts, iot_steady_ms, (iot_config, iot_data, iot_y) = iot_main_path(
+    iot_counts, iot_steady_ms, iot_step5_ms, (iot_config, iot_data,
+                                              iot_y) = iot_main_path(
         IOT_RECORDS, args.trees, args.seed, dev)
+    rows["traversal_nibble"]["iot_step5_device_ms"] = iot_step5_ms
     # the nibble and uint8 kernels on the path's own codes, NN = 32
     nib = nibble_histogram(iot_data.codes.unpack(), 1, (2 ** (DEPTH - 1),),
                            torch.Generator(device=dev).manual_seed(
@@ -1277,6 +1451,11 @@ def main(argv=None) -> int:
          "src/repro/kernels/histogram.py:93", iot_counts),
         ("partition_nibble", "partition_nibble", "partition.cu",
          "src/repro/kernels/partition.py:38", iot_counts),
+        # step ⑤ on the packed rows: _traverse_kernel (:84) on unpacked
+        # columns in the JAX build; here the nibble entry, counted as
+        # traversal
+        ("traversal_nibble", "traversal", "traversal.cu",
+         "src/repro/kernels/traversal.py:84", iot_counts),
         ("histogram_naive", "histogram_naive", "histogram.cu",
          "src/repro/kernels/histogram.py:107", naive_counts),
     ]

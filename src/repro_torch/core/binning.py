@@ -134,8 +134,8 @@ class BinnedDataset:
     """A pre-processed dataset: bin codes in the redundant dual layout.
 
     ``codes`` is the row-major (records, fields) copy consumed by histogram
-    binning (step ①); ``codes_cm`` the (fields, records) copy consumed by
-    partition (step ③) and the renumbered traversal (step ⑤).  When
+    binning (step ①) and traversal (step ⑤, prediction); ``codes_cm`` the
+    (fields, records) copy consumed by partition (step ③).  When
     ``n_bins <= 16`` both are :class:`PackedCodes`.
     """
 

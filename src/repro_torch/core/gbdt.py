@@ -349,8 +349,9 @@ def train(config: GBDTConfig, data: BinnedDataset, y,
         t1 = time.perf_counter()
         step_times["binning_split"] += t1 - t0
 
-        # step ⑤ — one-tree traversal refreshes margins (and thus g, h)
-        margins = margins + predict_round(tree, data, plan)
+        # step ⑤ — one-tree traversal refreshes margins (and thus g, h),
+        # adding each leaf into them in place
+        margins = predict_round(tree, data, plan, margins)
         _sync(device)
         t2 = time.perf_counter()
         step_times["traversal"] += t2 - t1
@@ -360,7 +361,7 @@ def train(config: GBDTConfig, data: BinnedDataset, y,
         history["train_loss"].append(train_loss)
         stop = False
         if eval_set is not None:
-            eval_margins = eval_margins + predict_round(tree, ev_data, plan)
+            eval_margins = predict_round(tree, ev_data, plan, eval_margins)
             ev = float(torch.mean(loss.value(eval_margins, ev_y)))
             history["eval_loss"].append(ev)
             if ev < best_eval - 1e-12:
@@ -396,31 +397,25 @@ def _as_model(trees, base_margin, config, missing_bin, F) -> GBDTModel:
 
 
 def _predict_forest(forest: TreeArrays, data: BinnedDataset,
-                    plan: ExecutionPlan) -> torch.Tensor:
-    """Step-⑤ traversal of one round's K class trees (stacked (K, ...))
-    -> (n, K), in one launch.  Uses the paper's renumbered-column fetch
-    when it saves bandwidth: a depth-D tree touches at most 2^D − 1
-    columns, so for wide datasets only those columns are gathered from
-    the column-major copy (packed rows unpack after the gather), per
-    class."""
-    K, n_int = forest.feature.shape
-    if data.n_fields > n_int:
-        # per-node column fetch: node i's field becomes renumbered column i
-        cols = tree_mod._gather_fields(
-            data.codes_cm, forest.feature.clamp(min=0))      # (K, N_int, n)
-        renum = torch.where(forest.feature >= 0,
-                            torch.arange(n_int, dtype=torch.int32,
-                                         device=forest.feature.device), -1)
-        return ops.traverse_forest(forest._replace(feature=renum),
-                                   cols.transpose(1, 2).contiguous(),
-                                   missing_bin=data.missing_bin, plan=plan)
+                    plan: ExecutionPlan, margins=None) -> torch.Tensor:
+    """Step-⑤ traversal of one round's K class trees (stacked (K, ...)) in
+    one launch: (n, K) leaf values, or, given ``margins`` ((n, K), or (n,)
+    at K = 1), those leaves added into them in place (``margins + leaf``,
+    bit for bit).  The kernel reads the row-major codes, 4-bit packed or
+    not, as they lie: no column gather, no unpack, and no device->host read
+    (the grower's field ids are < F by construction).  ``repro`` gathers
+    the tree's renumbered columns from the column-major copy where F >
+    2^D − 1 (its TPU's memory layout); the decisions, and so the leaves,
+    are the same."""
     return ops.traverse_forest(forest, data.codes,
-                               missing_bin=data.missing_bin, plan=plan)
+                               missing_bin=data.missing_bin, plan=plan,
+                               margins=margins, check_fields=False)
 
 
 def _predict_one_tree(tree: TreeArrays, data: BinnedDataset,
-                      plan: ExecutionPlan) -> torch.Tensor:
-    """Step-⑤ traversal of one tree -> (n,): the K = 1 case of
-    :func:`_predict_forest`."""
+                      plan: ExecutionPlan, margins=None) -> torch.Tensor:
+    """Step-⑤ traversal of one tree -> (n,), or added into (n,)
+    ``margins``: the K = 1 case of :func:`_predict_forest`."""
     forest = TreeArrays(*[a[None] for a in tree])
-    return _predict_forest(forest, data, plan)[:, 0]
+    out = _predict_forest(forest, data, plan, margins)
+    return out if margins is not None else out[:, 0]

@@ -22,17 +22,8 @@ import torch
 
 from repro_torch.api.plan import ExecutionPlan, resolve_plan
 from repro_torch.core import splits as splits_mod
-from repro_torch.core.binning import PackedCodes
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import TreeArrays
-
-
-def _gather_fields(codes_cm, idx):
-    """Leading-axis (field) gather from the (F, n) column-major copy,
-    unpacked.  Packed rows are selected WITHOUT unpacking the full matrix;
-    only the gathered rows expand to uint8."""
-    rows = codes_cm[idx.long()]
-    return rows.unpack() if isinstance(rows, PackedCodes) else rows
 
 
 def fit_tree(codes, codes_cm, g, h, *, depth: int, n_bins: int,
@@ -81,15 +72,17 @@ def fit_forest(codes, codes_cm, g, h, *, depth: int, n_bins: int,
         hist = ops.build_histogram(codes, g, h, node_ids, n_nodes=2 ** level,
                                    n_bins=n_bins, plan=plan)
         # step ② — split decisions + tree-table updates
-        state, best, do_split = _decide_level(
+        state, _, _ = _decide_level(
             hist, level, depth, state, is_cat_field, field_mask, lambda_,
             gamma, min_child_weight)
         # step ③ — route every class's records to children, reading the
-        # chosen fields straight from the column-major copy
+        # chosen fields straight from the column-major copy; the level's
+        # splits are handed over as views of the tree tables, where step ②
+        # wrote them (feature -1 where a node does not split)
+        off, nn = 2 ** level - 1, 2 ** level
         node_ids = ops.partition_level_cm(
             node_ids, codes_cm,
-            torch.where(do_split, best.feature, -1).to(torch.int32),
-            best.threshold, best.is_cat, best.default_left,
+            *[table[:, off:off + nn] for table in state[:4]],
             missing_bin=missing_bin, plan=plan)
 
     feature, threshold, is_cat, default_left, value_bottom, value_set = state

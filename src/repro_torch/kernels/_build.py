@@ -30,9 +30,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 KERNELS = ("histogram", "histogram_nibble", "histogram_naive", "partition",
-           "partition_nibble", "traversal", "ensemble", "ensemble_wide")
+           "partition_nibble", "traversal", "traversal_wide", "ensemble",
+           "ensemble_wide")
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 _libs: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[tuple, object] = {}
 
 POINTER = ctypes.c_void_p
 INT = ctypes.c_int
@@ -117,10 +119,14 @@ def library(name: str) -> ctypes.CDLL:
 
 def function(source: str, symbol: str, argtypes: Sequence):
     """A C launch entry with its argument types declared (pointers and the
-    stream as ``c_void_p``, so ctypes never cuts them to 32 bits)."""
-    fn = getattr(library(source), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = INT
+    stream as ``c_void_p``, so ctypes never cuts them to 32 bits); declared
+    once, as the wrappers' host time is part of every round's."""
+    fn = _functions.get((source, symbol))
+    if fn is None:
+        fn = getattr(library(source), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = INT
+        _functions[(source, symbol)] = fn
     return fn
 
 

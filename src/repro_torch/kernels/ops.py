@@ -8,9 +8,11 @@ tensors — or raises — and takes the plain version for CPU tensors.  There
 is no fallback from a kernel that fails.
 
 4-bit :class:`~repro_torch.core.binning.PackedCodes` go straight to the
-kernels that read them (the nibble histogram and the nibble column-major
-partition); every other consumer unpacks first, as ``repro.kernels.ops``
-does outside its Pallas kernels.
+kernels, which read them in place (the nibble histogram, the nibble
+column-major partition and the traversal kernel's nibble entry); the
+``"reference"`` strategy, the naive-packing histogram and the row-layout
+partition unpack first, as ``repro.kernels.ops`` does outside its Pallas
+kernels.
 """
 from __future__ import annotations
 
@@ -97,21 +99,29 @@ def partition_level_cm(node_ids, codes_cm, split_feature, split_threshold,
 
 def traverse_tree(tree: TreeArrays, codes, *, missing_bin: int,
                   plan: Optional[ExecutionPlan] = None) -> torch.Tensor:
-    codes = unpack_codes(codes)
-    if resolve_plan(plan).traversal_strategy == "reference":
-        return _ref.traverse_ref(tree, codes, missing_bin)
-    return _trav_k.traverse_cuda(tree, codes, missing_bin=missing_bin)
+    forest = TreeArrays(*[a[None] for a in tree])
+    return traverse_forest(forest, codes, missing_bin=missing_bin,
+                           plan=plan)[:, 0]
 
 
 def traverse_forest(forest: TreeArrays, codes, *, missing_bin: int,
-                    plan: Optional[ExecutionPlan] = None) -> torch.Tensor:
+                    plan: Optional[ExecutionPlan] = None, margins=None,
+                    check_fields: bool = True) -> torch.Tensor:
     """Step ⑤ for one round's K class trees (stacked (K, ...)) -> (n, K);
-    codes (n, C) shared by every class or (K, n, C) per class."""
-    codes = unpack_codes(codes)
+    codes (n, C), packed or not, shared by every class, or (K, n, C) per
+    class (plain versions only).  Given ``margins`` ((n, K), or (n,) at
+    K = 1) the leaves are added into them in place, which is returned.
+    ``check_fields=False`` skips the kernel's device->host field check, for
+    trees the grower made."""
     if resolve_plan(plan).traversal_strategy == "reference":
-        return _ref.traverse_forest_ref(forest, codes, missing_bin)
+        delta = _ref.traverse_forest_ref(forest, unpack_codes(codes),
+                                         missing_bin)
+        return delta if margins is None \
+            else margins.add_(delta.reshape(margins.shape))
     return _trav_k.traverse_forest_cuda(forest, codes,
-                                        missing_bin=missing_bin)
+                                        missing_bin=missing_bin,
+                                        margins=margins,
+                                        check_fields=check_fields)
 
 
 def predict_ensemble(trees: TreeArrays, codes, *, missing_bin: int,
@@ -121,10 +131,9 @@ def predict_ensemble(trees: TreeArrays, codes, *, missing_bin: int,
     ``n_classes`` = K > 1 (trees round-major, tree t feeds class t % K)."""
     if trees.leaf_value.shape[-1] != 2 ** depth:
         raise ValueError(f"trees are not of depth {depth}")
-    codes = unpack_codes(codes)
     if resolve_plan(plan).traversal_strategy == "reference":
-        return _trav_k.predict_ensemble_plain(trees, codes, missing_bin,
-                                              n_classes)
+        return _trav_k.predict_ensemble_plain(trees, unpack_codes(codes),
+                                              missing_bin, n_classes)
     return _trav_k.predict_ensemble_cuda(trees, codes,
                                          missing_bin=missing_bin,
                                          n_classes=n_classes)

@@ -129,10 +129,23 @@ def partition_cm_ref(node_ids: Tensor, codes_cm: Tensor, split_feature: Tensor,
 # --------------------------------------------------------------------------
 # step ⑤ — one-tree traversal and batch inference
 # --------------------------------------------------------------------------
-def traverse_ref(tree: TreeArrays, codes: Tensor, missing_bin: int) -> Tensor:
+def _codes_at(codes: Tensor, f: Tensor, nibble: bool) -> Tensor:
+    """Each record's code of field ``f`` (n, T) from its row: column f of
+    (n, C) codes, or with ``nibble`` the nibble f of (n, ceil(C/2)) bytes
+    of 4-bit codes packed two a byte (even fields in the low nibble)."""
+    f = f.clamp(min=0).long()
+    if not nibble:
+        return torch.gather(codes, 1, f)
+    byte = torch.gather(codes, 1, f >> 1)
+    return (byte >> ((f & 1) << 2)) & 0xF
+
+
+def traverse_ref(tree: TreeArrays, codes: Tensor, missing_bin: int,
+                 nibble: bool = False) -> Tensor:
     """Walk every record through one tree; returns (n,) leaf values.
 
-    codes: (n, C) — columns indexed by ``tree.feature``.
+    codes: (n, C) — columns indexed by ``tree.feature``; with ``nibble``
+    the (n, ceil(C/2)) bytes of 4-bit codes, read as they lie.
     """
     n = codes.shape[0]
     depth = tree.depth
@@ -140,7 +153,7 @@ def traverse_ref(tree: TreeArrays, codes: Tensor, missing_bin: int) -> Tensor:
     node = torch.zeros((n,), dtype=torch.long, device=codes.device)
     for _ in range(depth):
         f = tree.feature[node]
-        code = torch.gather(codes, 1, f.clamp(min=0).long()[:, None])[:, 0]
+        code = _codes_at(codes, f[:, None], nibble)[:, 0]
         go_left = _decide_go_left(code, f, tree.threshold[node],
                                   tree.is_cat[node], tree.default_left[node],
                                   missing_bin)
@@ -149,28 +162,30 @@ def traverse_ref(tree: TreeArrays, codes: Tensor, missing_bin: int) -> Tensor:
 
 
 def traverse_forest_ref(forest: TreeArrays, codes: Tensor,
-                        missing_bin: int) -> Tensor:
+                        missing_bin: int, nibble: bool = False) -> Tensor:
     """One round's K class trees (stacked (K, ...)) over the same records;
     returns (n, K) leaf values.
 
     codes: (n, C) shared by every class, or (K, n, C) with class k's
-    columns (the renumbered-column fetch gathers per class).
+    columns (the renumbered-column fetch gathers per class); ``nibble`` as
+    in :func:`traverse_ref`.
     """
     return torch.stack([traverse_ref(TreeArrays(*[a[k] for a in forest]),
                                      codes[k] if codes.ndim == 3 else codes,
-                                     missing_bin)
+                                     missing_bin, nibble)
                         for k in range(forest.feature.shape[0])], dim=1)
 
 
 def predict_ensemble_batched(trees: TreeArrays, codes: Tensor,
-                             missing_bin: int, n_classes: int = 1) -> Tensor:
+                             missing_bin: int, n_classes: int = 1,
+                             nibble: bool = False) -> Tensor:
     """Tree-batched batch inference: all trees advance one level per pass
     over an (n, T) node matrix; returns the (n,) sum over the T trees, or
     (n, K) class margins when ``n_classes`` = K > 1 (trees round-major:
     tree t feeds column t % K through a (T, K) one-hot fold).
 
-    ``trees`` holds stacked arrays with a leading tree dimension (T, ...).
-    Node paths and leaf choices are those of ``traverse_ref`` tree by tree;
+    ``trees`` holds stacked arrays with a leading tree dimension (T, ...);
+    ``nibble`` as in :func:`traverse_ref`.  Node paths and leaf choices are those of ``traverse_ref`` tree by tree;
     only the float order of the final sum differs.
     """
     T = trees.feature.shape[0]
@@ -182,7 +197,7 @@ def predict_ensemble_batched(trees: TreeArrays, codes: Tensor,
                        device=codes.device)
     for _ in range(depth):
         f = torch.gather(feat_t, 0, node)                           # (n, T)
-        code = torch.gather(codes, 1, f.clamp(min=0).long())
+        code = _codes_at(codes, f, nibble)
         go_left = _decide_go_left(code, f, torch.gather(thr_t, 0, node),
                                   torch.gather(cat_t, 0, node),
                                   torch.gather(dl_t, 0, node), missing_bin)

@@ -1,31 +1,38 @@
-"""Step ⑤ traversal and batch inference kernels (``csrc/traversal.cu``).
+"""Step ⑤ traversal and batch inference: one kernel (``csrc/traversal.cu``).
 
-Replace ``src/repro/kernels/traversal.py::_traverse_kernel`` (one tree,
+Replaces ``src/repro/kernels/traversal.py::_traverse_kernel`` (one tree,
 and one round's K class trees, which the TPU build vmaps over classes)
 and ``::_ensemble_kernel`` (the ensemble sum, with its class route at
 K > 1).
 
-Nodes are packed into one int32 word each (:func:`pack_node_table`), and a
-tree's table and leaves sit in shared memory; one thread walks one record
-D hops down with implicit children.
+Nodes are packed into one int32 word each (:func:`pack_node_table`).  One
+kernel body walks T trees over n records and sums tree t into margin
+column t % K: a block stages its R records' code rows in shared memory in
+a bank-free layout, then blocks of TB trees in turn; a thread walks U
+records hop by hop (:func:`ensemble_geometry` sizes it).  Leaves sum in a
+register per record in tree order, class by class, starting from what the
+output holds, so the sum matches :func:`predict_ensemble_plain` to float
+tolerance while the leaf each tree picks is identical.  Rows too wide to
+stage take the wide entry, which reads the codes from global memory.
+Codes are uint8 (n, F) or 4-bit :class:`~repro_torch.core.binning.
+PackedCodes` (n, F) over the field axis, which the kernel reads as they lie
+(the nibble entry) and never unpacks.
 
-  * :func:`traverse_forest_cuda` — K class trees over the same records in
-    one launch, the class a grid axis; (n, K) out.  :func:`traverse_cuda`
-    is its K = 1 case.  Bound by bytes (each record's code row in, K
-    floats out).
-  * :func:`predict_ensemble_cuda` — bound by operations: n·T·D dependent
-    hops against one pass over the codes.  A block stages its R records'
-    code rows in shared memory in a bank-free layout, then blocks of TB
-    trees in turn; a thread walks U records hop by hop
-    (:func:`ensemble_geometry` sizes it).  Leaves sum in a register per
-    record in tree order, class by class (tree t feeds margin column
-    t % K), so the sum matches :func:`predict_ensemble_plain` to float
-    tolerance while the leaf each tree picks is identical.  Rows too wide
-    to stage take the wide entry, which reads the codes from global memory
-    (counted as ``ensemble_wide``).
+  * :func:`traverse_forest_cuda` — step ⑤: one round's K class trees in
+    one launch with T = K, (n, K) out, or added into the margins in place
+    (one float add a record and class, as ``margins + leaf``).  Bound by
+    bytes: each record's code row in, K floats out.  Counted as
+    ``traversal`` (``traversal_wide`` for the wide entry).
+    :func:`traverse_cuda` is its K = 1 case.
+  * :func:`predict_ensemble_cuda` — batch inference, bound by operations:
+    n·T·D dependent hops against one pass over the codes.  Counted as
+    ``ensemble`` (``ensemble_wide``).
 
 Decisions are integer-exact: :func:`traverse_forest_cuda` is bit-equal to
-:func:`traverse_forest_plain`.
+:func:`traverse_forest_plain`.  A field id past the code row would read
+out of bounds in the kernel, so trees that come from outside are checked
+(:func:`check_fields`, one small device->host read); the grower's trees,
+whose field ids are < F by construction, skip it (``check_fields=False``).
 """
 from __future__ import annotations
 
@@ -36,13 +43,12 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.binning import PackedCodes
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (TreeArrays, predict_ensemble_batched,
-                                     traverse_forest_ref as
-                                     traverse_forest_plain,
+                                     traverse_forest_ref,
                                      traverse_ref as traverse_plain)
 
-THREADS = 256
 MIN_STAGED_TREES = 16        # trees a staged block holds where room allows
 PLAIN_ROWS = 1 << 18         # records per pass of the plain ensemble walk
 MAX_FIELDS = 1 << 15         # field ids must fit the packed node word
@@ -104,23 +110,32 @@ def ensemble_limits(device) -> EnsembleLimits:
                    else device.index)
 
 
-def max_staged_fields(depth: int, limits: EnsembleLimits) -> int:
-    """The widest code row the staged entry takes: 32 records' rows
-    (padded to 4 bytes) and one depth-``depth`` tree in a block's shared
-    memory."""
+def row_bytes(F: int, packed: bool) -> int:
+    """Bytes of one record's code row: F uint8 codes, or ceil(F/2) bytes
+    of 4-bit packed ones."""
+    return (F + 1) // 2 if packed else F
+
+
+def max_staged_fields(depth: int, limits: EnsembleLimits,
+                      packed: bool = False) -> int:
+    """The widest code row, in fields, the staged entry takes: 32 records'
+    rows (padded to 4 bytes) and one depth-``depth`` tree in a block's
+    shared memory."""
     tree_bytes = 4 * ((2 << depth) - 1)
-    return (limits.block_shared - tree_bytes) // 32 // 4 * 4
+    top = (limits.block_shared - tree_bytes) // 32 // 4 * 4
+    return 2 * top if packed else top
 
 
 def ensemble_geometry(n: int, F: int, T: int, depth: int,
-                      limits: EnsembleLimits) -> EnsembleGeometry:
-    """The ensemble kernel's launch for n records of F fields over T trees
-    of depth ``depth``.
+                      limits: EnsembleLimits,
+                      packed: bool = False) -> EnsembleGeometry:
+    """The kernel's launch for n records of F fields (uint8, or 4-bit
+    ``packed``) over T trees of depth ``depth``; step ⑤ is T = K.
 
     Staged entry (F up to :func:`max_staged_fields`): a block holds R
-    records' code rows, ``4·ceil(F/4)`` bytes each, then TB trees.  R is the
-    largest of U·threads, U·threads − 32U, ..., 32U, 32 (a multiple of 32,
-    so lane l reads bank l) whose rows leave room for
+    records' code rows, :func:`row_bytes` padded to 4 bytes each, then TB
+    trees.  R is the largest of U·threads, U·threads − 32U, ..., 32U, 32 (a
+    multiple of 32, so lane l reads bank l) whose rows leave room for
     ``min(T, MIN_STAGED_TREES)`` trees, else for one, within
     ``limits.budget`` (``blocks_per_sm`` blocks an SM), or within the
     block's whole shared memory where not even 32 rows fit the budget; no
@@ -128,11 +143,11 @@ def ensemble_geometry(n: int, F: int, T: int, depth: int,
     thread, ``limits.threads`` threads, TB trees within the budget.
     """
     tree_bytes = 4 * ((2 << depth) - 1)
-    if F > max_staged_fields(depth, limits):
+    if F > max_staged_fields(depth, limits, packed):
         tb = max(1, min(T, limits.budget // tree_bytes))
         return EnsembleGeometry(limits.threads, 1, tb, tb * tree_bytes,
                                 "wide")
-    row = 4 * math.ceil(F / 4)
+    row = 4 * math.ceil(row_bytes(F, packed) / 4)
     U = limits.per_thread
     step = 32 * U
     budget = limits.budget
@@ -158,126 +173,160 @@ def pack_node_table(tree: TreeArrays) -> torch.Tensor:
             | tree.default_left.to(torch.int32))
 
 
-def predict_ensemble_plain(trees: TreeArrays, codes: torch.Tensor,
-                           missing_bin: int,
+def traverse_forest_plain(forest: TreeArrays, codes,
+                          missing_bin: int) -> torch.Tensor:
+    """Plain version of step ⑤: (n, K) leaf values of one round's K class
+    trees.  ``PackedCodes`` are read as they lie (each field's nibble),
+    as the kernel reads them; a plain (K, n, C) tensor gives each class
+    its own codes."""
+    if isinstance(codes, PackedCodes):
+        return traverse_forest_ref(forest, codes.data, missing_bin,
+                                   nibble=True)
+    return traverse_forest_ref(forest, codes, missing_bin)
+
+
+def predict_ensemble_plain(trees: TreeArrays, codes, missing_bin: int,
                            n_classes: int = 1) -> torch.Tensor:
     """Plain version of the ensemble walk: :func:`predict_ensemble_batched`
     over blocks of ``PLAIN_ROWS`` records, which bounds its (rows, T) node
-    matrices.  (n,) out, or (n, K) for ``n_classes`` = K > 1."""
-    parts = [predict_ensemble_batched(trees, codes[lo:lo + PLAIN_ROWS],
-                                      missing_bin, n_classes)
-             for lo in range(0, codes.shape[0], PLAIN_ROWS)]
+    matrices; ``PackedCodes`` read as they lie.  (n,) out, or (n, K) for
+    ``n_classes`` = K > 1."""
+    nibble = isinstance(codes, PackedCodes)
+    data = codes.data if nibble else codes
+    parts = [predict_ensemble_batched(trees, data[lo:lo + PLAIN_ROWS],
+                                      missing_bin, n_classes, nibble=nibble)
+             for lo in range(0, data.shape[0], PLAIN_ROWS)]
     if not parts:
         shape = (0,) if n_classes == 1 else (0, n_classes)
-        return torch.zeros(shape, dtype=torch.float32, device=codes.device)
+        return torch.zeros(shape, dtype=torch.float32, device=data.device)
     return torch.cat(parts)
 
 
-def _check(tables, leaves, codes, what: str) -> int:
-    """Validate the kernel's inputs; returns the tree depth."""
-    if codes.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {codes.device}")
-    if codes.dtype != torch.uint8 or codes.ndim not in (2, 3) \
-            or not codes.is_contiguous():
-        raise ValueError(f"{what}: codes must be a contiguous (n, C) or "
-                         "(K, n, C) uint8 tensor")
+def check_fields(tables: torch.Tensor, F: int, what: str) -> None:
+    """Refuse trees that split on a field past the code row, which the
+    kernel would read out of bounds: one small device->host read."""
+    top = int(((tables >> 16) - 1).max()) if tables.numel() else -1
+    if top >= F:
+        raise ValueError(f"{what}: a tree splits on field {top} but codes "
+                         f"have {F} columns")
+
+
+def _codes_of(codes, what: str):
+    """(data, F, packed) of uint8 (n, F) codes or row-major ``PackedCodes``
+    (n, F), checked as the kernel takes them."""
+    packed = isinstance(codes, PackedCodes)
+    data = codes.data if packed else codes
+    if data.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {data.device}")
+    if data.dtype != torch.uint8 or data.ndim != 2 \
+            or not data.is_contiguous():
+        raise ValueError(f"{what}: codes must be a contiguous (n, F) uint8 "
+                         "tensor or PackedCodes")
+    F = codes.shape[1]
+    if packed and data.shape[1] != row_bytes(F, True):
+        raise ValueError(f"{what}: {data.shape[1]} packed bytes a record do "
+                         f"not hold {F} fields")
+    if F >= MAX_FIELDS:
+        raise ValueError(f"{what}: {F} code columns do not fit the packed "
+                         f"node word (< {MAX_FIELDS})")
+    return data, F, packed
+
+
+def _launch(trees: TreeArrays, codes, out: torch.Tensor, n_classes: int,
+            missing_bin: int, check: bool, counters, what: str) -> None:
+    """Walk ``trees`` (stacked (T, ...), tree t into column t % K) over
+    ``codes`` and add each record's sums into ``out`` (n, K) float32;
+    ``check``: run :func:`check_fields`; ``counters`` names the (staged,
+    wide) launch counts."""
+    data, F, packed = _codes_of(codes, what)
+    tables = pack_node_table(trees).contiguous()
+    leaves = trees.leaf_value.to(torch.float32).contiguous()
+    if tables.ndim != 2:
+        raise ValueError(f"{what}: trees must be stacked (T, ...)")
     depth = int(leaves.shape[-1]).bit_length() - 1
     if not 1 <= depth <= 10 or leaves.shape[-1] != 1 << depth \
             or tables.shape[-1] != (1 << depth) - 1:
         raise ValueError(f"{what}: tree tables are not a complete tree of "
                          "depth 1..10")
-    if tables.device != codes.device or leaves.device != codes.device:
-        raise ValueError(f"{what}: trees must lie on {codes.device}")
-    C = codes.shape[-1]
-    if C >= MAX_FIELDS:
-        raise ValueError(f"{what}: {C} code columns do not fit the packed "
-                         f"node word (< {MAX_FIELDS})")
-    # one small device->host read: a field id past the code row would read
-    # out of bounds in the kernel
-    top = int(((tables >> 16) - 1).max()) if tables.numel() else -1
-    if top >= C:
-        raise ValueError(f"{what}: a tree splits on field {top} but codes "
-                         f"have {C} columns")
-    return depth
-
-
-def traverse_forest_cuda(forest: TreeArrays, codes: torch.Tensor, *,
-                         missing_bin: int) -> torch.Tensor:
-    """One round's K class trees, stacked (K, ...), in one launch.
-
-    codes: (n, C) shared by every class, or (K, n, C) with class k's
-    columns; C matches the trees' field ids.  Returns (n, K) float32 leaf
-    values.
-    """
-    if codes.device.type == "cpu":
-        return traverse_forest_plain(forest, codes, missing_bin)
-    tables = pack_node_table(forest).contiguous()
-    leaves = forest.leaf_value.to(torch.float32).contiguous()
-    if tables.ndim != 2:
-        raise ValueError("traverse_forest: trees must be stacked (K, ...)")
-    depth = _check(tables, leaves, codes, "traversal")
-    K = tables.shape[0]
-    n, C = codes.shape[-2:]
-    if codes.ndim == 3 and codes.shape[0] != K:
-        raise ValueError(f"traversal: codes hold {codes.shape[0]} class "
-                         f"blocks for {K} trees")
-    if not 1 <= K <= 65535:
-        raise ValueError(f"traversal: {K} trees outside [1, 65535]")
-    out = torch.empty((n, K), dtype=torch.float32, device=codes.device)
-    if n == 0:
-        return out
-    class_stride = n * C if codes.ndim == 3 else 0
+    if tables.device != data.device or leaves.device != data.device:
+        raise ValueError(f"{what}: trees must lie on {data.device}")
+    if check:
+        check_fields(tables, F, what)
+    n, T = data.shape[0], tables.shape[0]
+    if n == 0 or T == 0:
+        return
+    geo = ensemble_geometry(n, F, T, depth, ensemble_limits(data.device),
+                            packed)
     P, I, I64 = _build.POINTER, _build.INT, _build.INT64
-    fn = _build.function("traversal", "traverse_launch",
-                         [P, P, P, P, I64, I, I, I64, I, I, I, P])
-    err = fn(codes.data_ptr(), tables.data_ptr(), leaves.data_ptr(),
-             out.data_ptr(), n, C, K, class_stride, depth, missing_bin,
-             THREADS, torch.cuda.current_stream(codes.device).cuda_stream)
-    _build.check("traversal", err, "traversal")
-    _build.count("traversal")
+    fn = _build.function("traversal", "ensemble_launch",
+                         [P, P, P, P, I64, I, I, I, I, I, I, I, I, I, I, P])
+    wide = geo.entry == "wide"
+    err = fn(data.data_ptr(), tables.data_ptr(), leaves.data_ptr(),
+             out.data_ptr(), n, F, T, n_classes, depth, missing_bin,
+             geo.records, geo.trees, geo.smem, int(wide), int(packed),
+             torch.cuda.current_stream(data.device).cuda_stream)
+    _build.check("traversal", err, what)
+    _build.count(counters[1] if wide else counters[0])
+
+
+def traverse_forest_cuda(forest: TreeArrays, codes, *, missing_bin: int,
+                         margins=None, check_fields: bool = True
+                         ) -> torch.Tensor:
+    """Step ⑤: one round's K class trees, stacked (K, ...), in one launch.
+
+    codes: (n, F) uint8 or row-major ``PackedCodes`` shared by every class,
+    F matching the trees' field ids (on the CPU also a (K, n, C) tensor of
+    each class's columns).  Returns (n, K) float32 leaf values; given
+    ``margins`` ((n, K) float32, or (n,) at K = 1), adds them into it in
+    place instead and returns it.  ``check_fields=False`` skips the
+    device->host read of :func:`check_fields`, for trees whose field ids
+    are < F by construction.
+    """
+    K = forest.feature.shape[0]
+    if codes.device.type == "cpu":
+        delta = traverse_forest_plain(forest, codes, missing_bin)
+        return delta if margins is None \
+            else margins.add_(delta.reshape(margins.shape))
+    if forest.feature.ndim != 2:
+        raise ValueError("traversal: trees must be stacked (K, ...)")
+    n = codes.shape[0]
+    if margins is None:
+        # -0.0 + leaf is the leaf bit for bit, a leaf of -0.0 included
+        out = torch.full((n, K), -0.0, dtype=torch.float32,
+                         device=codes.device)
+    else:
+        out = margins
+        if out.dtype != torch.float32 or not out.is_contiguous() \
+                or out.device != codes.device \
+                or out.shape not in ((n, K),) + (((n,),) if K == 1 else ()):
+            raise ValueError(f"traversal: margins must be a contiguous "
+                             f"float32 (n, {K}) tensor on {codes.device}")
+    _launch(forest, codes, out, K, missing_bin, check_fields,
+            ("traversal", "traversal_wide"), "traversal")
     return out
 
 
-def traverse_cuda(tree: TreeArrays, codes: torch.Tensor, *,
-                  missing_bin: int) -> torch.Tensor:
-    """One-tree traversal; codes (n, C) with C matching tree.feature ids.
-    Returns (n,) float32 leaf values."""
-    if codes.device.type == "cpu":
-        return traverse_plain(tree, codes, missing_bin)
+def traverse_cuda(tree: TreeArrays, codes, *, missing_bin: int
+                  ) -> torch.Tensor:
+    """One-tree traversal: :func:`traverse_forest_cuda` at K = 1; codes
+    (n, C) with C matching tree.feature ids.  Returns (n,) float32 leaf
+    values."""
     forest = TreeArrays(*[a[None] for a in tree])
     return traverse_forest_cuda(forest, codes, missing_bin=missing_bin)[:, 0]
 
 
-def predict_ensemble_cuda(trees: TreeArrays, codes: torch.Tensor, *,
-                          missing_bin: int,
+def predict_ensemble_cuda(trees: TreeArrays, codes, *, missing_bin: int,
                           n_classes: int = 1) -> torch.Tensor:
-    """Ensemble sums: trees hold stacked (T, ...) arrays; codes (n, F).
-    Returns (n,) float32, or (n, K) class margins for ``n_classes`` = K > 1
-    (trees round-major, tree t feeds column t % K)."""
+    """Ensemble sums: trees hold stacked (T, ...) arrays; codes (n, F)
+    uint8 or row-major ``PackedCodes``.  Returns (n,) float32, or (n, K)
+    class margins for ``n_classes`` = K > 1 (trees round-major, tree t
+    feeds column t % K)."""
     if codes.device.type == "cpu":
         return predict_ensemble_plain(trees, codes, missing_bin, n_classes)
-    tables = pack_node_table(trees).contiguous()
-    leaves = trees.leaf_value.to(torch.float32).contiguous()
-    if tables.ndim != 2 or codes.ndim != 2:
-        raise ValueError("predict_ensemble: trees must be stacked (T, ...) "
-                         "and codes (n, F)")
     if n_classes < 1:
         raise ValueError(f"predict_ensemble: n_classes {n_classes} < 1")
-    depth = _check(tables, leaves, codes, "predict_ensemble")
-    n, F = codes.shape
-    T = tables.shape[0]
-    out = torch.zeros((n, n_classes), dtype=torch.float32,
+    out = torch.zeros((codes.shape[0], n_classes), dtype=torch.float32,
                       device=codes.device)
-    if n > 0 and T > 0:
-        geo = ensemble_geometry(n, F, T, depth, ensemble_limits(codes.device))
-        P, I, I64 = _build.POINTER, _build.INT, _build.INT64
-        fn = _build.function("traversal", "ensemble_launch",
-                             [P, P, P, P, I64, I, I, I, I, I, I, I, I, I, P])
-        wide = geo.entry == "wide"
-        err = fn(codes.data_ptr(), tables.data_ptr(), leaves.data_ptr(),
-                 out.data_ptr(), n, F, T, n_classes, depth, missing_bin,
-                 geo.records, geo.trees, geo.smem, int(wide),
-                 torch.cuda.current_stream(codes.device).cuda_stream)
-        _build.check("traversal", err, "predict_ensemble")
-        _build.count("ensemble_wide" if wide else "ensemble")
+    _launch(trees, codes, out, n_classes, missing_bin, True,
+            ("ensemble", "ensemble_wide"), "predict_ensemble")
     return out[:, 0] if n_classes == 1 else out

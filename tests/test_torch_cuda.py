@@ -241,21 +241,104 @@ def test_class_batched_partition_kernel_matches_plain(cuda, K, nn):
                                                       n_bins - 1))
 
 
-@pytest.mark.parametrize("K,depth,per_class", [(1, 6, False), (7, 6, False),
-                                               (4, 3, True)])
+def _splits(shape, F, n_bins, rng, device):
+    return [torch.from_numpy(a).to(device) for a in (
+        rng.integers(-1, F, shape).astype(np.int32),
+        rng.integers(0, n_bins, shape).astype(np.int32),
+        rng.integers(0, 2, shape).astype(np.int32),
+        rng.integers(0, 2, shape).astype(np.int32))]
+
+
+EDGES = [(1, 1, 1), (3, 1, 2), (4097, 1, 32),    # n < 4, odd n
+         (1031, 1, part_k.MAX_NODES),            # the largest split table
+         (4098, 7, 32),                          # class rows off 16 bytes
+         (1031, 3, part_k.MAX_NODES),
+         (8192, 7, 64)]                          # whole groups only
+
+
+@pytest.mark.parametrize("layout,n,K,nn",
+                         [("rows",) + e for e in EDGES if e[1] == 1]
+                         + [(lay,) + e for lay in ("cm", "nibble")
+                            for e in EDGES])
+def test_partition_entries_at_their_edges(cuda, layout, n, K, nn):
+    """Every layout of the partition kernel against its plain version where
+    a thread's 4 records do not fill a group or their class row does not
+    start on 16 bytes, at K = 7 and at NN up to ``MAX_NODES``; the split
+    arrays handed over as strided views of (K, 2^D - 1) tree tables, as
+    the grower hands them, and as separate tensors."""
+    rng = np.random.default_rng(n + K + nn)
+    F, NB = (115, 16) if layout == "nibble" else (54, 256)
+    codes_cm = torch.from_numpy(_codes(n, F, NB, rng).T.copy()).to(cuda)
+    shape = (nn,) if K == 1 else (K, nn)
+    nid = torch.from_numpy(rng.integers(0, nn, shape[:-1] + (n,))
+                           .astype(np.int32)).to(cuda)
+    split = _splits(shape, F, NB, rng, cuda)
+    tables = [torch.full((K, 2 * nn + 5), 7, dtype=torch.int32, device=cuda)
+              for _ in split]
+    for table, part in zip(tables, split):
+        table[:, nn + 2:2 * nn + 2] = part.reshape(K, nn)
+    views = [t[:, nn + 2:2 * nn + 2] for t in tables]
+    if K == 1:
+        views = [v[0] for v in views]
+    if layout == "rows":
+        lvl = codes_cm[split[0].clamp(min=0).long()].T.contiguous()
+        renum = torch.where(split[0] >= 0, torch.arange(
+            nn, dtype=torch.int32, device=cuda), -1)
+        want = part_k.partition_plain(nid, lvl, renum, *split[1:], NB - 1)
+        for args in ((renum, *split[1:]), (renum, *views[1:])):
+            assert torch.equal(part_k.partition_cuda(
+                nid, lvl, *args, missing_bin=NB - 1), want)
+        return
+    codes = PackedCodes.pack(codes_cm) if layout == "nibble" else codes_cm
+    counter = "partition_nibble" if layout == "nibble" else "partition"
+    want = part_k.partition_cm_plain(nid, codes, *split, NB - 1)
+    for args in (split, views):
+        before = _build.launch_counts()[counter]
+        got = part_k.partition_cm_cuda(nid, codes, *args, missing_bin=NB - 1)
+        assert _build.launch_counts()[counter] == before + 1
+        assert torch.equal(got, want)
+
+
+def test_partition_marks_what_it_cannot_route(cuda):
+    """Node ids outside [0, NN) and split fields past the codes give -1;
+    any negative field is a pass-through (left)."""
+    n, F = 9, 3
+    codes_cm = torch.zeros((F, n), dtype=torch.uint8, device=cuda)
+    nid = torch.tensor([0, 1, 2, 3, -1, 4, 0, 1, 2], dtype=torch.int32,
+                       device=cuda)
+    split = [torch.tensor(a, dtype=torch.int32, device=cuda) for a in (
+        [-5, 3, 0, -1], [0, 0, 0, 0], [0, 0, 0, 0], [0, 0, 0, 0])]
+    got = part_k.partition_cm_cuda(nid, codes_cm, *split, missing_bin=255)
+    assert got.tolist() == [0, -1, 4, 6, -1, -1, 0, -1, 4]
+
+
+@pytest.mark.parametrize("K,depth,packed", [(1, 6, False), (7, 6, False),
+                                            (4, 3, True)])
 def test_class_batched_traversal_kernel_matches_plain(cuda, K, depth,
-                                                      per_class):
+                                                      packed):
+    """Step ⑤ walks one round's K trees through the ensemble kernel's
+    staged body at T = K: each class's leaf exactly, and, added into the
+    margins in place, ``margins + leaf`` bit for bit."""
     rng = np.random.default_rng(K + depth)
-    C, n = 54, 4099
-    forest = _trees(K, depth, C, 256, rng, cuda)
-    shape = (K, n, C) if per_class else (n, C)
-    codes = torch.from_numpy(
-        _codes(int(np.prod(shape[:-1])), C, 256, rng).reshape(shape)).to(cuda)
+    C, n, NB = 54, 4099, 16 if packed else 256
+    forest = _trees(K, depth, C, NB, rng, cuda)
+    codes = torch.from_numpy(_codes(n, C, NB, rng)).to(cuda)
+    if packed:
+        codes = PackedCodes.pack(codes)
     before = _build.launch_counts()["traversal"]
-    got = trav_k.traverse_forest_cuda(forest, codes, missing_bin=255)
+    got = trav_k.traverse_forest_cuda(forest, codes, missing_bin=NB - 1)
     assert _build.launch_counts()["traversal"] == before + 1
     assert got.shape == (n, K)
-    assert torch.equal(got, trav_k.traverse_forest_plain(forest, codes, 255))
+    want = trav_k.traverse_forest_plain(forest, codes, NB - 1)
+    assert torch.equal(got, want)
+    margins = torch.from_numpy(rng.normal(size=(n, K)).astype(np.float32)
+                               ).to(cuda)
+    if K == 1:
+        margins = margins[:, 0].contiguous()
+    expect = margins + want.reshape(margins.shape)
+    out = trav_k.traverse_forest_cuda(forest, codes, missing_bin=NB - 1,
+                                      margins=margins)
+    assert out is margins and torch.equal(out, expect)
 
 
 @pytest.mark.parametrize("T,K,depth", [(504, 7, 6), (10, 3, 4), (97, 2, 10)])
@@ -354,6 +437,128 @@ def test_wide_ensemble_entry_past_the_staged_limit(cuda, K):
         trees = _trees(20, 6, F, 256, rng, cuda)
         codes = torch.from_numpy(_codes(300, F, 256, rng)).to(cuda)
         _ensemble_matches_plain(trees, codes, K, 255, counter)
+
+
+@pytest.mark.parametrize("n,F,T,K", [(2053, 115, 40, 1), (2053, 115, 40, 7),
+                                     (5, 9, 13, 3), (3001, 28, "TB+3", 1)])
+def test_nibble_ensemble_entry_matches_plain(cuda, n, F, T, K):
+    """4-bit packed rows staged as they lie (F odd: a pad nibble a row),
+    bit-equal on dyadic leaves to the uint8 entry on the same codes."""
+    limits = trav_k.ensemble_limits(cuda)
+    if T == "TB+3":
+        T = trav_k.ensemble_geometry(n, F, 100_000, 6, limits,
+                                     packed=True).trees + 3
+    assert trav_k.ensemble_geometry(n, F, T, 6, limits,
+                                    packed=True).entry == "staged"
+    rng = np.random.default_rng(n + F + T + K)
+    trees = _trees(T, 6, F, 16, rng, cuda)
+    codes = torch.from_numpy(_codes(n, F, 16, rng)).to(cuda)
+    packed = PackedCodes.pack(codes)
+    _ensemble_matches_plain(trees, packed, K, 15, "ensemble")
+    dyadic = trees._replace(leaf_value=torch.round(trees.leaf_value * 64) / 64)
+    assert torch.equal(
+        trav_k.predict_ensemble_cuda(dyadic, packed, missing_bin=15,
+                                     n_classes=K),
+        trav_k.predict_ensemble_cuda(dyadic, codes, missing_bin=15,
+                                     n_classes=K))
+
+
+@pytest.mark.parametrize("F,packed", [(28, False), (54, False),
+                                      (115, True), (28, True)])
+def test_staged_rows_that_do_not_start_on_16_bytes(cuda, F, packed):
+    """Code rows whose storage starts off 16 bytes (a view one byte into a
+    buffer) are staged byte by byte: the same sums as an aligned copy, in
+    whole words (F % 4 == 0) and byte by byte (F % 4 != 0)."""
+    rng = np.random.default_rng(F + packed)
+    n, NB = 1037, 16 if packed else 256
+    codes = torch.from_numpy(_codes(n, F, NB, rng)).to(cuda)
+    aligned = PackedCodes.pack(codes) if packed else codes
+    data = aligned.data if packed else aligned
+    buf = torch.empty(data.numel() + 1, dtype=torch.uint8, device=cuda)
+    buf[1:] = data.reshape(-1)
+    shifted = buf[1:].view(data.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 1
+    off = PackedCodes(shifted, F) if packed else shifted
+    trees = _trees(40, 6, F, NB, rng, cuda)
+    for K in (1, 3):
+        assert torch.equal(
+            trav_k.predict_ensemble_cuda(trees, off, missing_bin=NB - 1,
+                                         n_classes=K),
+            trav_k.predict_ensemble_cuda(trees, aligned, missing_bin=NB - 1,
+                                         n_classes=K))
+    _ensemble_matches_plain(trees, off, 3, NB - 1, "ensemble")
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_wide_traversal_entry_past_the_staged_limit(cuda, packed):
+    """Step ⑤ on rows one field past the staged limit takes the wide entry
+    (counted as ``traversal_wide``), bit-equal to its plain version."""
+    limits = trav_k.ensemble_limits(cuda)
+    F = trav_k.max_staged_fields(6, limits, packed) + 1
+    NB = 16 if packed else 256
+    rng = np.random.default_rng(F)
+    forest = _trees(3, 6, F, NB, rng, cuda)
+    codes = torch.from_numpy(_codes(300, F, NB, rng)).to(cuda)
+    if packed:
+        codes = PackedCodes.pack(codes)
+    before = _build.launch_counts()
+    got = trav_k.traverse_forest_cuda(forest, codes, missing_bin=NB - 1)
+    after = _build.launch_counts()
+    assert after["traversal_wide"] == before["traversal_wide"] + 1
+    assert after["traversal"] == before["traversal"]
+    assert torch.equal(got, trav_k.traverse_forest_plain(forest, codes,
+                                                         NB - 1))
+
+
+@pytest.mark.parametrize("n_bins,K", [(16, None), (16, 3), (64, None),
+                                      (64, 3)])
+def test_round_step5_reads_no_host_value(cuda, monkeypatch, n_bins, K):
+    """Step ⑤ of a round on the card (F = 20 > 2^3 - 1): one traversal
+    launch over the row-major codes, packed or not; no column gather from
+    the column-major copy, no unpack, no device->host read; the margins
+    take each leaf in place, bit-equal to ``margins + leaf``."""
+    import dataclasses
+
+    X, y, _ = make_tabular(2001, 20, 0, task="binary" if K is None
+                           else "multiclass", n_classes=K or 4, seed=9)
+    data = binning.Binner(n_bins).fit(X).transform(X)
+    assert isinstance(data.codes, PackedCodes) == (n_bins == 16)
+    cfg = gbdt.GBDTConfig(n_trees=1, max_depth=3, objective="binary:logistic"
+                          if K is None else "multi:softmax", n_classes=K)
+    tree = gbdt.train(cfg, data, y).model.trees
+    forest = tree if K else ref.TreeArrays(*[a[0] for a in tree])
+    rng = np.random.default_rng(n_bins)
+    margins = torch.from_numpy(rng.normal(size=(2001, K or 1)).astype(
+        np.float32)).to(cuda)
+    margins = margins if K else margins[:, 0].contiguous()
+    plain = data.codes.unpack() if n_bins == 16 else data.codes
+    delta = trav_k.traverse_forest_plain(
+        tree if K else ref.TreeArrays(*[a[None] for a in forest]), plain,
+        data.missing_bin)
+    expect = margins + delta.reshape(margins.shape)
+
+    class Poison:
+        def __getattr__(self, name):
+            raise AssertionError(f"step ⑤ read the column-major copy "
+                                 f"({name})")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("step ⑤ made a forbidden call")
+
+    poisoned = dataclasses.replace(data, codes_cm=Poison())
+    monkeypatch.setattr(PackedCodes, "unpack", refuse)
+    monkeypatch.setattr(trav_k, "check_fields", refuse)
+    for name in ("item", "tolist", "cpu", "numpy", "__int__", "__float__",
+                 "__bool__"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    before = _build.launch_counts()
+    predict = gbdt._predict_forest if K else gbdt._predict_one_tree
+    out = predict(forest, poisoned, None, margins)
+    after = _build.launch_counts()
+    monkeypatch.undo()
+    assert out is margins and torch.equal(out, expect)
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {"traversal": 1}
 
 
 def test_ensemble_limits_read_from_the_card(cuda):
