@@ -54,7 +54,9 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    codes, which give its kernel row (the random-code times stay as extra
    keys), and on real g, h its agreement with a float64 sum of the plain
    version, within rtol 1e-5 of each bin's sum of |stat|, at NN = 1 and
-   32.
+   32.  Then the naive-packing histogram on the same codes, held as in
+   phase 2c (real stats against the float64 sum) and timed against the
+   grouped kernel: the ``histogram_naive`` row's ``*_k7`` keys.
 2c. 4-bit packed codes: the nibble histogram against its plain version
    and against the uint8 kernel on the same codes, at the IoT-shaped
    path's shape (2,000,000 records, 115 fields, 16 bins; NN = 1 and 32)
@@ -62,7 +64,9 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    column-major partition at an odd record count, K = 1 and 7; step ⑤ on
    packed rows (the traversal's nibble entry, the IoT shape); the
    naive-packing histogram (the Fig. 9 ablation twin) against its plain
-   version and the grouped kernel at the Higgs shape (NN = 1 and 32).
+   version and the grouped kernel at the Higgs shape (NN = 1 and 32),
+   timed in turns with the grouped kernel; their ratio is printed at each
+   shape.
 3a. A short fit of the Higgs-shaped data (2 trees) under
    ``ExecutionPlan(hist_strategy="cuda_packed")``: the naive-packing
    histogram must run once per level and the train loss must fall.
@@ -743,39 +747,52 @@ def nibble_traversal(n: int, F: int, gen, dev) -> dict:
                 f"{ensemble_label(n, F, 1, dev, packed=True)}")
 
 
-def naive_histogram(n: int, seed: int, dev) -> dict:
-    """The naive-packing histogram against its plain version and the
-    grouped kernel at the Higgs shape (NN = 1 and 32), both timed in turns
-    (naive, grouped, grouped, naive) on the same inputs."""
+def naive_levels(codes, K: int, gen, dev, label: str):
+    """The naive-packing histogram on ``codes`` (n, F) at NN = 1 and 32:
+    bit-equal to its plain version and to the grouped kernel on dyadic g,
+    h; on real g, h within rtol 1e-5 + 1e-5 node sum|stat| of the float32
+    plain version (K = 1), or within rtol 1e-5 of each bin's sum|stat| of a
+    float64 sum (K > 1: the cell's two-category codes put so many records
+    on one bin that the float32 plain version is itself that far off, as
+    ``class_histogram`` says); both kernels timed in turns (naive, grouped,
+    grouped, naive).  Returns {NN: (naive ms, grouped ms)}, the largest
+    error and the real stats and node ids of NN = 32."""
     from repro_torch.kernels import histogram as hist_k
 
-    gen = torch.Generator(device=dev).manual_seed(seed + 3)
-    F, NB = N_FIELDS, N_BINS
-    codes = torch.randint(0, NB, (n, F), generator=gen, device=dev,
-                          dtype=torch.uint8)
-    g_dy, h_dy = dyadic_stats((n,), gen, dev)
-    g, h = real_stats((n,), gen, dev)
+    (n, F), NB = codes.shape, N_BINS
+    shape = (n,) if K == 1 else (K, n)
+    g_dy, h_dy = dyadic_stats(shape, gen, dev)
+    g, h = real_stats(shape, gen, dev)
     ms, err = {}, 0.0
     for nn in (1, 2 ** (DEPTH - 1)):
-        nid = torch.randint(0, nn, (n,), generator=gen, device=dev,
+        what = f"naive histogram K={K} NN={nn} ({label})"
+        nid = torch.randint(0, nn, shape, generator=gen, device=dev,
                             dtype=torch.int32)
         got = hist_k.histogram_naive_cuda(codes, g_dy, h_dy, nid, n_nodes=nn,
                                           n_bins=NB)
         check(torch.equal(got, hist_k.histogram_plain(codes, g_dy, h_dy, nid,
                                                       nn, NB)),
-              f"naive histogram NN={nn} dyadic bit-equal")
+              f"{what} dyadic bit-equal")
         check(torch.equal(got, hist_k.histogram_cuda(codes, g_dy, h_dy, nid,
                                                      n_nodes=nn, n_bins=NB)),
-              f"naive histogram NN={nn} bit-equal to the grouped kernel")
+              f"{what} bit-equal to the grouped kernel")
         got = hist_k.histogram_naive_cuda(codes, g, h, nid, n_nodes=nn,
                                           n_bins=NB)
-        want = hist_k.histogram_plain(codes, g, h, nid, nn, NB)
-        mag = hist_k.histogram_plain(codes, g.abs(), h, nid, nn,
-                                     NB).sum(dim=2, keepdim=True)
-        check(hist_within_tolerance(got, want, mag),
-              f"naive histogram NN={nn} within rtol 1e-5 + 1e-5 node "
-              "sum|stat|")
-        err = max(err, float((got - want).abs().max()))
+        if K == 1:
+            want = hist_k.histogram_plain(codes, g, h, nid, nn, NB)
+            mag = hist_k.histogram_plain(codes, g.abs(), h, nid, nn,
+                                         NB).sum(dim=-2, keepdim=True)
+            check(hist_within_tolerance(got, want, mag),
+                  f"{what} within rtol 1e-5 + 1e-5 node sum|stat|")
+            err = max(err, float((got - want).abs().max()))
+        else:
+            want, mag = histogram_f64(codes, g, h, nid, nn, NB)
+            e = (got.double() - want).abs()
+            check(bool(torch.all(e <= 1e-5 * mag)),
+                  f"{what} within rtol 1e-5 of the bin's sum|stat| of a "
+                  "float64 sum")
+            err = max(err, float(e.max()))
+            del e
         del got, want, mag
         naive = lambda: hist_k.histogram_naive_cuda(codes, g, h, nid,
                                                     n_nodes=nn, n_bins=NB)
@@ -783,9 +800,23 @@ def naive_histogram(n: int, seed: int, dev) -> dict:
                                                 n_bins=NB)
         t = [time_ms(f) for f in (naive, grouped, grouped, naive)]
         ms[nn] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
-        log(f"naive histogram NN={nn} n={n}: parity ok  naive {t[0]:.3f}, "
-            f"{t[3]:.3f} ms  grouped {t[1]:.3f}, {t[2]:.3f} ms")
-    nn = 2 ** (DEPTH - 1)
+        log(f"{what} n={n} F={F}: parity ok  naive {t[0]:.3f}, {t[3]:.3f} ms"
+            f"  grouped {t[1]:.3f}, {t[2]:.3f} ms  naive/grouped "
+            f"{ms[nn][0] / ms[nn][1]:.2f} (Fig. 9 on this card)")
+    return ms, err, (g, h, nid)
+
+
+def naive_histogram(n: int, seed: int, dev) -> dict:
+    """The naive-packing histogram against its plain version and the
+    grouped kernel at the Higgs shape (NN = 1 and 32, ``naive_levels``),
+    with the plain version's time, a bincount time and the bound."""
+    from repro_torch.kernels import histogram as hist_k
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    F, NB, nn = N_FIELDS, N_BINS, 2 ** (DEPTH - 1)
+    codes = torch.randint(0, NB, (n, F), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    ms, err, (g, h, nid) = naive_levels(codes, 1, gen, dev, "random codes")
     plain_ms = time_ms(lambda: hist_k.histogram_plain(codes, g, h, nid, nn,
                                                       NB), reps=3)
     # bincount over a precomputed index, as the histogram row times it
@@ -799,7 +830,20 @@ def naive_histogram(n: int, seed: int, dev) -> dict:
     return dict(ms=ms[nn][0], ms_nn1=ms[1][0], grouped_ms=ms[nn][1],
                 grouped_ms_nn1=ms[1][1], plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms, max_abs_err=err,
-                shape=f"n={n} F={F} NB={NB} NN={nn}")
+                shape=f"n={n} F={F} NB={NB} NN={nn}, "
+                f"{naive_label(n, 1, nn, F, NB)}")
+
+
+def naive_label(n: int, K: int, NN: int, F: int, NB: int) -> str:
+    """The naive kernel's launch at this shape, for a row's ``shape``."""
+    from repro_torch.kernels import histogram as hist_k
+
+    geo = hist_k.grouped_geometry(n, K, NN, F, NB,
+                                  hist_k.grouped_limits("cuda:0"), naive=True)
+    sort = "one slot, no sort" if K * NN == 1 else "counting sort"
+    return (f"records sorted by slot ({sort}), {geo.blocks} blocks x "
+            f"{geo.n_ftiles} field tile(s) of {geo.field_tile} fields, flat "
+            f"[field][bin][2] bins of {geo.smem} B, a thread per record")
 
 
 def packed_parity(n_higgs: int, seed: int, dev) -> dict:
@@ -1408,6 +1452,16 @@ def main(argv=None) -> int:
     cover["max_abs_err"] = max(cover["max_abs_err"],
                                rows["histogram_classes"]["max_abs_err"])
     rows["histogram_classes"].update(cover)
+    # the naive-packing kernel on the same codes, against the grouped one
+    ms, err, _ = naive_levels(mc_data.codes, MC_CLASSES, gen, dev,
+                              "Covertype-shaped codes")
+    nn, n_mc = 2 ** (DEPTH - 1), mc_data.codes.shape[0]
+    rows["histogram_naive"].update(
+        ms_k7=ms[nn][0], grouped_ms_k7=ms[nn][1], ms_k7_nn1=ms[1][0],
+        grouped_ms_k7_nn1=ms[1][1], max_abs_err_f64_k7=err,
+        shape_k7=f"n={n_mc} F={MC_FIELDS} NB={N_BINS} K={MC_CLASSES} "
+        f"NN={nn}, {naive_label(n_mc, MC_CLASSES, nn, MC_FIELDS, N_BINS)}, "
+        "Covertype-shaped codes")
     round_breakdown("multi-class", mc_config, mc_data, mc_y, mc_steady_ms)
     del mc_data
     torch.cuda.empty_cache()

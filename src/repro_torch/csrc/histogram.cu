@@ -64,12 +64,22 @@
 // whole bytes).
 //
 // Naive packing (hist_naive_kernel, the Fig. 9 ablation twin of
-// _hist_kernel_packed).  Tiles of (slot, field) pairs in one flat
-// [slot][field][bin] array in shared memory, each block streaming every
-// record of its chunk and skipping those of other slots; each thread takes
-// whole records and adds the record's tile fields one after another, as a
-// record's fields behind one SRAM port serialise in the paper's naive
-// packing.
+// _hist_kernel_packed).  What the ablation compares stays naive: a block's
+// bins are one slot's flat [field][bin][2] array, the output's own layout
+// (the TPU kernel's single FBLK*NB-wide tile), and each thread takes a
+// whole record and adds its fields one after another, as a record's fields
+// behind one SRAM port serialise in the paper's naive packing.  With 2*NB
+// words a field (NB a multiple of 16), field f's bin c lies on bank 2c mod
+// 32 whatever f, so lanes collide by code: that is the layout's cost here.
+// Everything else is the grouped kernel's: the same counting sort and the
+// same schedule (an equal share of the sorted list a block, one slot's bins
+// at a time, non-zero bins flushed), so each (class, record) pair's g, h,
+// node id and code row is read once a level per field tile; a warp loads
+// 32 positions' index, g and h at once, then each lane reads its record's
+// row as 32-bit words where the rows allow it.  Where a warp's codes of a
+// field span at most COMBINE_RANGE bins (two-category fields), its lanes'
+// adds to one bin are summed first and one lane adds the sum, so a field
+// of two codes costs two adds a warp and not a compare-and-swap loop of 32.
 #include "launch.cuh"
 
 template <bool NIBBLE>
@@ -80,83 +90,6 @@ __device__ __forceinline__ int code_at(const uint8_t* __restrict__ codes,
         return (b >> ((f & 1) << 2)) & 0xF;
     }
     return codes[r * row_bytes + f];
-}
-
-// The (slot tile, field tile) a block owns, its class range, and its bins
-// zeroed in shared memory.
-struct Tile {
-    int s0, f0, st, ft, k0, k1, size;
-};
-
-__device__ __forceinline__ Tile start_tile(float* bins, int F, int K, int NN,
-                                           int NB, int FT, int ST,
-                                           int n_ftiles) {
-    Tile t;
-    t.s0 = (blockIdx.x / n_ftiles) * ST;
-    t.f0 = (blockIdx.x % n_ftiles) * FT;
-    t.st = min(ST, K * NN - t.s0);
-    t.ft = min(FT, F - t.f0);
-    t.k0 = t.s0 / NN;                    // classes whose slots meet the tile
-    t.k1 = (t.s0 + t.st - 1) / NN;
-    t.size = t.st * t.ft * NB * 2;
-    for (int i = threadIdx.x; i < t.size; i += blockDim.x) bins[i] = 0.f;
-    __syncthreads();
-    return t;
-}
-
-// Blocks run in no order: each flushes its non-zero bins into the zeroed
-// output with global float atomics.
-__device__ __forceinline__ void flush_tile(const float* bins, const Tile& t,
-                                           float* __restrict__ out, int F,
-                                           int NB) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < t.size; i += blockDim.x) {
-        const float v = bins[i];
-        if (v == 0.f) continue;
-        const int s = i & 1;
-        int q = i >> 1;
-        const int bin = q % NB;
-        q /= NB;
-        const int fi = q % t.ft;
-        const int sl = q / t.ft;
-        const long long o =
-            ((static_cast<long long>(t.s0 + sl) * F + t.f0 + fi) * NB + bin)
-            * 2;
-        atomicAdd(out + o + s, v);
-    }
-}
-
-__global__ void hist_naive_kernel(const uint8_t* __restrict__ codes,
-                                  const float* __restrict__ g,
-                                  const float* __restrict__ h,
-                                  const int32_t* __restrict__ node,
-                                  float* __restrict__ out, long long n, int F,
-                                  int K, int NN, int NB, int FT, int ST,
-                                  int n_ftiles, long long chunk) {
-    extern __shared__ float bins[];      // [st][ft * NB][2], flat per slot
-    const Tile t = start_tile(bins, F, K, NN, NB, FT, ST, n_ftiles);
-    const long long r0 = static_cast<long long>(blockIdx.y) * chunk;
-    const long long r1 = min(n, r0 + chunk);
-    for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-        const uint8_t* row = codes + r * F + t.f0;
-        for (int k = t.k0; k <= t.k1; ++k) {
-            const long long kr = static_cast<long long>(k) * n + r;
-            const int nd = node[kr];
-            if (nd < 0 || nd >= NN) continue;
-            const int sl = k * NN + nd - t.s0;
-            if (sl < 0 || sl >= t.st) continue;
-            const float gv = g[kr], hv = h[kr];
-            float* slot = bins + sl * t.ft * NB * 2;
-            for (int fi = 0; fi < t.ft; ++fi) {   // the record's fields, in turn
-                const int c = row[fi];
-                if (c >= NB) continue;   // outside the binning invariant
-                float* b = slot + ((fi * NB + c) << 1);
-                atomicAdd(b, gv);
-                atomicAdd(b + 1, hv);
-            }
-        }
-    }
-    flush_tile(bins, t, out, F, NB);
 }
 
 // -- the counting sort of (class, record) pairs by slot ---------------------
@@ -356,28 +289,24 @@ __device__ __forceinline__ void flush_slot(float* bins,
     }
 }
 
-// blockIdx.y = field tile, blockIdx.x = a share of per_block positions of
-// the sorted list (every share the same size, whatever the slots' sizes).
-template <bool NIBBLE>
-__global__ void __launch_bounds__(GROUPED_THREADS, GROUPED_BLOCKS_PER_SM)
-hist_grouped_kernel(const uint8_t* __restrict__ codes,
-                    const float* __restrict__ g, const float* __restrict__ h,
-                    const int32_t* __restrict__ node,
-                    const int32_t* __restrict__ order,
-                    const unsigned long long* __restrict__ offsets,
-                    float* __restrict__ out, long long n, int F,
-                    int row_bytes, int NN, int S, int NB, int FT, int row,
-                    long long per_block) {
-    extern __shared__ float bins[];      // [2][NB][row]: g, then h sums
-    const int half = NB * row;
-    const int f0 = blockIdx.y * FT;
-    const int ft = min(FT, F - f0);
+// The schedule of both histogram kernels.  blockIdx.y is a field tile and
+// blockIdx.x a share of per_block positions of the sorted list (every share
+// the same size, whatever the slots' sizes).  The block zeroes its ``words``
+// bins, then calls run(s, a, e) for each slot s whose positions [a, e) meet
+// its share, in order; run adds them into the bins and flushes them, which
+// zeroes them again.  Without ``order`` (one slot) the list is the n
+// records.
+template <typename Run>
+__device__ __forceinline__ void for_each_slot(
+        const int32_t* __restrict__ order,
+        const unsigned long long* __restrict__ offsets, long long n, int S,
+        long long per_block, float* bins, int words, Run run) {
     const long long total =
         order != nullptr ? static_cast<long long>(offsets[S]) : n;
     long long p = static_cast<long long>(blockIdx.x) * per_block;
     const long long p_end = min(total, p + per_block);
     if (p >= p_end) return;
-    for (int i = threadIdx.x; i < 2 * half; i += blockDim.x) bins[i] = 0.f;
+    for (int i = threadIdx.x; i < words; i += blockDim.x) bins[i] = 0.f;
     // the slot of position p: the last s with offsets[s] <= p
     int s = 0;
     if (order != nullptr) {
@@ -395,85 +324,222 @@ hist_grouped_kernel(const uint8_t* __restrict__ codes,
             while (static_cast<long long>(offsets[s + 1]) <= p) ++s;
             e = min(e, static_cast<long long>(offsets[s + 1]));
         }
+        run(s, p, e);
+        p = e;
+    }
+}
+
+template <bool NIBBLE>
+__global__ void __launch_bounds__(GROUPED_THREADS, GROUPED_BLOCKS_PER_SM)
+hist_grouped_kernel(const uint8_t* __restrict__ codes,
+                    const float* __restrict__ g, const float* __restrict__ h,
+                    const int32_t* __restrict__ node,
+                    const int32_t* __restrict__ order,
+                    const unsigned long long* __restrict__ offsets,
+                    float* __restrict__ out, long long n, int F,
+                    int row_bytes, int NN, int S, int NB, int FT, int row,
+                    long long per_block) {
+    extern __shared__ float bins[];      // [2][NB][row]: g, then h sums
+    const int half = NB * row;
+    const int f0 = blockIdx.y * FT;
+    const int ft = min(FT, F - f0);
+    for_each_slot(order, offsets, n, S, per_block, bins, 2 * half,
+                  [&](int s, long long a, long long e) {
         const long long kn = static_cast<long long>(s / NN) * n;
-        add_records<NIBBLE>(bins, codes, g + kn, h + kn, node, order, p, e,
+        add_records<NIBBLE>(bins, codes, g + kn, h + kn, node, order, a, e,
                             f0, ft, row_bytes, NB, row, half);
         __syncthreads();
         flush_slot(bins, out + (static_cast<long long>(s) * F + f0) * NB * 2,
                    ft, NB, row, half);
         __syncthreads();
-        p = e;
+    });
+}
+
+// -- the naive-packing histogram over the sorted list ------------------------
+
+// A warp's codes of one field that span at most this many bins are summed
+// bin by bin across the warp before one lane adds each sum.
+constexpr int COMBINE_RANGE = 4;
+
+// Add this lane's (g, h) into bin c of field fi of the flat [field][bin][2]
+// bins; c >= NB (no record, or a code outside the binning invariant) adds
+// nothing.  Every lane of the warp calls it for the same field.  Lanes of
+// equal code add into one word, a compare-and-swap loop that retries once
+// a lane: where the warp's codes span few bins, each bin's lanes are summed
+// by shuffles and the bin's first lane adds the sum.
+__device__ __forceinline__ void add_field(float* bins, int fi, int c, int NB,
+                                          float gv, float hv) {
+    const bool ok = c < NB;
+    const int lo = __reduce_min_sync(FULL_MASK, ok ? c : NB);
+    const int hi = __reduce_max_sync(FULL_MASK, ok ? c : -1);
+    float* field = bins + 2 * fi * NB;
+    if (hi - lo >= COMBINE_RANGE) {
+        if (ok) {
+            atomicAdd(field + 2 * c, gv);
+            atomicAdd(field + 2 * c + 1, hv);
+        }
+        return;
+    }
+    const int lane = threadIdx.x & 31;
+    for (int v = lo; v <= hi; ++v) {
+        const unsigned lanes = __ballot_sync(FULL_MASK, c == v);
+        if (lanes == 0u) continue;
+        float sg = c == v ? gv : 0.f, sh = c == v ? hv : 0.f;
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1) {
+            sg += __shfl_xor_sync(FULL_MASK, sg, d);
+            sh += __shfl_xor_sync(FULL_MASK, sh, d);
+        }
+        if (lane == __ffs(lanes) - 1) {
+            atomicAdd(field + 2 * v, sg);
+            atomicAdd(field + 2 * v + 1, sh);
+        }
     }
 }
 
-// The grid and shared memory of one launch: blockIdx.x = (slot tile, field
-// tile), blockIdx.y = record chunk.
-template <typename Kernel>
-static cudaError_t configure(Kernel kernel, int F, int K, int NN, int NB,
-                             int FT, int ST, int n_chunks, dim3* grid,
-                             int* smem, int* n_ftiles) {
-    *n_ftiles = (F + FT - 1) / FT;
-    const int n_stiles = (K * NN + ST - 1) / ST;
-    *smem = FT * ST * NB * 2 * static_cast<int>(sizeof(float));
-    *grid = dim3(*n_ftiles * n_stiles, n_chunks);
-    return cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+// Add the sorted positions [a, e) of one slot into the block's flat bins of
+// the field tile [f0, f0 + ft): lane l of a warp loads the record at
+// position q + l and its g and h, then adds the record's fields one after
+// another, reading its row as 32-bit words with WORDS (row and tile start
+// on a multiple of 4 bytes), else byte by byte.  Without ``order`` (one
+// slot) position p is record p, of node 0.
+template <bool WORDS>
+__device__ __forceinline__ void add_rows(
+        float* bins, const uint8_t* __restrict__ codes,
+        const float* __restrict__ gk, const float* __restrict__ hk,
+        const int32_t* __restrict__ node, const int32_t* __restrict__ order,
+        long long a, long long e, int F, int f0, int ft, int NB) {
+    const int lane = threadIdx.x & 31;
+    const long long step = static_cast<long long>(blockDim.x);
+    for (long long q = a + (threadIdx.x & ~31u); q < e; q += step) {
+        const long long p = q + lane;
+        int r = -1;
+        float gv = 0.f, hv = 0.f;
+        if (p < e) {
+            r = order != nullptr ? order[p] : static_cast<int>(p);
+            if (order == nullptr && node[r] != 0) r = -1;
+            if (r >= 0) {
+                gv = gk[r];
+                hv = hk[r];
+            }
+        }
+        const uint8_t* row =
+            codes + static_cast<long long>(max(r, 0)) * F + f0;
+        if (WORDS) {
+            const unsigned* words = reinterpret_cast<const unsigned*>(row);
+            for (int fw = 0; fw < ft; fw += 4) {
+                const unsigned w = r >= 0 ? words[fw >> 2] : 0u;
+#pragma unroll
+                for (int b = 0; b < 4; ++b) {
+                    const int c = static_cast<int>((w >> (8 * b)) & 0xFFu);
+                    if (fw + b < ft)
+                        add_field(bins, fw + b, r >= 0 ? c : NB, NB, gv, hv);
+                }
+            }
+        } else {
+            for (int fi = 0; fi < ft; ++fi)
+                add_field(bins, fi, r >= 0 ? row[fi] : NB, NB, gv, hv);
+        }
+    }
 }
 
-// The counting sort (skipped when order is null: one slot), then the
-// histogram.  slots: 3 * S + 1 zeroed uint64 — counts, offsets, cursor.
-template <bool NIBBLE>
-static int launch_grouped(const void* codes, const void* g, const void* h,
-                          const void* node, void* order, void* slots,
-                          void* out, long long n, int F, int row_bytes, int K,
-                          int NN, int NB, int FT, int row, int n_ftiles,
-                          int blocks, long long per_block, int sort_blocks,
-                          long long sort_chunk, void* stream) {
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+// Add the block's flat bins of one slot (the output's own [field][bin][2]
+// layout) into the output with global float atomics: non-zero words only,
+// consecutive threads on consecutive words; and zero them for the next slot.
+__device__ __forceinline__ void flush_flat(float* bins,
+                                           float* __restrict__ out_slot,
+                                           int words) {
+    for (int i = threadIdx.x; i < words; i += blockDim.x) {
+        const float v = bins[i];
+        if (v != 0.f) atomicAdd(out_slot + i, v);
+        bins[i] = 0.f;
+    }
+}
+
+template <bool WORDS>
+__global__ void __launch_bounds__(GROUPED_THREADS, GROUPED_BLOCKS_PER_SM)
+hist_naive_kernel(const uint8_t* __restrict__ codes,
+                  const float* __restrict__ g, const float* __restrict__ h,
+                  const int32_t* __restrict__ node,
+                  const int32_t* __restrict__ order,
+                  const unsigned long long* __restrict__ offsets,
+                  float* __restrict__ out, long long n, int F, int NN, int S,
+                  int NB, int FT, long long per_block) {
+    extern __shared__ float bins[];      // [ft][NB][2], the output's layout
+    const int f0 = blockIdx.y * FT;
+    const int ft = min(FT, F - f0);
+    const int words = 2 * ft * NB;
+    for_each_slot(order, offsets, n, S, per_block, bins, words,
+                  [&](int s, long long a, long long e) {
+        const long long kn = static_cast<long long>(s / NN) * n;
+        add_rows<WORDS>(bins, codes, g + kn, h + kn, node, order, a, e, F,
+                        f0, ft, NB);
+        __syncthreads();
+        flush_flat(bins, out + (static_cast<long long>(s) * F + f0) * NB * 2,
+                   words);
+        __syncthreads();
+    });
+}
+
+// -- launches ----------------------------------------------------------------
+
+// The counting sort of the (class, record) pairs by slot into ord.  counts:
+// 3 * K * NN + 1 zeroed uint64 — counts, offsets (the exclusive scan, its
+// last entry the total), cursor.
+static cudaError_t sort_by_slot(const int32_t* nodes, int32_t* ord,
+                                unsigned long long* counts, long long n,
+                                int K, int NN, int sort_blocks,
+                                long long sort_chunk, cudaStream_t st) {
     const int S = K * NN;
-    auto* counts = static_cast<unsigned long long*>(slots);
-    const int32_t* nodes = static_cast<const int32_t*>(node);
-    int32_t* ord = static_cast<int32_t*>(order);
-    cudaError_t err;
-    if (ord != nullptr) {
-        const int sort_smem = NN * SORT_NODE_BYTES;
-        err = cudaFuncSetAttribute(slot_sort_kernel<false>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   sort_smem);
-        if (err == cudaSuccess)
-            err = cudaFuncSetAttribute(
-                slot_sort_kernel<true>,
-                cudaFuncAttributeMaxDynamicSharedMemorySize, sort_smem);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        const dim3 grid(sort_blocks, K);
-        slot_sort_kernel<false><<<grid, SORT_THREADS, sort_smem, st>>>(
-            nodes, n, NN, sort_chunk, counts, nullptr);
-        slot_scan_kernel<<<1, SCAN_THREADS, 0, st>>>(
-            counts, counts + S, counts + 2 * S + 1, S);
-        slot_sort_kernel<true><<<grid, SORT_THREADS, sort_smem, st>>>(
-            nodes, n, NN, sort_chunk, counts + 2 * S + 1, ord);
-        err = cudaGetLastError();
+    const int sort_smem = NN * SORT_NODE_BYTES;
+    cudaError_t err = cudaFuncSetAttribute(
+        slot_sort_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        sort_smem);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            slot_sort_kernel<true>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, sort_smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(sort_blocks, K);
+    slot_sort_kernel<false><<<grid, SORT_THREADS, sort_smem, st>>>(
+        nodes, n, NN, sort_chunk, counts, nullptr);
+    slot_scan_kernel<<<1, SCAN_THREADS, 0, st>>>(
+        counts, counts + S, counts + 2 * S + 1, S);
+    slot_sort_kernel<true><<<grid, SORT_THREADS, sort_smem, st>>>(
+        nodes, n, NN, sort_chunk, counts + 2 * S + 1, ord);
+    return cudaGetLastError();
+}
+
+// The counting sort (skipped when order is null: one slot), then a
+// histogram kernel over blocks x n_ftiles blocks, each with 8 * NB * row
+// bytes of bins (row: the fields a block's bins are laid out for).
+// Returns the first CUDA error.
+template <typename Kernel, typename... Args>
+static int launch_sorted(Kernel kernel, const void* node, void* order,
+                         void* slots, long long n, int K, int NN, int NB,
+                         int row, int n_ftiles, int blocks, int sort_blocks,
+                         long long sort_chunk, void* stream, Args... args) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (order != nullptr) {
+        const cudaError_t err = sort_by_slot(
+            static_cast<const int32_t*>(node), static_cast<int32_t*>(order),
+            static_cast<unsigned long long*>(slots), n, K, NN, sort_blocks,
+            sort_chunk, st);
         if (err != cudaSuccess) return static_cast<int>(err);
     }
     const int smem = 2 * NB * row * static_cast<int>(sizeof(float));
-    err = cudaFuncSetAttribute(hist_grouped_kernel<NIBBLE>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    hist_grouped_kernel<NIBBLE><<<dim3(blocks, n_ftiles), GROUPED_THREADS,
-                                  smem, st>>>(
-        static_cast<const uint8_t*>(codes), static_cast<const float*>(g),
-        static_cast<const float*>(h), nodes, ord, counts + S,
-        static_cast<float*>(out), n, F, row_bytes, NN, S, NB, FT, row,
-        per_block);
+    kernel<<<dim3(blocks, n_ftiles), GROUPED_THREADS, smem, st>>>(args...);
     return static_cast<int>(cudaGetLastError());
 }
 
-// What sizes a grouped launch on ``device`` (kernels/histogram.py,
-// GroupedLimits): out[0..5] = the blocks an SM the grouped kernel's launch
-// bounds allow, the sort's shared bytes a node, then the card's SMs, shared
-// memory an SM, what the runtime keeps of it for every block, and the most
-// dynamic shared memory a block may opt into.
+// What sizes a launch of either histogram kernel on ``device``
+// (kernels/histogram.py, GroupedLimits): out[0..5] = the blocks an SM the
+// kernels' launch bounds allow, the sort's shared bytes a node, then the
+// card's SMs, shared memory an SM, what the runtime keeps of it for every
+// block, and the most dynamic shared memory a block may opt into.
 extern "C" int hist_grouped_limits(int device, int* out) {
     out[0] = GROUPED_BLOCKS_PER_SM;
     out[1] = SORT_NODE_BYTES;
@@ -490,48 +556,56 @@ extern "C" int hist_grouped_limits(int device, int* out) {
     return 0;
 }
 
-extern "C" int hist_grouped_launch(const void* codes, const void* g,
-                                   const void* h, const void* node,
-                                   void* order, void* slots, void* out,
-                                   long long n, int F, int K, int NN, int NB,
-                                   int FT, int row, int n_ftiles,
-                                   int blocks, long long per_block,
-                                   int sort_blocks, long long sort_chunk,
-                                   void* stream) {
+// The three entries take the same arguments: codes, g, h and node ids,
+// order (K * n int32, null with one slot), slots (3 * K * NN + 1 zeroed
+// uint64, null with one slot), the zeroed output, then the shapes and the
+// geometry of kernels/histogram.py's grouped_geometry.
+#define HIST_ENTRY_ARGS                                                     \
+    const void *codes, const void *g, const void *h, const void *node,      \
+        void *order, void *slots, void *out, long long n, int F, int K,     \
+        int NN, int NB, int FT, int row, int n_ftiles, int blocks,          \
+        long long per_block, int sort_blocks, long long sort_chunk,         \
+        void *stream
+
+template <bool NIBBLE>
+static int launch_grouped(HIST_ENTRY_ARGS) {
+    return launch_sorted(
+        hist_grouped_kernel<NIBBLE>, node, order, slots, n, K, NN, NB, row,
+        n_ftiles, blocks, sort_blocks, sort_chunk, stream,
+        static_cast<const uint8_t*>(codes), static_cast<const float*>(g),
+        static_cast<const float*>(h), static_cast<const int32_t*>(node),
+        static_cast<const int32_t*>(order),
+        static_cast<const unsigned long long*>(slots) + K * NN,
+        static_cast<float*>(out), n, F, NIBBLE ? (F + 1) / 2 : F, NN, K * NN,
+        NB, FT, row, per_block);
+}
+
+extern "C" int hist_grouped_launch(HIST_ENTRY_ARGS) {
     return launch_grouped<false>(codes, g, h, node, order, slots, out, n, F,
-                                 F, K, NN, NB, FT, row, n_ftiles, blocks,
+                                 K, NN, NB, FT, row, n_ftiles, blocks,
                                  per_block, sort_blocks, sort_chunk, stream);
 }
 
 // codes: the (n, ceil(F/2)) packed bytes of PackedCodes.data
-extern "C" int hist_nibble_launch(const void* codes, const void* g,
-                                  const void* h, const void* node,
-                                  void* order, void* slots, void* out,
-                                  long long n, int F, int K, int NN, int NB,
-                                  int FT, int row, int n_ftiles,
-                                  int blocks, long long per_block,
-                                  int sort_blocks, long long sort_chunk,
-                                  void* stream) {
+extern "C" int hist_nibble_launch(HIST_ENTRY_ARGS) {
     return launch_grouped<true>(codes, g, h, node, order, slots, out, n, F,
-                                (F + 1) / 2, K, NN, NB, FT, row, n_ftiles,
-                                blocks, per_block, sort_blocks, sort_chunk,
-                                stream);
+                                K, NN, NB, FT, row, n_ftiles, blocks,
+                                per_block, sort_blocks, sort_chunk, stream);
 }
 
-extern "C" int hist_naive_launch(const void* codes, const void* g,
-                                 const void* h, const void* node, void* out,
-                                 long long n, int F, int K, int NN, int NB,
-                                 int FT, int ST, int n_chunks,
-                                 long long chunk, int threads, void* stream) {
-    dim3 grid;
-    int smem, n_ftiles;
-    cudaError_t err = configure(hist_naive_kernel, F, K, NN, NB, FT, ST,
-                                n_chunks, &grid, &smem, &n_ftiles);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    hist_naive_kernel<<<grid, threads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(codes), static_cast<const float*>(g),
-        static_cast<const float*>(h), static_cast<const int32_t*>(node),
-        static_cast<float*>(out), n, F, K, NN, NB, FT, ST, n_ftiles, chunk);
-    return static_cast<int>(cudaGetLastError());
+// row == FT: the naive kernel's bins are the tile's fields, unpadded.  Rows
+// are read as words where every tile starts on a multiple of 4 bytes.
+extern "C" int hist_naive_launch(HIST_ENTRY_ARGS) {
+    const bool words = F % 4 == 0 && FT % 4 == 0
+                       && reinterpret_cast<uintptr_t>(codes) % 4 == 0;
+    auto* kernel =
+        words ? &hist_naive_kernel<true> : &hist_naive_kernel<false>;
+    return launch_sorted(
+        kernel, node, order, slots, n, K, NN, NB, row, n_ftiles, blocks,
+        sort_blocks, sort_chunk, stream, static_cast<const uint8_t*>(codes),
+        static_cast<const float*>(g), static_cast<const float*>(h),
+        static_cast<const int32_t*>(node),
+        static_cast<const int32_t*>(order),
+        static_cast<const unsigned long long*>(slots) + K * NN,
+        static_cast<float*>(out), n, F, NN, K * NN, NB, FT, per_block);
 }

@@ -23,9 +23,10 @@ only for dyadic g, h.
     (:func:`grouped_geometry` sizes it).  Given ``PackedCodes`` it launches
     the same body reading nibbles (counted as ``histogram_nibble``).
   * :func:`histogram_naive_cuda` — the naive-packing twin on uint8 codes:
-    (slot, field) tiles (:func:`tile_shape`), each thread adding a record's
-    tile fields one after another.  It serves ``hist_strategy="cuda_packed"``
-    and is never the default.
+    the same sort and schedule, but a block's bins are one slot's flat
+    [field][bin][2] array and each thread adds a whole record's fields one
+    after another (``grouped_geometry(..., naive=True)`` sizes it).  It
+    serves ``hist_strategy="cuda_packed"`` and is never the default.
 """
 from __future__ import annotations
 
@@ -40,25 +41,21 @@ from repro_torch.core.binning import PackedCodes, as_unpacked
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import histogram_ref
 
-# The naive-packing twin's (slot, field) tiles
-SMEM_BUDGET = 192 * 1024     # dynamic shared memory for one block's bins
-THREADS = 512
-MIN_CHUNK = 4096             # records (grouped: positions) a block at least
-BLOCKS_PER_SM = 2
-
-# The grouped kernel's grid and its counting sort's (the rest of what sizes
-# them is read from the built kernel and the card: GroupedLimits)
+# The histogram kernels' grid and their counting sort's (the rest of what
+# sizes them is read from the built kernel and the card: GroupedLimits)
+MIN_CHUNK = 4096             # sorted positions a block takes at the least
 MIN_GROUPED_BLOCKS_PER_SM = 2   # shared memory for two blocks' bins an SM
 SORT_BLOCKS_PER_SM = 4
 SORT_MIN_CHUNK = 8192        # records a sort block takes at the least
 
 
 class GroupedLimits(NamedTuple):
-    """What sizes a grouped launch on one card (:func:`grouped_limits`):
-    the blocks an SM that the kernel's launch bounds allow and the counting
-    sort's shared bytes a node, both fixed in ``csrc/histogram.cu``; then
-    the card's SMs, shared memory an SM, what the runtime keeps of it for
-    every block, and the most a block may opt into."""
+    """What sizes a launch of either histogram kernel on one card
+    (:func:`grouped_limits`): the blocks an SM that the kernels' launch
+    bounds allow and the counting sort's shared bytes a node, both fixed in
+    ``csrc/histogram.cu``; then the card's SMs, shared memory an SM, what
+    the runtime keeps of it for every block, and the most a block may opt
+    into."""
     blocks_per_sm: int
     sort_node_bytes: int
     sms: int
@@ -80,11 +77,11 @@ class GroupedLimits(NamedTuple):
 
 
 class GroupedGeometry(NamedTuple):
-    """One launch of the grouped kernel: blocks x field tiles, each block
+    """One launch of a histogram kernel: blocks x field tiles, each block
     adding ``per_block`` positions of the sorted list into ``field_tile``
-    fields' bins (a bin's fields ``row`` words apart, g then h: ``smem``
-    bytes); the counting sort runs ``sort_blocks`` blocks of ``sort_chunk``
-    records a class (none with one slot)."""
+    fields' bins, laid out for ``row`` fields (``smem`` = 8·NB·row bytes);
+    the counting sort runs ``sort_blocks`` blocks of ``sort_chunk`` records
+    a class (none with one slot)."""
     field_tile: int
     n_ftiles: int
     row: int
@@ -93,15 +90,6 @@ class GroupedGeometry(NamedTuple):
     per_block: int
     sort_blocks: int
     sort_chunk: int
-
-
-def tile_shape(n_slots: int, n_fields: int, n_bins: int):
-    """(slot tile, field tile): as many (slot, field) bin arrays as fit
-    the shared-memory budget, slots first."""
-    pairs = max(1, SMEM_BUDGET // (n_bins * 2 * 4))
-    st = min(n_slots, pairs)
-    ft = min(n_fields, max(1, pairs // st))
-    return st, ft
 
 
 @functools.lru_cache(maxsize=None)
@@ -115,7 +103,7 @@ def _limits(index: int) -> GroupedLimits:
 
 
 def grouped_limits(device) -> GroupedLimits:
-    """The grouped kernel's :class:`GroupedLimits` on a CUDA device, read
+    """The histogram kernels' :class:`GroupedLimits` on a CUDA device, read
     from the built kernel and the card."""
     device = torch.device(device)
     return _limits(torch.cuda.current_device() if device.index is None
@@ -123,20 +111,25 @@ def grouped_limits(device) -> GroupedLimits:
 
 
 def grouped_geometry(n: int, n_classes: int, n_nodes: int, n_fields: int,
-                     n_bins: int, limits: GroupedLimits) -> GroupedGeometry:
-    """The grouped kernel's launch for n records of ``n_classes`` classes.
+                     n_bins: int, limits: GroupedLimits,
+                     naive: bool = False) -> GroupedGeometry:
+    """The launch of the grouped kernel, or with ``naive`` of the
+    naive-packing kernel, for n records of ``n_classes`` classes.
 
-    The bins are [bin][field] with the fields of a tile padded to a
-    multiple of 32 (``row``), so the lane of field f always adds into bank
-    f mod 32; twice (g and h).  A block takes the fewest equal field tiles
-    whose bins fit ``limits.budget``.  Blocks fill the card once (as many
-    as are resident at once, split over the field tiles), each taking an
-    equal share of the K·n sorted positions.
+    The grouped kernel's bins are [bin][field] with the fields of a tile
+    padded to a multiple of 32 (``row``), so the lane of field f always adds
+    into bank f mod 32; twice (g and h).  The naive kernel's are the
+    output's flat [field][bin][2], unpadded (``row`` = the field tile).  A
+    block takes the fewest equal field tiles whose bins fit
+    ``limits.budget``.  Blocks fill the card once (as many as are resident
+    at once, split over the field tiles), each taking an equal share of the
+    K·n sorted positions.
     """
+    pad = 1 if naive else 32
     n_ftiles = 1
     while True:
         field_tile = math.ceil(n_fields / n_ftiles)
-        row = 32 * math.ceil(field_tile / 32)
+        row = pad * math.ceil(field_tile / pad)
         smem = 8 * n_bins * row
         if smem <= limits.budget or field_tile == 1:
             break
@@ -190,7 +183,8 @@ def histogram_naive_cuda(codes: torch.Tensor, g: torch.Tensor,
     by the naive-packing kernel (the Fig. 9 ablation twin)."""
     if isinstance(codes, PackedCodes):
         raise ValueError("histogram_naive: codes must be unpacked uint8")
-    return _launch_naive(codes, g, h, node_ids, n_nodes, n_bins)
+    return _launch_grouped("hist_naive_launch", "histogram_naive", codes, g,
+                           h, node_ids, n_nodes, n_bins, naive=True)
 
 
 def _prepare(counter: str, codes, g, h, node_ids, n_nodes: int,
@@ -230,9 +224,10 @@ def _prepare(counter: str, codes, g, h, node_ids, n_nodes: int,
 
 
 def _launch_grouped(symbol: str, counter: str, codes, g, h, node_ids,
-                    n_nodes: int, n_bins: int) -> torch.Tensor:
-    """The grouped kernel (uint8 or nibble entry): counting sort by slot,
-    then the histogram."""
+                    n_nodes: int, n_bins: int,
+                    naive: bool = False) -> torch.Tensor:
+    """The grouped kernel (uint8 or nibble entry) or, with ``naive``, the
+    naive-packing kernel: counting sort by slot, then the histogram."""
     if codes.device.type == "cpu":
         return histogram_plain(codes, g, h, node_ids, n_nodes, n_bins)
     data, n, F, K, out = _prepare(counter, codes, g, h, node_ids, n_nodes,
@@ -243,7 +238,7 @@ def _launch_grouped(symbol: str, counter: str, codes, g, h, node_ids,
                          f"{n_nodes} nodes (at most {limits.max_sort_nodes})")
     if n == 0 or F == 0:
         return out
-    geo = grouped_geometry(n, K, n_nodes, F, n_bins, limits)
+    geo = grouped_geometry(n, K, n_nodes, F, n_bins, limits, naive)
     order = slots = None
     if K * n_nodes > 1:
         order = torch.empty(K * n, dtype=torch.int32, device=data.device)
@@ -259,34 +254,6 @@ def _launch_grouped(symbol: str, counter: str, codes, g, h, node_ids,
              F, K, n_nodes, n_bins, geo.field_tile, geo.row, geo.n_ftiles,
              geo.blocks, geo.per_block, geo.sort_blocks, geo.sort_chunk,
              torch.cuda.current_stream(data.device).cuda_stream)
-    _build.check("histogram", err, counter)
-    _build.count(counter)
-    return out
-
-
-def _launch_naive(codes, g, h, node_ids, n_nodes: int,
-                  n_bins: int) -> torch.Tensor:
-    """The naive-packing twin over (slot, field) tiles."""
-    counter = "histogram_naive"
-    if codes.device.type == "cpu":
-        return histogram_plain(codes, g, h, node_ids, n_nodes, n_bins)
-    codes, n, F, K, out = _prepare(counter, codes, g, h, node_ids, n_nodes,
-                                   n_bins)
-    if n == 0 or F == 0:
-        return out
-    st, ft = tile_shape(K * n_nodes, F, n_bins)
-    tiles = math.ceil(K * n_nodes / st) * math.ceil(F / ft)
-    sms = torch.cuda.get_device_properties(codes.device).multi_processor_count
-    n_chunks = max(1, min(math.ceil(n / MIN_CHUNK),
-                          math.ceil(BLOCKS_PER_SM * sms / tiles), 65535))
-    chunk = math.ceil(n / n_chunks)
-    P, I, I64 = _build.POINTER, _build.INT, _build.INT64
-    fn = _build.function("histogram", "hist_naive_launch",
-                         [P, P, P, P, P, I64, I, I, I, I, I, I, I, I64, I, P])
-    err = fn(codes.data_ptr(), g.data_ptr(), h.data_ptr(),
-             node_ids.data_ptr(), out.data_ptr(), n, F, K, n_nodes, n_bins,
-             ft, st, n_chunks, chunk, THREADS,
-             torch.cuda.current_stream(codes.device).cuda_stream)
     _build.check("histogram", err, counter)
     _build.count(counter)
     return out

@@ -54,17 +54,33 @@ def _layout(layout, n, F, NB, NN, shape, rng):
     """Codes and node ids of one test layout: ``random`` (10 % missing,
     nodes uniform), ``two`` (every code on bins 0-1, as two-category fields
     put them: many records of one code, merged before they are added),
-    ``one_slot`` (every record in the last node, the others empty) or
-    ``sparse`` (even nodes only: every other slot empty)."""
+    ``one_slot`` (every record in the last node, the others empty),
+    ``sparse`` (even nodes only: every other slot empty) or ``outside``
+    (codes on all 256 byte values and node ids in [-1, NN]: the kernels
+    skip codes >= NB and nodes outside [0, NN))."""
     codes = _codes(n, F, NB, rng)
     if layout == "two":
         codes = rng.integers(0, 2, (n, F)).astype(np.uint8)
+    elif layout == "outside":
+        codes = rng.integers(0, 256, (n, F)).astype(np.uint8)
     nid = rng.integers(0, NN, shape).astype(np.int32)
     if layout == "one_slot":
         nid[:] = NN - 1
     elif layout == "sparse":
         nid -= nid % 2
+    elif layout == "outside":
+        nid = rng.integers(-1, NN + 1, shape).astype(np.int32)
     return codes, nid
+
+
+def _plain_in_range(codes, g, h, nid, NN, NB):
+    """The plain histogram of the records of a node in [0, NN) and of the
+    codes < NB, which is what the kernels add (the plain version itself
+    takes only those)."""
+    ok = (nid >= 0) & (nid < NN)
+    return hist_k.histogram_plain(
+        codes, torch.where(ok, g, 0.0), torch.where(ok, h, 0.0),
+        torch.where(ok, nid, 0), NN, 256)[..., :NB, :]
 
 
 @pytest.mark.parametrize("n,F,NB,NN,layout", [
@@ -129,9 +145,11 @@ def _dyadic_stats(K, n, NN, rng, cuda):
 
 @pytest.mark.parametrize("n,F,NN,K", [
     (777, 13, 4, 1),
-    # 512 slots of 16 bins leave 3 fields a tile: tiles start at fields 3
-    # and 9, inside a packed byte
+    # 512 slots of 16 bins
     (1001, 9, 512, 1),
+    # 1001 fields of 16 bins pass the budget: two tiles of 501, the second
+    # starting at field 501, inside a packed byte
+    (301, 1001, 1, 1),
     # the IoT shape's fields: F odd, one pad nibble a record
     (3001, 115, 32, 1),
     (3001, 54, 32, 7), (500, 5, 3, 3),
@@ -143,8 +161,9 @@ def test_nibble_histogram_kernel_matches_plain(cuda, n, F, NN, K):
     packed = PackedCodes.pack(codes)
     assert packed.data.shape == (n, (F + 1) // 2)
     g, h, nid = _dyadic_stats(K, n, NN, rng, cuda)
-    _, ft = hist_k.tile_shape(K * NN, F, 16)
-    assert NN != 512 or ft % 2 == 1
+    geo = hist_k.grouped_geometry(n, K, NN, F, 16,
+                                  hist_k.grouped_limits(cuda))
+    assert F != 1001 or (geo.n_ftiles, geo.field_tile) == (2, 501)
     before = _build.launch_counts()
     got = hist_k.histogram_cuda(packed, g, h, nid, n_nodes=NN, n_bins=16)
     after = _build.launch_counts()
@@ -156,20 +175,60 @@ def test_nibble_histogram_kernel_matches_plain(cuda, n, F, NN, K):
                                                   n_nodes=NN, n_bins=16))
 
 
-@pytest.mark.parametrize("n,F,NB,NN,K", [
-    (777, 13, 16, 4, 1), (5000, 28, 256, 32, 1), (5000, 28, 256, 1, 1),
-    (3001, 54, 256, 32, 7), (1000, 5, 16, 2, 3)])
-def test_naive_histogram_kernel_matches_plain(cuda, n, F, NB, NN, K):
+@pytest.mark.parametrize("n,F,NB,NN,K,layout", [
+    (777, 13, 16, 4, 1, "random"), (5000, 28, 256, 32, 1, "random"),
+    (3001, 54, 256, 32, 7, "random"), (1000, 5, 16, 2, 3, "random"),
+    # one slot (K * NN = 1): no sort, the list is the records
+    (5000, 28, 256, 1, 1, "random"), (3000, 28, 256, 1, 1, "two"),
+    # many blocks, shares crossing slot boundaries; empty slots
+    (200_000, 28, 256, 32, 1, "random"), (200_000, 28, 256, 64, 1, "sparse"),
+    (4000, 28, 256, 32, 1, "one_slot"),
+    # node ids outside [0, NN) and codes >= NB are skipped, sorted or not
+    (5000, 28, 200, 32, 1, "outside"), (3000, 28, 200, 1, 1, "outside"),
+    (2000, 54, 200, 8, 3, "outside"),
+    # rows read byte by byte (F % 4 != 0); IoT's 115 fields, unpacked
+    (3001, 54, 256, 16, 1, "random"), (2001, 115, 16, 32, 1, "random"),
+    # 115 fields of 256 bins: three tiles of 39 (bytes); 120: three of 40
+    # (words)
+    (3000, 115, 256, 8, 1, "random"), (2000, 120, 256, 4, 1, "random"),
+    # Covertype's collision case: two-category codes, K = 7
+    (5000, 54, 256, 32, 7, "two"), (5000, 54, 256, 1, 7, "two"),
+    (100_000, 54, 256, 32, 7, "random"),
+    # codes that start off a 4-byte boundary are read byte by byte
+    (3000, 28, 256, 8, 1, "off_word")])
+def test_naive_histogram_kernel_matches_plain(cuda, n, F, NB, NN, K, layout):
     rng = np.random.default_rng(n + NN + K)
-    codes = torch.from_numpy(_codes(n, F, NB, rng)).to(cuda)
-    g, h, nid = _dyadic_stats(K, n, NN, rng, cuda)
+    shape = (n,) if K == 1 else (K, n)
+    codes, nid = _layout(layout, n, F, NB, NN, shape, rng)
+    codes, nid = torch.from_numpy(codes).to(cuda), torch.from_numpy(nid).to(cuda)
+    if layout == "off_word":
+        flat = torch.empty(n * F + 1, dtype=torch.uint8, device=cuda)
+        codes = flat[1:].view(n, F).copy_(codes)
+        assert codes.data_ptr() % 4 == 1 and codes.is_contiguous()
+    g = torch.from_numpy(rng.integers(-64, 64, shape) / 64).float().to(cuda)
+    h = torch.from_numpy(rng.integers(1, 64, shape) / 64).float().to(cuda)
     before = _build.launch_counts()["histogram_naive"]
     got = hist_k.histogram_naive_cuda(codes, g, h, nid, n_nodes=NN,
                                       n_bins=NB)
     assert _build.launch_counts()["histogram_naive"] == before + 1
-    assert torch.equal(got, hist_k.histogram_plain(codes, g, h, nid, NN, NB))
+    assert got.shape == shape[:-1] + (NN, F, NB, 2)
+    assert torch.equal(got, _plain_in_range(codes, g, h, nid, NN, NB))
     assert torch.equal(got, hist_k.histogram_cuda(codes, g, h, nid,
                                                   n_nodes=NN, n_bins=NB))
+
+
+def test_naive_histogram_refuses_more_nodes_than_the_sort_holds(cuda):
+    """The counting sort holds max_sort_nodes counters a class: the naive
+    kernel refuses more nodes, as the grouped kernel does."""
+    limit = hist_k.grouped_limits(cuda).max_sort_nodes
+    codes = torch.zeros((64, 3), dtype=torch.uint8, device=cuda)
+    g = torch.ones(64, device=cuda)
+    nid = torch.zeros(64, dtype=torch.int32, device=cuda)
+    before = _build.launch_counts()
+    for fn in (hist_k.histogram_naive_cuda, hist_k.histogram_cuda):
+        with pytest.raises(ValueError, match=f"at most {limit}"):
+            fn(codes, g, g, nid, n_nodes=limit + 1, n_bins=4)
+    assert _build.launch_counts() == before
 
 
 @pytest.mark.parametrize("n,K,nn", [(3001, 1, 16), (3001, 7, 32),

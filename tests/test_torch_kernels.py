@@ -86,19 +86,6 @@ def test_histogram_wrapper_takes_plain_version_on_cpu():
     assert _build.launch_counts()["histogram"] == 0
 
 
-@pytest.mark.parametrize("n_nodes,n_fields,n_bins", [
-    (1, 28, 256), (32, 28, 256), (512, 28, 256), (4, 9, 16), (1, 1, 2),
-    # the naive twin's class-batched slots (K x NN): 7 x 32 and 3 x 512
-    # slots of 256 bins pass the budget, 3 x 4 of 16 bins do not
-    (7 * 32, 54, 256), (3 * 512, 3, 256), (3 * 4, 5, 16), (96, 1, 256)])
-def test_histogram_tiles_fit_shared_memory(n_nodes, n_fields, n_bins):
-    nt, ft = hist_k.tile_shape(n_nodes, n_fields, n_bins)
-    assert 1 <= nt <= n_nodes and 1 <= ft <= n_fields
-    assert nt * ft * n_bins * 2 * 4 <= hist_k.SMEM_BUDGET
-    # slots are tiled exactly when one field's bins of every slot do not fit
-    assert (nt < n_nodes) == (n_nodes * n_bins * 8 > hist_k.SMEM_BUDGET)
-
-
 # What csrc/histogram.cu's launch bounds and an H100 SXM give
 # (hist_grouped_limits): 3 blocks an SM, 12 sort bytes a node, 132 SMs,
 # 228 KB an SM, 1 KB of it kept a block, 227 KB a block at most.
@@ -164,6 +151,56 @@ def test_grouped_geometry_at_the_paths_shapes():
     assert cover.blocks == 3 * 132 // 2
     assert (iot.n_ftiles, iot.row, iot.smem) == (1, 128, 16384)
     assert (wide.n_ftiles, wide.field_tile) == (4, 29)
+
+
+def _check_naive_geometry(n, K, NN, F, NB, limits):
+    """The naive kernel's launch: flat [field][bin][2] bins of the tile's
+    fields, unpadded, within the budget; field tiles only where one slot's
+    bins of every field pass it; shares covering the K·n sorted positions
+    in one wave; the sort as the grouped kernel's."""
+    geo = hist_k.grouped_geometry(n, K, NN, F, NB, limits, naive=True)
+    assert geo.row == geo.field_tile
+    assert geo.smem == 8 * NB * geo.field_tile
+    assert geo.smem <= limits.budget or geo.field_tile == 1
+    assert (geo.n_ftiles == 1) == (8 * NB * F <= limits.budget)
+    assert (geo.n_ftiles - 1) * geo.field_tile < F <= \
+        geo.n_ftiles * geo.field_tile
+    assert geo.blocks * geo.per_block >= K * n
+    assert (geo.blocks - 1) * geo.per_block < K * n
+    assert geo.blocks * geo.n_ftiles <= limits.blocks_per_sm * limits.sms
+    grouped = hist_k.grouped_geometry(n, K, NN, F, NB, limits)
+    assert (geo.sort_blocks, geo.sort_chunk) == (grouped.sort_blocks,
+                                                 grouped.sort_chunk)
+    return geo
+
+
+@pytest.mark.parametrize("n,K,NN,F,NB", [
+    (10_000_000, 1, 1, 28, 256), (10_000_000, 1, 32, 28, 256),
+    (3000, 1, 512, 28, 256), (777, 1, 4, 9, 16), (1, 1, 1, 1, 2),
+    # class-batched slots (K x NN): 7 x 32 and 3 x 512 of 256 bins, 3 x 4
+    # of 16 bins, 3 x 32 of one field
+    (581_012, 7, 32, 54, 256), (3000, 3, 512, 3, 256), (3000, 3, 4, 5, 16),
+    (3000, 3, 32, 1, 256),
+    # K = 7 at 54 fields: one tile; 115 fields of 256 bins: three
+    (581_012, 7, 1, 54, 256), (3000, 1, 8, 115, 256)])
+def test_naive_geometry_fits_shared_memory(n, K, NN, F, NB):
+    _check_naive_geometry(n, K, NN, F, NB, H100)
+
+
+def test_naive_geometry_at_the_paths_shapes():
+    """Higgs's 28 fields of 256 bins are one tile of 57,344 B (three blocks
+    an SM, one wave); Covertype's 54 one tile of 110,592 B (two an SM); 115
+    fields of 256 bins pass the 115,712 B budget, so three tiles of 39; the
+    IoT shape's 115 fields of 16 bins, unpacked, one tile."""
+    higgs = _check_naive_geometry(10_000_000, 1, 32, 28, 256, H100)
+    cover = _check_naive_geometry(581_012, 7, 32, 54, 256, H100)
+    wide = _check_naive_geometry(3000, 1, 8, 115, 256, H100)
+    iot = _check_naive_geometry(2_000_000, 1, 32, 115, 16, H100)
+    assert (higgs.n_ftiles, higgs.smem, higgs.blocks) == (1, 57_344, 3 * 132)
+    assert (cover.n_ftiles, cover.smem, cover.blocks) == (1, 110_592, 2 * 132)
+    assert H100.budget == 115_712
+    assert (wide.n_ftiles, wide.field_tile, wide.smem) == (3, 39, 79_872)
+    assert (iot.n_ftiles, iot.smem) == (1, 14_720)
 
 
 H100_ENSEMBLE = trav_k.EnsembleLimits(threads=256, per_thread=2,

@@ -141,12 +141,24 @@ def test_class_batched_histogram_matches_jax(n, F, NB, NN, K):
 
 @pytest.mark.parametrize("K,NN,F,NB", [(7, 32, 54, 256), (3, 64, 10, 128),
                                        (1, 32, 28, 256), (2, 3000, 2, 256)])
-def test_class_slot_tiles_fit_shared_memory(K, NN, F, NB):
-    st, ft = hist_k.tile_shape(K * NN, F, NB)
-    assert 1 <= st <= K * NN and 1 <= ft <= F
-    assert st * ft * NB * 2 * 4 <= hist_k.SMEM_BUDGET
-    if K * NN * NB * 8 > hist_k.SMEM_BUDGET:
-        assert st < K * NN                         # slots must be tiled
+def test_class_slot_naive_geometry(K, NN, F, NB):
+    """The naive-packing kernel takes the class-major K·NN slots as the
+    grouped kernel does: one slot's bins at a time, whatever K·NN, so its
+    shared memory holds one slot's fields and K only lengthens the sorted
+    list that the blocks share."""
+    # what csrc/histogram.cu's launch bounds and an H100 SXM give
+    limits = hist_k.GroupedLimits(blocks_per_sm=3, sort_node_bytes=12,
+                                  sms=132, sm_shared=233_472,
+                                  block_reserved=1_024, block_shared=232_448)
+    n = 581_012
+    geo = hist_k.grouped_geometry(n, K, NN, F, NB, limits, naive=True)
+    one = hist_k.grouped_geometry(n, 1, 1, F, NB, limits, naive=True)
+    assert geo.smem == one.smem == 8 * NB * geo.field_tile <= limits.budget
+    assert (geo.field_tile, geo.n_ftiles) == (one.field_tile, one.n_ftiles)
+    assert geo.blocks * geo.per_block >= K * n > \
+        (geo.blocks - 1) * geo.per_block
+    assert NN <= limits.max_sort_nodes
+    assert geo.sort_blocks * geo.sort_chunk >= n
 
 
 # -- step ③ ----------------------------------------------------------------
