@@ -82,6 +82,33 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    replay gates of phase 3; then the device time of one round's step ⑤.
 4. Where the time of one boosting round goes (``torch.profiler``), for
    each of the three paths.
+5. The serving path at the Higgs-shaped cell's width (28 fields, 256
+   bins, depth 6, ``binary:logistic``; ``paper_dataset("higgs")``, 1,000,000
+   training records and 100,000 held out for requests):
+   ``BoosterClassifier(n_trees=8).fit``, ``save`` and
+   ``BoosterClassifier.load``; a warm start of 8 more trees from the bundle,
+   whose replayed margins must equal v1's direct ``predict_margin`` bit for
+   bit, whose first 8 trees must be v1's and whose loss must fall every
+   round (whether a 16-tree fit in one go is bit-equal is printed, not
+   gated: the card's atomics add in no fixed order); then
+   ``ModelRegistry.publish`` of v1, a ``Server(max_batch=4096)`` warmed over
+   ``warmup_buckets(4096)`` (one CUDA graph per bucket), and 256 requests
+   (sizes log-uniform over 1-4096 rows, slack 0-5 ms) from 4 client
+   threads while ``publish`` hot-swaps v2.  The fits must have launched
+   the histogram and the partition once a level and tree, and the
+   traversal once a round and replayed round, and no other kernel entry.
+   Every answer must equal the direct predict of its own rows by the
+   version that served it, bit for bit, and the plain version's on the
+   card (``traversal_strategy="reference"``) too; each bucket's graph, for
+   both versions, must equal the plain version bit for bit; captures
+   happen only in the warm-up and in ``publish``, and no kernel launches
+   while serving but those captures' (a replay launches nothing through a
+   wrapper); graph replays equal flushes (plus publish's warm-up); nothing
+   is dropped.  Then the same requests again at slack 0 (each flushed at
+   once) with v2 live: no capture, answers bit-equal to v2's direct
+   predict.  The request latency (p50, p99) of both runs and each bucket's
+   replay time against the direct eager call go into the ``ensemble`` row
+   (``serve_*``), with the card's name and power limit.
 
 The last two lines of standard output are JSON: the kernel table, then
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -116,6 +143,10 @@ MC_ROUNDS_TIMED = 72             # 504 trees in the timed ensemble
 # in full, cut to 2 M (+10 % held out) to bound the host's quantile fit
 IOT_RECORDS, IOT_FIELDS, IOT_BINS = 2_000_000, 115, 16
 NAIVE_TREES = 2                  # trees of the cuda_packed fit (phase 3a)
+# phase 5, the serving path: a Higgs-shaped model served to raw requests
+SERVE_RECORDS, SERVE_HELD_OUT = 1_000_000, 100_000
+SERVE_TREES, SERVE_BATCH = 8, 4096
+SERVE_REQUESTS, SERVE_CLIENTS = 256, 4
 WIDE_RECORDS = 20_000            # records of the wide ensemble entry's row
 
 
@@ -190,7 +221,9 @@ def bound(n_bytes: float, n_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def environment(build) -> None:
+def environment(build) -> str:
+    """Log the card, the versions and the build; returns the card's name
+    and power limit as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -213,6 +246,7 @@ def environment(build) -> None:
             for line in log_file.read_text().splitlines():
                 if "Used" in line or "Compiling entry" in line:
                     log("  ptxas " + line.strip())
+    return smi
 
 
 def random_trees(T: int, F: int, gen, dev):
@@ -1361,6 +1395,304 @@ def mc_main_path(n: int, n_rounds: int, seed: int, dev):
     return counts, steady_ms, (config, data, y_tr)
 
 
+def _host_ms(fn, reps: int = 20) -> float:
+    """Median host-clock time of ``fn`` with a sync on each side (after a
+    warm-up): what a caller waits for one call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def serving_path(seed: int, dev, smi: str) -> dict:
+    """Phase 5: the serving path through the entry points a user calls.
+    Returns the ``serve_*`` keys of the ensemble row."""
+    import shutil
+    import threading
+
+    import numpy as np
+
+    from repro_torch.api import (BoosterClassifier, ExecutionPlan,
+                                 ModelRegistry, Server, warmup_buckets)
+    from repro_torch.core import gbdt as gbdt_mod
+    from repro_torch.core import inference
+    from repro_torch.data import paper_dataset
+    from repro_torch.kernels import _build
+
+    n, n_req = SERVE_RECORDS, SERVE_HELD_OUT
+    t_phase = t0 = time.perf_counter()
+    X, y, _, spec = paper_dataset("higgs", n_override=n + n_req, seed=seed)
+    X_tr, y_tr, X_req = X[:n], y[:n], X[n:].astype(np.float32)
+    log(f"serve data: {spec.name} n={n} requests drawn from {n_req} "
+        f"held-out records  make {time.perf_counter() - t0:.3f} s")
+    kw = dict(max_depth=DEPTH, max_bins=N_BINS, learning_rate=0.1,
+              seed=seed)
+    bundles = ROOT / "build" / "smoke_bundles"
+    shutil.rmtree(bundles, ignore_errors=True)
+    _build.reset_launch_counts()
+    try:
+        # 1-2: fit, save, load
+        t0 = time.perf_counter()
+        v1 = BoosterClassifier(n_trees=SERVE_TREES, **kw).fit(X_tr, y_tr)
+        t1 = time.perf_counter()
+        path = str(bundles / "v1")
+        v1.save(path)
+        v1 = BoosterClassifier.load(path)
+        t2 = time.perf_counter()
+        log(f"serve fit {SERVE_TREES} trees {t1 - t0:.3f} s (Binner.fit "
+            f"included)  save + load {t2 - t1:.3f} s")
+        # 3: warm start of 8 more trees from the bundle; the margins it
+        # replays are recorded as train() computes them
+        replayed = []
+        replay = gbdt_mod._replay_margins
+
+        def recording(*args):
+            margins = replay(*args)
+            replayed.append(margins.clone())    # train adds into margins
+            return margins
+
+        gbdt_mod._replay_margins = recording
+        try:
+            t0 = time.perf_counter()
+            v2 = BoosterClassifier(n_trees=SERVE_TREES, **kw).fit(
+                X_tr, y_tr, xgb_model=path)
+            warm_s = time.perf_counter() - t0
+        finally:
+            gbdt_mod._replay_margins = replay
+        data = v1.binner_.transform(X_tr)
+        direct = v1.model_.predict_margin(data)
+        check(len(replayed) == 1 and torch.equal(replayed[0], direct),
+              "the warm start's replayed margins are bit-equal to v1's "
+              "direct predict_margin")
+        check(all(torch.equal(getattr(v2.model_.trees, f)[:SERVE_TREES],
+                              getattr(v1.model_.trees, f))
+                  for f in ("feature", "threshold", "is_cat",
+                            "default_left", "leaf_value")),
+              "the warm-started model's first 8 trees are v1's")
+        loss = v2.history_["train_loss"]
+        check(len(loss) == SERVE_TREES
+              and all(b < a for a, b in zip(loss, loss[1:])),
+              "the warm start's train loss falls every round")
+        # the same 16 rounds in one go, on the same codes (the binner is
+        # v1's), for information
+        one = gbdt_mod.train(gbdt_mod.GBDTConfig(
+            n_trees=2 * SERVE_TREES, max_depth=DEPTH, learning_rate=0.1,
+            objective="binary:logistic", seed=seed), data, y_tr).model
+        same = all(torch.equal(getattr(one.trees, f),
+                               getattr(v2.model_.trees, f))
+                   for f in ("feature", "leaf_value"))
+        log(f"serve warm start {SERVE_TREES} more trees {warm_s:.3f} s  "
+            f"train_loss {loss}  (for information, not a gate: a "
+            f"{2 * SERVE_TREES}-tree fit in one go on the same codes "
+            f"{'is' if same else 'is not'} bit-equal to it; the card's "
+            "histogram and leaf settling add with atomics in no fixed "
+            "order)")
+        del data, direct, replayed, one
+        counts = _build.launch_counts()
+        fit_trees = 4 * SERVE_TREES     # v1, the warm start, the one-go fit
+        others = ("histogram_nibble", "histogram_naive", "partition_nibble",
+                  "traversal_wide", "ensemble_wide")
+        check(counts["histogram"] == counts["partition"] == DEPTH * fit_trees
+              and counts["traversal"] == fit_trees + SERVE_TREES
+              and all(counts[k] == 0 for k in others),
+              f"the fits launched the histogram and the partition {DEPTH} x "
+              f"{fit_trees} times, the traversal {fit_trees} + "
+              f"{SERVE_TREES} replayed rounds, no other entry "
+              f"({json.dumps(counts)})")
+        path2 = str(bundles / "v2")
+        v2.save(path2)
+
+        # 4-5: publish v1, warm a server over every bucket a flush reaches
+        registry = ModelRegistry()
+        registry.publish("higgs", path)
+        p1 = registry.pipeline("higgs")
+        cache = registry.entry("higgs").cache
+        buckets = warmup_buckets(SERVE_BATCH)
+        check(buckets == [128, 256, 512, 1024, 2048, 4096],
+              "warmup_buckets(4096) is 128 ... 4096")
+        rng = np.random.default_rng(seed)
+        sizes = np.clip(np.exp(rng.uniform(0, np.log(SERVE_BATCH),
+                                           SERVE_REQUESTS)).astype(int),
+                        1, SERVE_BATCH)
+        starts = rng.integers(0, n_req - SERVE_BATCH, SERVE_REQUESTS)
+        slack = rng.uniform(0, 5, SERVE_REQUESTS)
+        answers = [None] * SERVE_REQUESTS
+        times = [None] * SERVE_REQUESTS           # (submitted, completed)
+        half = threading.Event()
+
+        def clients(srv, slack, answers, times):
+            """SERVE_CLIENTS threads send the requests, each waiting for its
+            answer before it sends the next; ``half`` is set halfway."""
+            done = [0]
+            lock = threading.Lock()
+
+            def client(c):
+                for i in range(c, SERVE_REQUESTS, SERVE_CLIENTS):
+                    rows = X_req[starts[i]:starts[i] + sizes[i]]
+                    sent = time.perf_counter()
+                    req = srv.submit("higgs", rows, slack_ms=slack[i])
+                    answers[i] = req.result(timeout=300)
+                    times[i] = (sent, time.perf_counter())
+                    with lock:
+                        done[0] += 1
+                        if done[0] == SERVE_REQUESTS // 2:
+                            half.set()
+
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(SERVE_CLIENTS)]
+            for t in threads:
+                t.start()
+            return threads
+
+        with Server(registry, max_batch=SERVE_BATCH) as srv:
+            launches0 = _build.launch_counts()
+            t0 = time.perf_counter()
+            warm = srv.warmup("higgs")
+            warm_s = time.perf_counter() - t0
+            launches1 = _build.launch_counts()
+            check(warm == len(buckets) == cache.stats()["traces"],
+                  "warm-up captured one graph per bucket")
+            before = cache.stats()
+
+            # 6: 256 requests from 4 client threads; v2 hot-swapped
+            # meanwhile
+            t0 = time.perf_counter()
+            threads = clients(srv, slack, answers, times)
+            half.wait(timeout=300)
+            swap_start = time.perf_counter()
+            traces0 = cache.stats()["traces"]
+            version = registry.publish("higgs", path2)
+            swap_end = time.perf_counter()
+            publish_captures = cache.stats()["traces"] - traces0
+            for t in threads:
+                t.join()
+            serve_s = time.perf_counter() - t0
+            launches2 = _build.launch_counts()
+            stats = srv.stats()["higgs"]
+            health = srv.health()
+            after = cache.stats()
+        p2 = registry.pipeline("higgs")
+        check(version == 2 and p2.model.n_trees == 2 * SERVE_TREES,
+              "publish hot-swapped v2")
+
+        # gates: each answer is the direct predict of its own rows by the
+        # version that served it, and its plain version's on the card;
+        # captures only in warm-up and publish
+        plain_plan = ExecutionPlan(traversal_strategy="reference")
+        served, worst = {1: 0, 2: 0}, 0.0
+        for i in range(SERVE_REQUESTS):
+            rows = X_req[starts[i]:starts[i] + sizes[i]]
+            got = torch.as_tensor(answers[i])
+            want = {v: p.predict(rows, mode="direct").cpu()
+                    for v, p in ((1, p1), (2, p2))}
+            match = [v for v in (1, 2) if torch.equal(got, want[v])]
+            check(bool(match), f"request {i} ({sizes[i]} rows) equals a "
+                  "version's direct predict bit for bit")
+            plain = (p1, p2)[match[0] - 1].predict(rows, mode="direct",
+                                                   plan=plain_plan).cpu()
+            check(torch.equal(got, plain), f"request {i} equals its "
+                  "version's plain predict on the card bit for bit")
+            if times[i][1] < swap_start:
+                check(1 in match, f"request {i}, done before publish, was "
+                      "served by v1")
+            if times[i][0] > swap_end:
+                check(2 in match, f"request {i}, sent after publish, was "
+                      "served by v2")
+            served[match[0]] += 1
+            worst = max(worst, min(float((got - want[v]).abs().max())
+                                   for v in match))
+        flushes = stats["flushes"]
+        replays = after["replays"] - before["replays"]
+        check(publish_captures == len(buckets)
+              and after["traces"] == before["traces"] + publish_captures,
+              "no capture while serving: only the warm-up's and publish's")
+        check(replays == flushes + len(buckets),
+              "one replay a flush (and one a bucket publish warmed)")
+        # a capture counts two launches (its eager first run and the
+        # captured one); a replay launches nothing through a wrapper
+        moved = [{k: b[k] - a[k] for k in a if b[k] != a[k]}
+                 for a, b in ((launches0, launches1),
+                              (launches1, launches2))]
+        check(moved == [{"ensemble": 2 * warm},
+                        {"ensemble": 2 * publish_captures}],
+              f"no launch while serving but the captures' ({moved})")
+        check(stats["requests"] == SERVE_REQUESTS and stats["dropped"] == 0
+              and stats["shed"] == 0 and stats["deadline_failures"] == 0
+              and health.failed_requests == 0,
+              "no request dropped or failed")
+        log(f"serve: {SERVE_REQUESTS} requests ({int(sizes.sum())} rows, "
+            f"{SERVE_CLIENTS} clients) in {serve_s:.3f} s; {flushes} "
+            f"flushes, {replays} graph replays, captures: warm-up {warm} "
+            f"({warm_s:.3f} s), publish {publish_captures} "
+            f"({swap_end - swap_start:.3f} s), serving 0; served by v1 "
+            f"{served[1]}, v2 {served[2]}; largest difference from the "
+            f"direct predict {worst}; fit launches {json.dumps(counts)}")
+        log(f"serve latency (slack 0-5 ms, hot swap) p50 "
+            f"{stats['p50_ms']:.3f} ms  p99 {stats['p99_ms']:.3f} ms  batch "
+            f"fill {stats['batch_fill']:.3f}  [{smi}]")
+
+        # the system's own share of the latency: the same requests at
+        # slack 0 (each flushed as soon as the server takes it), v2 live
+        answers0 = [None] * SERVE_REQUESTS
+        before0 = cache.stats()
+        with Server(registry, max_batch=SERVE_BATCH) as srv:
+            for t in clients(srv, np.zeros(SERVE_REQUESTS), answers0,
+                             [None] * SERVE_REQUESTS):
+                t.join()
+            stats0 = srv.stats()["higgs"]
+        after0 = cache.stats()
+        check(after0["traces"] == before0["traces"]
+              and after0["replays"] - before0["replays"]
+              == stats0["flushes"],
+              "slack 0: no capture, one replay a flush")
+        for i in range(SERVE_REQUESTS):
+            rows = X_req[starts[i]:starts[i] + sizes[i]]
+            check(torch.equal(torch.as_tensor(answers0[i]),
+                              p2.predict(rows, mode="direct").cpu()),
+                  f"slack 0: request {i} equals v2's direct predict")
+        log(f"serve latency (slack 0) p50 {stats0['p50_ms']:.3f} ms  p99 "
+            f"{stats0['p99_ms']:.3f} ms  {stats0['flushes']} flushes  "
+            f"batch fill {stats0['batch_fill']:.3f}  [{smi}]")
+
+        # each bucket's graph, for both versions, against the plain version
+        # on the card; then replay (copy-in, replay, copy-out) against the
+        # direct eager call
+        step = next(iter(cache._steps.values()))
+        replay_ms, direct_ms = {}, {}
+        for b in buckets:
+            codes = p2.binner.transform_codes_device(
+                X_req[:b], device=p2.device)
+            for model in (p1.model, p2.model):
+                tables = inference._model_tables(model, model.n_trees)
+                graph = step._graphs[(b, model.n_trees, N_FIELDS)]
+                check(torch.equal(graph.run(tables, codes, b)[:, 0],
+                                  model.predict_margin(codes,
+                                                       plan=plain_plan)),
+                      f"the graph of {b} rows and {model.n_trees} trees "
+                      "equals the plain version on the card bit for bit")
+            replay_ms[b] = _host_ms(lambda: graph.run(tables, codes, b))
+            direct_ms[b] = _host_ms(lambda: p2.model.predict_margin(codes))
+            log(f"serve bucket {b:5d}: graph replay {replay_ms[b]:.4f} ms  "
+                f"direct eager call {direct_ms[b]:.4f} ms  [{smi}]")
+        registry.unpublish("higgs")
+        log(f"serve phase: {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(bundles, ignore_errors=True)
+    return dict(serve_p50_ms=stats["p50_ms"], serve_p99_ms=stats["p99_ms"],
+                serve_slack0_p50_ms=stats0["p50_ms"],
+                serve_slack0_p99_ms=stats0["p99_ms"],
+                serve_replay_ms=replay_ms, serve_direct_ms=direct_ms,
+                serve_requests=SERVE_REQUESTS, serve_flushes=flushes,
+                serve_replays=replays, serve_captures=warm
+                + publish_captures, serve_max_abs_diff=worst,
+                serve_card=smi)
+
+
 def round_breakdown(label: str, config, data, y, steady_ms: float) -> None:
     """Phase 4: device time by kernel over a one-round fit, set against the
     wall time of a steady round of a main path (``steady_ms``, profiler
@@ -1429,7 +1761,7 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    environment(_build)
+    smi = environment(_build)
     rows = kernel_parity(args.records, args.seed, dev)
     torch.cuda.empty_cache()
     rows.update(class_parity(MC_RECORDS, args.seed, dev))
@@ -1477,6 +1809,9 @@ def main(argv=None) -> int:
                                     uint8_ms_path_codes=nib["uint8_ms"])
     round_breakdown("IoT-shaped packed", iot_config, iot_data, iot_y,
                     iot_steady_ms)
+    del iot_data
+    torch.cuda.empty_cache()
+    rows["ensemble"].update(serving_path(args.seed, dev, smi))
 
     # (row, kernel counter, source, TPU kernel, launches of which path)
     meta = [

@@ -1,2 +1,62 @@
-"""``repro_torch.api`` — execution plans and device selection."""
+"""``repro_torch.api`` — the estimator facade over the port.
+
+  * :class:`ExecutionPlan` — where every GBDT step runs (the CUDA kernels
+    or their plain versions); :func:`resolve_device` — the device an entry
+    point runs on (CUDA unless the caller names another).
+  * :class:`BoosterRegressor` / :class:`BoosterClassifier` — raw
+    NaN-carrying matrices in, predictions out.
+  * :func:`save` / :func:`load` (+ ``save_checkpoint`` /
+    ``load_checkpoint``) — the ``repro-gbdt-bundle`` format that
+    :mod:`repro.api` writes and reads too.
+  * :class:`GBDTPipeline` — binner + model through the serving engine;
+    :class:`Server` / :class:`ModelRegistry` — the deadline-batching
+    server over it.
+
+Only :mod:`repro_torch.api.plan` is imported eagerly: the kernels depend on
+it, so the modules that depend on the kernels load lazily, which keeps the
+import graph acyclic.
+"""
 from repro_torch.api.plan import ExecutionPlan, resolve_device, resolve_plan
+
+_LAZY = {
+    "BoosterRegressor": ("repro_torch.api.estimator", "BoosterRegressor"),
+    "BoosterClassifier": ("repro_torch.api.estimator", "BoosterClassifier"),
+    "NotFittedError": ("repro_torch.api.estimator", "NotFittedError"),
+    "save": ("repro_torch.api.serialize", "save"),
+    "load": ("repro_torch.api.serialize", "load"),
+    "save_checkpoint": ("repro_torch.api.serialize", "save_checkpoint"),
+    "load_checkpoint": ("repro_torch.api.serialize", "load_checkpoint"),
+    "pack": ("repro_torch.api.serialize", "pack"),
+    "unpack": ("repro_torch.api.serialize", "unpack"),
+    "GBDTPipeline": ("repro_torch.core.inference", "GBDTPipeline"),
+    "make_tabular": ("repro_torch.data.synthetic", "make_tabular"),
+    "paper_dataset": ("repro_torch.data.synthetic", "paper_dataset"),
+    "Server": ("repro_torch.serving", "Server"),
+    "ModelRegistry": ("repro_torch.serving", "ModelRegistry"),
+    "Request": ("repro_torch.serving", "Request"),
+    "warmup_buckets": ("repro_torch.serving", "warmup_buckets"),
+    "ServerHealth": ("repro_torch.serving", "ServerHealth"),
+    "FaultSchedule": ("repro_torch.resilience", "FaultSchedule"),
+    "QueueFullError": ("repro_torch.resilience", "QueueFullError"),
+    "DeadlineExceededError": ("repro_torch.resilience",
+                              "DeadlineExceededError"),
+    "DispatcherCrashError": ("repro_torch.resilience",
+                             "DispatcherCrashError"),
+}
+
+__all__ = ["ExecutionPlan", "resolve_device", "resolve_plan"] + sorted(_LAZY)
+
+
+def __getattr__(name):
+    try:
+        mod_name, attr = _LAZY[name]
+    except KeyError:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+    value = getattr(importlib.import_module(mod_name), attr)
+    globals()[name] = value  # cache for subsequent lookups
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))

@@ -1,0 +1,550 @@
+"""sklearn/XGBoost-style estimators over the port's training engine.
+
+The counterpart of :mod:`repro.api.estimator` for the in-memory path.
+``BoosterRegressor`` / ``BoosterClassifier`` own the whole vertical: raw
+NaN-carrying feature matrices in, predictions out.  Binning, kernel
+selection (:class:`~repro_torch.api.plan.ExecutionPlan`), training
+(``core.gbdt.train``), warm start, checkpoint resume and the serving
+engine all live behind ``fit`` / ``predict``.  The estimator runs on
+``device`` (a constructor parameter, CUDA by default); like ``plan`` it is
+a runtime choice, and a bundle never carries it.
+
+Options of ``repro``'s estimator that the port does not have yet raise
+``NotImplementedError`` naming their ROADMAP item: ``data=`` (out-of-core,
+Queue 1 item 5), ``mesh=`` (item 8), ``recovery=`` and ``shutdown=`` (item
+6), and a non-default ``max_leaves``, GOSS or ``fused_rounds`` (item 4).
+"""
+from __future__ import annotations
+
+import warnings
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.api import serialize
+from repro_torch.api.plan import ExecutionPlan, resolve_device, resolve_plan
+from repro_torch.core.binning import Binner
+from repro_torch.core.gbdt import (GBDTConfig, GBDTModel, TrainResult,
+                                   _predict_forest, base_margin_tensor,
+                                   train)
+from repro_torch.core.inference import GBDTPipeline, feature_importance
+from repro_torch.kernels.ref import TreeArrays
+
+
+def _validate_labels(y: np.ndarray, what: str = "y") -> None:
+    """Reject NaN/inf labels up front: one non-finite label poisons every
+    gradient, so the fit would produce a garbage model instead of failing
+    here with the row index."""
+    if np.issubdtype(y.dtype, np.number):
+        finite = np.isfinite(np.asarray(y, np.float64))
+        if not finite.all():
+            bad = int(y.shape[0] - finite.sum())
+            first = int(np.argmin(finite))
+            raise ValueError(
+                f"{what} contains {bad} non-finite label(s) (first at row "
+                f"{first}); NaN/inf labels are never valid — clean or drop "
+                "those rows before fitting")
+
+
+def _validate_fit_arrays(X: np.ndarray, y: np.ndarray,
+                         what: str = "fit") -> None:
+    """Shape/content checks shared by the fit entry points: 2-D X, equal
+    lengths, at least one row, finite labels."""
+    if X.ndim != 2:
+        raise ValueError(
+            f"{what} expects a 2-D feature matrix, got shape {X.shape}")
+    if X.shape[0] == 0:
+        raise ValueError(f"{what} received an empty dataset (X has 0 rows)")
+    if y.shape[0] != X.shape[0]:
+        raise ValueError(
+            f"{what}: X has {X.shape[0]} rows but y has {y.shape[0]} "
+            "labels — they must align row-for-row")
+    _validate_labels(y, what=f"{what} labels")
+
+
+# the keys of repro's estimator, plus the runtime device
+_PARAM_DEFAULTS: Dict[str, Any] = dict(
+    n_trees=100, max_depth=6, learning_rate=0.1, lambda_=1.0, gamma=0.0,
+    min_child_weight=1.0, objective=None, subsample=1.0,
+    colsample_bytree=1.0, goss_top_rate=0.0, goss_other_rate=0.0,
+    grow_policy="depthwise", max_leaves=None, fused_rounds=False,
+    log_every=10,
+    early_stopping_rounds=None, max_bins=256, categorical_fields=None,
+    sketch_size=32768, n_classes=None, seed=0, plan=None, device=None)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
+                               f"item {item})")
+
+
+class NotFittedError(RuntimeError):
+    """Raised when predict/save is called before ``fit``."""
+
+
+class BoosterEstimator:
+    """Base estimator: hyper-parameters + a fitted (binner, model) pair.
+
+    ``get_params`` / ``set_params`` follow the sklearn contract; every
+    constructor argument is a parameter.  ``plan`` (an
+    :class:`ExecutionPlan`) and ``device`` are runtime choices; ``plan``
+    may also be given per ``fit``/``predict`` call.
+    """
+
+    _default_objective: str = "reg:squarederror"
+
+    def __init__(self, **params):
+        unknown = set(params) - set(_PARAM_DEFAULTS)
+        if unknown:
+            raise TypeError(f"unknown estimator parameter(s): "
+                            f"{sorted(unknown)}")
+        for name, default in _PARAM_DEFAULTS.items():
+            setattr(self, name, self._normalize(name,
+                                                params.get(name, default)))
+        self._model: Optional[GBDTModel] = None
+        self._binner: Optional[Binner] = None
+        self._result: Optional[TrainResult] = None
+
+    @staticmethod
+    def _normalize(name: str, value: Any) -> Any:
+        # sequences of categorical field ids become plain int tuples so
+        # params stay hashable, comparable and JSON-safe
+        if (name == "categorical_fields" and value is not None
+                and not isinstance(value, tuple)):
+            return tuple(int(c) for c in value)
+        return value
+
+    # -- sklearn plumbing --------------------------------------------------
+    def get_params(self, deep: bool = True) -> Dict[str, Any]:
+        return {name: getattr(self, name) for name in _PARAM_DEFAULTS}
+
+    def set_params(self, **params) -> "BoosterEstimator":
+        unknown = set(params) - set(_PARAM_DEFAULTS)
+        if unknown:
+            raise ValueError(f"invalid parameter(s) for "
+                             f"{type(self).__name__}: {sorted(unknown)}")
+        for name, value in params.items():
+            setattr(self, name, self._normalize(name, value))
+        return self
+
+    def __repr__(self) -> str:
+        changed = {k: v for k, v in self.get_params().items()
+                   if v != _PARAM_DEFAULTS[k]}
+        args = ", ".join(f"{k}={v!r}" for k, v in sorted(changed.items()))
+        return f"{type(self).__name__}({args})"
+
+    # -- fitted-state access ----------------------------------------------
+    @property
+    def is_fitted(self) -> bool:
+        return self._model is not None
+
+    def _check_fitted(self) -> GBDTModel:
+        if self._model is None:
+            raise NotFittedError(
+                f"this {type(self).__name__} instance is not fitted yet; "
+                "call fit(X, y) first")
+        return self._model
+
+    @property
+    def model_(self) -> GBDTModel:
+        return self._check_fitted()
+
+    @property
+    def binner_(self) -> Binner:
+        self._check_fitted()
+        return self._binner
+
+    @property
+    def n_trees_(self) -> int:
+        return self._check_fitted().n_trees
+
+    @property
+    def history_(self) -> Dict[str, list]:
+        self._check_fitted()
+        return self._result.history if self._result is not None else {}
+
+    def evals_result(self) -> Dict[str, list]:
+        return self.history_
+
+    @property
+    def step_times_(self) -> Dict[str, float]:
+        """Accumulated seconds per paper step from the last ``fit``."""
+        self._check_fitted()
+        return self._result.step_times if self._result is not None else {}
+
+    @property
+    def stats_(self) -> Dict[str, Any]:
+        """Trainer extras from the last ``fit``."""
+        self._check_fitted()
+        return self._result.stats if self._result is not None else {}
+
+    @property
+    def feature_importances_(self) -> np.ndarray:
+        """Gain-style per-field importances (normalized to sum 1)."""
+        return feature_importance(self._check_fitted(), kind="gain")
+
+    # -- plan, device, objective -------------------------------------------
+    def _resolve_plan(self, plan: Optional[ExecutionPlan]) -> ExecutionPlan:
+        return resolve_plan(plan if plan is not None else self.plan)
+
+    def _device(self) -> torch.device:
+        return resolve_device(self.device)
+
+    def _resolve_objective(self, y: np.ndarray
+                           ) -> Tuple[str, Optional[int]]:
+        """(objective, n_classes) for this fit.  The classifier overrides
+        this to auto-detect multi-class label sets."""
+        return self.objective or self._default_objective, self.n_classes
+
+    def _config(self, n_trees: int, objective: Optional[str] = None,
+                n_classes: Optional[int] = None) -> GBDTConfig:
+        """``objective``/``n_classes`` are the *resolved* pair from
+        ``_resolve_objective``; ``n_classes`` is used verbatim (a resolved
+        scalar objective carries K = None)."""
+        if self.max_leaves is not None:
+            raise _not_ported("max_leaves (the lossguide grower)",
+                              "4: training variants")
+        return GBDTConfig(
+            n_trees=n_trees, max_depth=self.max_depth,
+            learning_rate=self.learning_rate, lambda_=self.lambda_,
+            gamma=self.gamma, min_child_weight=self.min_child_weight,
+            objective=objective or self.objective or self._default_objective,
+            subsample=self.subsample,
+            colsample_bytree=self.colsample_bytree,
+            goss_top_rate=self.goss_top_rate,
+            goss_other_rate=self.goss_other_rate,
+            grow_policy=self.grow_policy,
+            fused_rounds=self.fused_rounds, log_every=self.log_every,
+            early_stopping_rounds=self.early_stopping_rounds,
+            n_classes=n_classes, seed=self.seed)
+
+    # -- fit ---------------------------------------------------------------
+    def fit(self, X=None, y=None, *, data: Any = None,
+            eval_set: Optional[Tuple] = None,
+            xgb_model: Any = None, plan: Optional[ExecutionPlan] = None,
+            mesh: Any = None,
+            checkpoint_dir: Optional[str] = None,
+            checkpoint_every: int = 25, callback=None,
+            verbose: bool = False, recovery: Any = None,
+            shutdown: Any = None) -> "BoosterEstimator":
+        """Bin ``X`` (raw floats, NaN == missing) and boost ``self.n_trees``
+        trees on the estimator's device.
+
+        eval_set:        optional raw ``(X_val, y_val)`` pair — enables the
+                         eval history and ``early_stopping_rounds``.
+        xgb_model:       warm start: a fitted estimator, ``GBDTPipeline``,
+                         ``GBDTModel``, or a bundle path (of either
+                         package) — ``n_trees`` *additional* trees are
+                         grown (XGBoost semantics).
+        plan:            ExecutionPlan override for this fit.
+        checkpoint_dir:  when set, resumes from the newest valid step
+                         checkpoint and writes one every
+                         ``checkpoint_every`` rounds (atomic, sha-verified).
+                         An explicit ``xgb_model`` takes precedence over
+                         any existing checkpoints (a warning is emitted).
+        """
+        if data is not None:
+            raise _not_ported("fit(data=...) (out-of-core streaming)",
+                              "5: out-of-core")
+        if mesh is not None:
+            raise _not_ported("fit(mesh=...) (distributed training)",
+                              "8: distributed")
+        if recovery is not None or shutdown is not None:
+            raise _not_ported("fit(recovery=..., shutdown=...)",
+                              "6: resilience")
+        plan = self._resolve_plan(plan)
+        device = self._device()
+        if X is None or y is None:
+            raise TypeError("fit needs (X, y) arrays")
+        X = np.asarray(X, dtype=np.float64)
+        y = np.asarray(y)
+        _validate_fit_arrays(X, y)
+        objective, n_classes = self._resolve_objective(y)
+
+        init_model, binner, n_trees = self._resume_or_warm_start(
+            xgb_model, checkpoint_dir, verbose)
+        objective, n_classes = self._check_warm_model(init_model, objective,
+                                                      n_classes)
+        config = self._config(n_trees, objective, n_classes)
+
+        if binner is None:
+            binner = Binner(max_bins=self.max_bins,
+                            categorical_fields=self.categorical_fields)
+            binner.fit(X)
+        data = binner.transform(X, device=device)
+        ev = None
+        if eval_set is not None:
+            X_val, y_val = eval_set
+            X_val = np.asarray(X_val, dtype=np.float64)
+            y_val = np.asarray(y_val, dtype=np.float32)
+            _validate_fit_arrays(X_val, y_val, what="eval_set")
+            ev = (binner.transform(X_val, device=device), y_val)
+
+        def cb(t_idx, model):
+            if callback is not None:
+                callback(t_idx, model)
+            if (checkpoint_dir is not None
+                    and (t_idx + 1) % checkpoint_every == 0):
+                serialize.save_checkpoint(
+                    checkpoint_dir,
+                    GBDTPipeline(binner=binner, model=model), t_idx + 1)
+
+        result = train(config, data, y, eval_set=ev, init_model=init_model,
+                       callback=cb, verbose=verbose, plan=plan,
+                       device=device)
+        self._model, self._binner, self._result = result.model, binner, result
+        if checkpoint_dir is not None:
+            # step numbers count ROUNDS (the unit of the per-round saves)
+            serialize.save_checkpoint(checkpoint_dir, self,
+                                      result.model.n_rounds)
+        return self
+
+    def _resume_or_warm_start(self, xgb_model: Any,
+                              checkpoint_dir: Optional[str],
+                              verbose: bool):
+        """(init_model, binner, n_trees_to_grow) from an explicit warm
+        start and/or the newest valid step checkpoint (xgb_model wins)."""
+        n_trees = self.n_trees
+        init_model, binner = self._warm_start(xgb_model)
+        if checkpoint_dir is not None and serialize.has_checkpoint(
+                checkpoint_dir):
+            if xgb_model is not None:
+                warnings.warn(
+                    f"{checkpoint_dir!r} already holds checkpoints; the "
+                    "explicit xgb_model wins and they are ignored (new "
+                    "checkpoints will overwrite colliding steps)",
+                    UserWarning, stacklevel=3)
+            else:
+                try:
+                    restored, step = serialize.load_checkpoint(
+                        checkpoint_dir, device=self._device())
+                except (FileNotFoundError, ValueError, KeyError):
+                    # step dirs exist but none holds a valid bundle payload
+                    restored = None
+                if restored is not None:
+                    init_model, binner = self._warm_parts(restored)
+                    # multi-class rounds grow K trees each — count rounds
+                    n_trees = max(0, self.n_trees - init_model.n_rounds)
+                    if verbose:
+                        print(f"[{type(self).__name__}] resuming from "
+                              f"checkpoint step {step} "
+                              f"({init_model.n_rounds} rounds)")
+        return init_model, binner, n_trees
+
+    def _check_warm_model(self, init_model: Optional[GBDTModel],
+                          objective: str, n_classes: Optional[int]):
+        """Validate warm-start/checkpoint compatibility; returns the
+        (objective, n_classes) pair the continued fit must use."""
+        if init_model is None:
+            return objective, n_classes
+        if init_model.max_depth != self.max_depth:
+            raise ValueError(
+                f"warm-start/checkpoint model has max_depth="
+                f"{init_model.max_depth} but this estimator is "
+                f"configured with max_depth={self.max_depth}")
+        if init_model.n_classes > 1:
+            # the fitted model's objective/K win: labels of a continuation
+            # batch only bound K from below
+            if (self.objective not in (None, init_model.objective)
+                    or objective not in ("binary:logistic",
+                                         init_model.objective)):
+                raise ValueError(
+                    f"warm-start/checkpoint model was trained with "
+                    f"objective={init_model.objective!r} but this "
+                    f"estimator uses {objective!r}")
+            if self.n_classes not in (None, init_model.n_classes):
+                raise ValueError(
+                    f"warm-start/checkpoint model has n_classes="
+                    f"{init_model.n_classes} but this estimator sets "
+                    f"n_classes={self.n_classes}")
+            if (n_classes or 0) > init_model.n_classes:
+                raise ValueError(
+                    f"labels reach class {n_classes - 1} but the "
+                    f"warm-start/checkpoint model has n_classes="
+                    f"{init_model.n_classes}")
+            return init_model.objective, init_model.n_classes
+        if init_model.objective != objective:
+            raise ValueError(
+                f"warm-start/checkpoint model was trained with "
+                f"objective={init_model.objective!r} but this "
+                f"estimator uses {objective!r}")
+        return objective, n_classes
+
+    def _warm_start(self, xgb_model: Any
+                    ) -> Tuple[Optional[GBDTModel], Optional[Binner]]:
+        if xgb_model is None:
+            return None, None
+        if isinstance(xgb_model, str):
+            xgb_model = serialize.load(xgb_model, device=self._device())
+        return self._warm_parts(xgb_model)
+
+    @staticmethod
+    def _warm_parts(obj: Any) -> Tuple[GBDTModel, Optional[Binner]]:
+        if isinstance(obj, BoosterEstimator):
+            return obj._check_fitted(), obj._binner
+        if isinstance(obj, GBDTPipeline):
+            return obj.model, obj.binner
+        if isinstance(obj, GBDTModel):
+            return obj, None
+        raise TypeError(f"cannot warm-start from {type(obj).__name__}")
+
+    # -- predict -----------------------------------------------------------
+    def _bin(self, X):
+        self._check_fitted()
+        return self._binner.transform(np.asarray(X, dtype=np.float64),
+                                      device=self._model.trees.feature.device)
+
+    def predict_margin(self, X, *, plan: Optional[ExecutionPlan] = None
+                       ) -> torch.Tensor:
+        """Raw ensemble margins for raw (unbinned) ``X``, through the
+        serving engine: binned on the device, predicted through the
+        shape-bucketed graph cache (:mod:`repro_torch.core.inference`)."""
+        self._check_fitted()
+        return self.to_pipeline().predict_margin(
+            X, plan=self._resolve_plan(plan))
+
+    def predict(self, X, *, plan: Optional[ExecutionPlan] = None
+                ) -> torch.Tensor:
+        model = self._check_fitted()
+        return model.loss.transform(self.predict_margin(X, plan=plan))
+
+    def staged_predict(self, X, *, plan: Optional[ExecutionPlan] = None
+                       ) -> Iterator[torch.Tensor]:
+        """Yield predictions after each boosting round (1..n_rounds).
+
+        For scalar objectives the k-th yield equals ``predict`` of the
+        k-tree prefix ensemble; multi-class models add one forest (K
+        class trees) a stage and yield the (n, K) softmax rows.  Each
+        round's leaves are added in tree order, so the last stage equals
+        ``predict`` bit for bit where both bin ``X`` alike.
+        """
+        model = self._check_fitted()
+        plan = self._resolve_plan(plan)
+        data = self._bin(X)
+        K = model.n_classes
+        base = base_margin_tensor(model.base_margin,
+                                  model.trees.feature.device)
+        margin = base.expand((data.n_records,) + base.shape)
+        for r in range(model.n_rounds):
+            forest = TreeArrays(*[a[r * K:(r + 1) * K] for a in model.trees])
+            # a fresh tensor each stage: a yielded one is never mutated
+            margin = margin + _predict_forest(forest, data, plan).reshape(
+                margin.shape)
+            yield model.loss.transform(margin)
+
+    # -- serialization -----------------------------------------------------
+    def _pack(self):
+        model = self._check_fitted()
+        meta = {"class": type(self).__name__,
+                "params": serialize.estimator_params_to_meta(
+                    self.get_params())}
+        return serialize._pack_parts(model, self._binner, meta)
+
+    @classmethod
+    def _from_parts(cls, est_meta: Dict, model: GBDTModel, binner: Binner,
+                    device: torch.device) -> "BoosterEstimator":
+        klass = {c.__name__: c for c in (BoosterRegressor,
+                                         BoosterClassifier)}.get(
+            est_meta.get("class"), cls)
+        est = klass(**est_meta.get("params", {}))
+        est.device = device
+        est._model, est._binner = model, binner
+        return est
+
+    def save(self, path: str) -> str:
+        """Write this fitted estimator as an atomic npz+json bundle."""
+        return serialize.save(path, self)
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "BoosterEstimator":
+        """Load an estimator bundle of either package (a pipeline bundle is
+        promoted), its model on ``device`` (CUDA by default)."""
+        obj = serialize.load(path, device=device)
+        if isinstance(obj, GBDTPipeline):     # promote: same payload family
+            est = cls(device=obj.device)
+            est._model, est._binner = obj.model, obj.binner
+            return est
+        if not isinstance(obj, BoosterEstimator):
+            raise TypeError(f"bundle at {path!r} holds a "
+                            f"{type(obj).__name__}, not an estimator")
+        return obj
+
+    def to_pipeline(self) -> GBDTPipeline:
+        """The binner+model bundle view (for the functional APIs)."""
+        return GBDTPipeline(binner=self.binner_, model=self.model_)
+
+
+class BoosterRegressor(BoosterEstimator):
+    """Gradient-boosted regression trees (default squared-error loss)."""
+
+    _default_objective = "reg:squarederror"
+
+
+class BoosterClassifier(BoosterEstimator):
+    """Gradient-boosted classifier (binary logistic or multi-class softmax).
+
+    The objective is auto-detected from the label set when left unset:
+    labels {0, 1} train ``binary:logistic``; integer labels 0..K-1 with
+    K > 2 train ``multi:softmax`` with K class trees a round.  ``predict``
+    returns hard class labels; ``predict_proba`` the (n, K) class
+    probabilities, XGBoost-style.
+    """
+
+    _default_objective = "binary:logistic"
+
+    def _resolve_objective(self, y: np.ndarray
+                           ) -> Tuple[str, Optional[int]]:
+        labels = np.unique(np.asarray(y))
+        integral = bool(labels.size == 0
+                        or (np.all(labels >= 0)
+                            and np.all(labels == np.round(labels))))
+        if not integral and self.objective in (None, "multi:softmax"):
+            # auto-detection and softmax need class ids; an explicit
+            # scalar objective may take soft targets
+            raise ValueError(
+                "classifier labels must be non-negative integers "
+                f"(got values like {labels[:5]})")
+        detected = (int(labels.max()) + 1 if labels.size and integral
+                    else 2)
+        if self.objective == "multi:softmax" or (
+                self.objective is None
+                and (detected > 2 or (self.n_classes or 0) > 2)):
+            K = self.n_classes if self.n_classes is not None else max(
+                detected, 2)
+            if detected > K:
+                raise ValueError(
+                    f"labels reach class {detected - 1} but n_classes={K}")
+            return "multi:softmax", K
+        obj = self.objective or self._default_objective
+        # a wider K conflicts with an explicit scalar objective: fail loudly
+        # instead of training a binary model on K classes
+        if self.n_classes is not None and self.n_classes > 2:
+            raise ValueError(
+                f"n_classes={self.n_classes} conflicts with "
+                f"objective={obj!r}; use objective='multi:softmax' "
+                "(or leave objective unset)")
+        if detected > 2:
+            raise ValueError(
+                f"labels span {detected} classes but objective={obj!r} "
+                "is scalar; use objective='multi:softmax' (or leave "
+                "objective unset for auto-detection)")
+        return obj, None
+
+    def predict_proba(self, X, *, plan: Optional[ExecutionPlan] = None
+                      ) -> np.ndarray:
+        model = self._check_fitted()
+        p = model.loss.transform(self.predict_margin(X, plan=plan)
+                                 ).cpu().numpy()
+        if model.n_classes > 1:
+            return p                       # (n, K) softmax rows
+        return np.stack([1.0 - p, p], axis=-1)
+
+    def predict(self, X, *, plan: Optional[ExecutionPlan] = None
+                ) -> np.ndarray:
+        model = self._check_fitted()
+        if model.n_classes > 1:
+            return self.predict_proba(X, plan=plan).argmax(
+                axis=-1).astype(np.int32)
+        return (self.predict_proba(X, plan=plan)[:, 1] > 0.5).astype(
+            np.int32)

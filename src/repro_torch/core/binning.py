@@ -255,6 +255,21 @@ class Binner:
             codes[:, f] = np.where(nan, missing_code, c).astype(np.uint8)
         return codes
 
+    def _device_tables(self, device: torch.device):
+        """The edge and category tables on ``device``, kept per fit and
+        device: the lookup state of :meth:`transform_codes_device`, sent
+        once instead of once a request."""
+        cached = self.__dict__.get("_dev_tables")
+        if cached is None or cached[0] is not self._edges \
+                or cached[1] != device:
+            tables = (torch.as_tensor(self._edges, dtype=torch.float32,
+                                      device=device),
+                      torch.as_tensor(self._is_cat, device=device),
+                      torch.as_tensor(self._n_value_bins, dtype=torch.int32,
+                                      device=device))
+            self._dev_tables = cached = (self._edges, device, tables)
+        return cached[2]
+
     def transform_codes_device(self, X, device=None) -> torch.Tensor:
         """(n, F) uint8 bin codes computed on ``device`` (CUDA by default).
 
@@ -266,11 +281,7 @@ class Binner:
         self._require_fit()
         device = resolve_device(device)
         X = torch.as_tensor(X, dtype=torch.float32, device=device)
-        edges = torch.as_tensor(self._edges, dtype=torch.float32,
-                                device=device)
-        is_cat = torch.as_tensor(self._is_cat, device=device)
-        nvb = torch.as_tensor(self._n_value_bins, dtype=torch.int32,
-                              device=device)
+        edges, is_cat, nvb = self._device_tables(device)
         nan = torch.isnan(X)
         filled = torch.where(nan, torch.zeros((), device=device), X)
         num = torch.searchsorted(edges, filled.T.contiguous(),

@@ -7,7 +7,9 @@ record through the new tree to refresh its margin (step ⑤).  A multi-class
 objective (``multi:softmax``, K classes) grows K trees per round in one
 class-batched pass (:func:`repro_torch.core.tree.fit_forest`) and keeps
 (n, K) margins.  ``GBDTModel.predict_margin`` runs batch inference over the
-whole ensemble.
+whole ensemble, directly or through the compile-once engine of
+:mod:`repro_torch.core.inference`; ``train(init_model=...)`` continues a
+fit (warm start, checkpoint resume).
 
 Options of the reference trainer that this port does not have yet raise
 ``NotImplementedError`` naming their ROADMAP item.
@@ -26,6 +28,7 @@ from repro_torch.core import losses as losses_mod
 from repro_torch.core import tree as tree_mod
 from repro_torch.core.binning import BinnedDataset
 from repro_torch.kernels import ops
+from repro_torch.kernels import traversal as trav_k
 from repro_torch.kernels.ref import TreeArrays
 
 
@@ -113,32 +116,43 @@ class GBDTModel:
             self.objective, self.n_classes if self.n_classes > 1 else None)
 
     def predict_margin(self, codes, *, plan: Optional[ExecutionPlan] = None,
-                       mode: Optional[str] = None) -> torch.Tensor:
+                       mode: Optional[str] = None,
+                       cache=None) -> torch.Tensor:
         """Raw ensemble margins (n,) — (n, K) for a multi-class model — for
         binned ``codes`` (a tensor or ``PackedCodes`` on the model's device,
-        or a ``BinnedDataset``, packed or not)."""
+        or a ``BinnedDataset``, packed or not).
+
+        ``mode="direct"`` (the default) walks the exact request shape:
+        each record's leaves are added onto the base margin in tree order,
+        the order in which training adds them round by round, so a fit's
+        margins and a warm start's replay equal this bit for bit.
+        ``mode="cached"`` goes through the compile-once engine
+        (:func:`repro_torch.core.inference.predict_margin_cached`; a CUDA
+        graph per shape bucket on the card), with ``cache`` (a
+        ``PredictCache``) as its namespace, the process-wide default when
+        None.  The two modes give the same margins.
+        """
         codes = codes.codes if isinstance(codes, BinnedDataset) else codes
-        if mode == "cached":
-            raise NotImplementedError(
-                'mode="cached" is not ported yet (ROADMAP Queue 1: '
-                "inference engine)")
-        if mode not in (None, "direct"):
+        if mode not in (None, "direct", "cached"):
             raise ValueError(f"unknown predict mode {mode!r}; choose "
                              "'cached' or 'direct'")
-        out = ops.predict_ensemble(self.trees, codes,
-                                   missing_bin=self.missing_bin,
-                                   depth=self.max_depth, plan=plan,
-                                   n_classes=self.n_classes)
-        if self.n_classes > 1:
-            return out + torch.as_tensor(self.base_margin, dtype=torch.float32,
-                                         device=out.device)
-        return out + self.base_margin
+        if mode == "cached":
+            from repro_torch.core.inference import predict_margin_cached
+            return predict_margin_cached(self, codes, plan=plan, cache=cache)
+        K = self.n_classes
+        base = base_margin_tensor(self.base_margin, codes.device)
+        out = base.reshape(-1).expand(codes.shape[0], K).clone()
+        ops.predict_ensemble(self.trees, codes, missing_bin=self.missing_bin,
+                             depth=self.max_depth, plan=plan, n_classes=K,
+                             out=out)
+        return out[:, 0] if K == 1 else out
 
     def predict(self, codes, *, plan: Optional[ExecutionPlan] = None,
-                mode: Optional[str] = None) -> torch.Tensor:
+                mode: Optional[str] = None, cache=None) -> torch.Tensor:
         """Transformed predictions — same surface as :meth:`predict_margin`."""
         return self.loss.transform(self.predict_margin(codes, plan=plan,
-                                                       mode=mode))
+                                                       mode=mode,
+                                                       cache=cache))
 
     # -- (de)serialization -------------------------------------------------
     def meta(self) -> Dict:
@@ -167,6 +181,13 @@ class GBDTModel:
         trees = TreeArrays(**{k: torch.as_tensor(np.array(v), device=device)
                               for k, v in state["trees"].items()})
         return model_from_meta(trees, state["meta"])
+
+
+def base_margin_tensor(base_margin, device) -> torch.Tensor:
+    """The base margin as a float32 tensor on ``device``: () for a scalar
+    objective, (K,) for K classes."""
+    return torch.as_tensor(np.asarray(base_margin, np.float32),
+                           device=device)
 
 
 def pack_base_margin(base_margin, n_classes: int):
@@ -285,11 +306,16 @@ def train(config: GBDTConfig, data: BinnedDataset, y,
           device=None) -> TrainResult:
     """Fit a GBDT ensemble on ``device`` (CUDA by default; the data moves
     there if it lies elsewhere).  ``eval_set`` is ``(BinnedDataset,
-    labels)`` and drives early stopping."""
-    if init_model is not None:
-        raise NotImplementedError(
-            "warm start (init_model / _replay_margins) is not ported yet "
-            "(ROADMAP Queue 1: _replay_margins)")
+    labels)`` and drives early stopping.
+
+    ``init_model`` continues a fit (warm start, checkpoint resume): its
+    trees and base margin seed the ensemble, its margins are replayed
+    round by round (:func:`_replay_margins`) and ``config.n_trees`` more
+    rounds are grown, numbered on from its last, so each draws the random
+    stream a one-go fit would have drawn.  With the plain versions on the
+    CPU (deterministic), a fit of A rounds continued by B is bit-equal to
+    a fit of A + B.
+    """
     device = resolve_device(device)
     plan = resolve_plan(plan)
     loss = losses_mod.get_loss(config.objective, config.n_classes)
@@ -309,21 +335,31 @@ def train(config: GBDTConfig, data: BinnedDataset, y,
     trees: List[TreeArrays] = []       # one entry per round: (K, ...) at K
     history: Dict[str, List[float]] = {"train_loss": []}
     step_times = {"binning_split": 0.0, "traversal": 0.0, "other": 0.0}
-    if K is not None:
-        base_margin = loss.base_margin(y).cpu().numpy().astype(np.float32)
-        base = torch.as_tensor(base_margin, device=device)
-    else:
-        base_margin = float(loss.base_margin(y))
-        base = torch.tensor(base_margin, dtype=torch.float32, device=device)
-    margins = base.expand((n,) + base.shape).clone()       # (n,) or (n, K)
     if eval_set is not None:
         history["eval_loss"] = []
-        eval_margins = base.expand((ev_y.shape[0],) + base.shape).clone()
+    if init_model is not None:
+        init_model = _warm_model(init_model, config, K, depth, device)
+        trees = (_unstack_forests(init_model.trees, init_model.n_rounds, K)
+                 if K is not None else
+                 [TreeArrays(*[a[i] for a in init_model.trees])
+                  for i in range(init_model.n_trees)])
+        base_margin = init_model.base_margin
+        margins = _replay_margins(init_model, data, plan)
+        if eval_set is not None:
+            eval_margins = _replay_margins(init_model, ev_data, plan)
+    else:
+        base_margin = (loss.base_margin(y).cpu().numpy().astype(np.float32)
+                       if K is not None else float(loss.base_margin(y)))
+        base = base_margin_tensor(base_margin, device)
+        margins = base.expand((n,) + base.shape).clone()   # (n,) or (n, K)
+        if eval_set is not None:
+            eval_margins = base.expand((ev_y.shape[0],) + base.shape).clone()
     best_eval, best_round = np.inf, -1
     # step ⑤ for one round: K class trees at once, or the one tree
     predict_round = _predict_forest if K is not None else _predict_one_tree
 
-    for t_idx in range(config.n_trees):
+    start = len(trees)     # a warm start continues the round numbering
+    for t_idx in range(start, start + config.n_trees):
         t0 = time.perf_counter()
         g, h = loss.grad_hess(margins, y)
         g, h, field_mask = _round_stats(
@@ -371,7 +407,7 @@ def train(config: GBDTConfig, data: BinnedDataset, y,
         step_times["other"] += time.perf_counter() - t2
 
         if verbose and (t_idx % config.log_every == 0
-                        or t_idx == config.n_trees - 1):
+                        or t_idx == start + config.n_trees - 1):
             print(f"[gbdt] tree {t_idx:4d}  train_loss={train_loss:.6f}")
         if callback is not None:
             callback(t_idx, _as_model(trees, base_margin, config,
@@ -394,6 +430,41 @@ def _as_model(trees, base_margin, config, missing_bin, F) -> GBDTModel:
     return GBDTModel(trees=stacked, base_margin=base_margin,
                      objective=config.objective, missing_bin=missing_bin,
                      n_fields=F, max_depth=config.max_depth, n_classes=K)
+
+
+def _warm_model(model: GBDTModel, config: GBDTConfig, K: Optional[int],
+                depth: int, device: torch.device) -> GBDTModel:
+    """``model`` checked against the fit it seeds, its trees on
+    ``device``."""
+    if model.max_depth != depth:
+        raise ValueError(f"init_model has max_depth={model.max_depth}; this "
+                         f"fit grows max_depth={depth}")
+    if model.n_classes != (K or 1) or model.objective != config.objective:
+        raise ValueError(
+            f"init_model was trained with objective={model.objective!r}, "
+            f"n_classes={model.n_classes}; this fit uses "
+            f"{config.objective!r}, n_classes={K or 1}")
+    return dataclasses.replace(
+        model, trees=TreeArrays(*[a.to(device) for a in model.trees]))
+
+
+def _replay_margins(model: GBDTModel, data: BinnedDataset,
+                    plan: ExecutionPlan) -> torch.Tensor:
+    """Seed margins for a continued fit: the base margin plus each round's
+    leaves, added round by round in place through step ⑤, as the first
+    fit added them, so checkpoint resume and warm start replay bit-exactly
+    (and equal the direct ``predict_margin``, which sums in the same
+    order).  The trees come from outside, so their field ids are checked
+    once (one host read) and not again each round."""
+    n, K = data.n_records, model.n_classes
+    base = base_margin_tensor(model.base_margin, model.trees.feature.device)
+    margins = base.expand((n,) + base.shape).clone()       # (n,) or (n, K)
+    trav_k.check_fields(trav_k.pack_node_table(model.trees), data.n_fields,
+                        "warm start")
+    for r in range(model.n_rounds):
+        forest = TreeArrays(*[a[r * K:(r + 1) * K] for a in model.trees])
+        margins = _predict_forest(forest, data, plan, margins)
+    return margins
 
 
 def _predict_forest(forest: TreeArrays, data: BinnedDataset,

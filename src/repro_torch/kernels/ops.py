@@ -126,14 +126,17 @@ def traverse_forest(forest: TreeArrays, codes, *, missing_bin: int,
 
 def predict_ensemble(trees: TreeArrays, codes, *, missing_bin: int,
                      depth: int, plan: Optional[ExecutionPlan] = None,
-                     n_classes: int = 1) -> torch.Tensor:
+                     n_classes: int = 1, out=None) -> torch.Tensor:
     """Ensemble margins: (n,) for scalar objectives, (n, K) when
-    ``n_classes`` = K > 1 (trees round-major, tree t feeds class t % K)."""
+    ``n_classes`` = K > 1 (trees round-major, tree t feeds class t % K).
+    Given ``out`` ((n, K), or (n,) at K = 1), each record's leaves are
+    added onto what it holds, in tree order, and it is returned."""
     if trees.leaf_value.shape[-1] != 2 ** depth:
         raise ValueError(f"trees are not of depth {depth}")
     if resolve_plan(plan).traversal_strategy == "reference":
         return _trav_k.predict_ensemble_plain(trees, unpack_codes(codes),
-                                              missing_bin, n_classes)
+                                              missing_bin, n_classes,
+                                              out=out)
     return _trav_k.predict_ensemble_cuda(trees, codes,
                                          missing_bin=missing_bin,
-                                         n_classes=n_classes)
+                                         n_classes=n_classes, out=out)

@@ -11,7 +11,8 @@ the CPU:
                                    (one class or class-batched)
   * ``traverse_ref``             — step ⑤ one-tree traversal
   * ``traverse_forest_ref``      — step ⑤ for one round's K class trees
-  * ``predict_ensemble_batched`` — batch inference over a stacked ensemble
+  * ``ensemble_leaves``          — batch inference over a stacked ensemble
+                                   (each record's leaf in each tree)
 
 The class-batched versions compute what ``jax.vmap`` over the class axis
 computes in the JAX package, one class after another.
@@ -176,18 +177,12 @@ def traverse_forest_ref(forest: TreeArrays, codes: Tensor,
                         for k in range(forest.feature.shape[0])], dim=1)
 
 
-def predict_ensemble_batched(trees: TreeArrays, codes: Tensor,
-                             missing_bin: int, n_classes: int = 1,
-                             nibble: bool = False) -> Tensor:
-    """Tree-batched batch inference: all trees advance one level per pass
-    over an (n, T) node matrix; returns the (n,) sum over the T trees, or
-    (n, K) class margins when ``n_classes`` = K > 1 (trees round-major:
-    tree t feeds column t % K through a (T, K) one-hot fold).
-
-    ``trees`` holds stacked arrays with a leading tree dimension (T, ...);
-    ``nibble`` as in :func:`traverse_ref`.  Node paths and leaf choices are those of ``traverse_ref`` tree by tree;
-    only the float order of the final sum differs.
-    """
+def ensemble_leaves(trees: TreeArrays, codes: Tensor, missing_bin: int,
+                    nibble: bool = False) -> Tensor:
+    """Tree-batched walk: all trees advance one level per pass over an
+    (n, T) node matrix; returns the (n, T) leaf value each record reaches
+    in each tree.  Node paths and leaf choices are those of
+    ``traverse_ref`` tree by tree; ``nibble`` as in :func:`traverse_ref`."""
     T = trees.feature.shape[0]
     depth = int(trees.leaf_value.shape[-1]).bit_length() - 1
     codes = codes.to(torch.int32)
@@ -202,9 +197,5 @@ def predict_ensemble_batched(trees: TreeArrays, codes: Tensor,
                                   torch.gather(cat_t, 0, node),
                                   torch.gather(dl_t, 0, node), missing_bin)
         node = 2 * node + 2 - go_left.long()
-    vals = torch.gather(trees.leaf_value.T, 0, node - (2 ** depth - 1))
-    if n_classes == 1:
-        return vals.sum(dim=1)
-    cls_oh = torch.nn.functional.one_hot(
-        torch.arange(T, device=codes.device) % n_classes, n_classes)
-    return vals @ cls_oh.to(torch.float32)
+    return torch.gather(trees.leaf_value.T, 0, node - (2 ** depth - 1))
+

@@ -11,8 +11,8 @@ column t % K: a block stages its R records' code rows in shared memory in
 a bank-free layout, then blocks of TB trees in turn; a thread walks U
 records hop by hop (:func:`ensemble_geometry` sizes it).  Leaves sum in a
 register per record in tree order, class by class, starting from what the
-output holds, so the sum matches :func:`predict_ensemble_plain` to float
-tolerance while the leaf each tree picks is identical.  Rows too wide to
+output holds; :func:`predict_ensemble_plain` adds in the same order, so
+the two agree bit for bit.  Rows too wide to
 stage take the wide entry, which reads the codes from global memory.
 Codes are uint8 (n, F) or 4-bit :class:`~repro_torch.core.binning.
 PackedCodes` (n, F) over the field axis, which the kernel reads as they lie
@@ -33,6 +33,9 @@ Decisions are integer-exact: :func:`traverse_forest_cuda` is bit-equal to
 out of bounds in the kernel, so trees that come from outside are checked
 (:func:`check_fields`, one small device->host read); the grower's trees,
 whose field ids are < F by construction, skip it (``check_fields=False``).
+:func:`launch_tables` is the bare launch on packed tables, with no check,
+allocation or host read: the step that ``core/inference.py`` captures in
+a CUDA graph.
 """
 from __future__ import annotations
 
@@ -45,12 +48,12 @@ import torch
 
 from repro_torch.core.binning import PackedCodes
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (TreeArrays, predict_ensemble_batched,
+from repro_torch.kernels.ref import (TreeArrays, ensemble_leaves,
                                      traverse_forest_ref,
                                      traverse_ref as traverse_plain)
 
 MIN_STAGED_TREES = 16        # trees a staged block holds where room allows
-PLAIN_ROWS = 1 << 18         # records per pass of the plain ensemble walk
+PLAIN_ENTRIES = 1 << 26      # node-matrix entries per plain ensemble pass
 MAX_FIELDS = 1 << 15         # field ids must fit the packed node word
 
 
@@ -186,20 +189,30 @@ def traverse_forest_plain(forest: TreeArrays, codes,
 
 
 def predict_ensemble_plain(trees: TreeArrays, codes, missing_bin: int,
-                           n_classes: int = 1) -> torch.Tensor:
-    """Plain version of the ensemble walk: :func:`predict_ensemble_batched`
-    over blocks of ``PLAIN_ROWS`` records, which bounds its (rows, T) node
-    matrices; ``PackedCodes`` read as they lie.  (n,) out, or (n, K) for
-    ``n_classes`` = K > 1."""
+                           n_classes: int = 1, out=None) -> torch.Tensor:
+    """Plain version of the ensemble walk: (n,) sums, or (n, K) for
+    ``n_classes`` = K > 1 (tree t into column t % K).  Each record's leaves
+    are added one tree at a time, in tree order, onto what ``out`` holds
+    ((n, K), or (n,) at K = 1; returned) or onto zeros, as the kernel adds
+    them, so the two agree bit for bit.  :func:`ensemble_leaves` walks
+    blocks of trees whose (n, trees) node matrix holds at most
+    ``PLAIN_ENTRIES`` entries; ``PackedCodes`` are read as they lie."""
     nibble = isinstance(codes, PackedCodes)
-    data = codes.data if nibble else codes
-    parts = [predict_ensemble_batched(trees, data[lo:lo + PLAIN_ROWS],
-                                      missing_bin, n_classes, nibble=nibble)
-             for lo in range(0, data.shape[0], PLAIN_ROWS)]
-    if not parts:
-        shape = (0,) if n_classes == 1 else (0, n_classes)
-        return torch.zeros(shape, dtype=torch.float32, device=data.device)
-    return torch.cat(parts)
+    data = (codes.data if nibble else codes).to(torch.int32)
+    n, K, T = data.shape[0], n_classes, trees.feature.shape[0]
+    if out is None:
+        out = torch.zeros((n,) if K == 1 else (n, K),
+                          dtype=trees.leaf_value.dtype, device=data.device)
+    cols = out.view(n, K).T.contiguous()                        # (K, n)
+    step = max(1, PLAIN_ENTRIES // max(n, 1))
+    for lo in range(0, T if n else 0, step):
+        block = TreeArrays(*[a[lo:lo + step] for a in trees])
+        vals = ensemble_leaves(block, data, missing_bin,
+                               nibble).T.contiguous()            # (TB, n)
+        for t in range(vals.shape[0]):
+            cols[(lo + t) % K] += vals[t]
+    out.view(n, K).copy_(cols.T)
+    return out
 
 
 def check_fields(tables: torch.Tensor, F: int, what: str) -> None:
@@ -232,13 +245,10 @@ def _codes_of(codes, what: str):
     return data, F, packed
 
 
-def _launch(trees: TreeArrays, codes, out: torch.Tensor, n_classes: int,
-            missing_bin: int, check: bool, counters, what: str) -> None:
-    """Walk ``trees`` (stacked (T, ...), tree t into column t % K) over
-    ``codes`` and add each record's sums into ``out`` (n, K) float32;
-    ``check``: run :func:`check_fields`; ``counters`` names the (staged,
-    wide) launch counts."""
-    data, F, packed = _codes_of(codes, what)
+def node_tables(trees: TreeArrays, what: str):
+    """(packed node words (T, N_int) int32, leaves (T, N_leaf) float32,
+    depth) of stacked trees, contiguous, as :func:`launch_tables` takes
+    them."""
     tables = pack_node_table(trees).contiguous()
     leaves = trees.leaf_value.to(torch.float32).contiguous()
     if tables.ndim != 2:
@@ -248,10 +258,23 @@ def _launch(trees: TreeArrays, codes, out: torch.Tensor, n_classes: int,
             or tables.shape[-1] != (1 << depth) - 1:
         raise ValueError(f"{what}: tree tables are not a complete tree of "
                          "depth 1..10")
+    return tables, leaves, depth
+
+
+def launch_tables(tables: torch.Tensor, leaves: torch.Tensor, codes,
+                  out: torch.Tensor, n_classes: int, missing_bin: int,
+                  counters, what: str) -> None:
+    """Walk the trees of :func:`node_tables` over ``codes`` and add each
+    record's sums into ``out`` (n, K) float32: one kernel launch on the
+    current stream, which allocates nothing and reads nothing back, so a
+    CUDA graph can capture it once the kernel has run (the first launch
+    builds and loads the library and reads the card's limits).  Field ids
+    are not checked here (:func:`check_fields`).  ``counters`` names the
+    (staged, wide) launch counts."""
+    data, F, packed = _codes_of(codes, what)
     if tables.device != data.device or leaves.device != data.device:
         raise ValueError(f"{what}: trees must lie on {data.device}")
-    if check:
-        check_fields(tables, F, what)
+    depth = int(leaves.shape[-1]).bit_length() - 1
     n, T = data.shape[0], tables.shape[0]
     if n == 0 or T == 0:
         return
@@ -267,6 +290,30 @@ def _launch(trees: TreeArrays, codes, out: torch.Tensor, n_classes: int,
              torch.cuda.current_stream(data.device).cuda_stream)
     _build.check("traversal", err, what)
     _build.count(counters[1] if wide else counters[0])
+
+
+def _launch(trees: TreeArrays, codes, out: torch.Tensor, n_classes: int,
+            missing_bin: int, check: bool, counters, what: str) -> None:
+    """:func:`launch_tables` on ``trees`` (stacked (T, ...), tree t into
+    column t % K); ``check``: run :func:`check_fields` first."""
+    _, F, _ = _codes_of(codes, what)
+    tables, leaves, _ = node_tables(trees, what)
+    if check:
+        check_fields(tables, F, what)
+    launch_tables(tables, leaves, codes, out, n_classes, missing_bin,
+                  counters, what)
+
+
+def _checked_output(out: torch.Tensor, n: int, K: int, device,
+                    what: str) -> torch.Tensor:
+    """``out`` if the kernel can add into it: contiguous float32 (n, K),
+    or (n,) at K = 1, on ``device``."""
+    if out.dtype != torch.float32 or not out.is_contiguous() \
+            or out.device != device \
+            or out.shape not in ((n, K),) + (((n,),) if K == 1 else ()):
+        raise ValueError(f"{what} must be a contiguous float32 (n, {K}) "
+                         f"tensor on {device}")
+    return out
 
 
 def traverse_forest_cuda(forest: TreeArrays, codes, *, missing_bin: int,
@@ -295,12 +342,8 @@ def traverse_forest_cuda(forest: TreeArrays, codes, *, missing_bin: int,
         out = torch.full((n, K), -0.0, dtype=torch.float32,
                          device=codes.device)
     else:
-        out = margins
-        if out.dtype != torch.float32 or not out.is_contiguous() \
-                or out.device != codes.device \
-                or out.shape not in ((n, K),) + (((n,),) if K == 1 else ()):
-            raise ValueError(f"traversal: margins must be a contiguous "
-                             f"float32 (n, {K}) tensor on {codes.device}")
+        out = _checked_output(margins, n, K, codes.device,
+                              "traversal: margins")
     _launch(forest, codes, out, K, missing_bin, check_fields,
             ("traversal", "traversal_wide"), "traversal")
     return out
@@ -316,17 +359,24 @@ def traverse_cuda(tree: TreeArrays, codes, *, missing_bin: int
 
 
 def predict_ensemble_cuda(trees: TreeArrays, codes, *, missing_bin: int,
-                          n_classes: int = 1) -> torch.Tensor:
+                          n_classes: int = 1, out=None) -> torch.Tensor:
     """Ensemble sums: trees hold stacked (T, ...) arrays; codes (n, F)
     uint8 or row-major ``PackedCodes``.  Returns (n,) float32, or (n, K)
     class margins for ``n_classes`` = K > 1 (trees round-major, tree t
-    feeds column t % K)."""
+    feeds column t % K).  Given ``out`` ((n, K) float32, or (n,) at
+    K = 1, contiguous), each record's leaves are added onto what it holds,
+    in tree order, and it is returned."""
     if codes.device.type == "cpu":
-        return predict_ensemble_plain(trees, codes, missing_bin, n_classes)
+        return predict_ensemble_plain(trees, codes, missing_bin, n_classes,
+                                      out=out)
     if n_classes < 1:
         raise ValueError(f"predict_ensemble: n_classes {n_classes} < 1")
-    out = torch.zeros((codes.shape[0], n_classes), dtype=torch.float32,
-                      device=codes.device)
-    _launch(trees, codes, out, n_classes, missing_bin, True,
-            ("ensemble", "ensemble_wide"), "predict_ensemble")
-    return out[:, 0] if n_classes == 1 else out
+    n = codes.shape[0]
+    if out is None:
+        out = torch.zeros((n,) if n_classes == 1 else (n, n_classes),
+                          dtype=torch.float32, device=codes.device)
+    _launch(trees, codes, _checked_output(out, n, n_classes, codes.device,
+                                          "predict_ensemble: out"),
+            n_classes, missing_bin, True, ("ensemble", "ensemble_wide"),
+            "predict_ensemble")
+    return out

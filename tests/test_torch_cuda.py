@@ -434,6 +434,25 @@ def test_traversal_kernels_match_plain(cuda, T, depth):
         rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("K", [1, 7])
+def test_plain_ensemble_sums_in_the_kernels_order(cuda, K):
+    """Both add each record's real leaves in tree order onto zeros or onto
+    the output given, so they agree bit for bit."""
+    rng = np.random.default_rng(K)
+    trees = _trees(7 * K + 3, 6, 28, 256, rng, cuda)
+    codes = torch.from_numpy(_codes(2053, 28, 256, rng)).to(cuda)
+    assert torch.equal(
+        trav_k.predict_ensemble_cuda(trees, codes, missing_bin=255,
+                                     n_classes=K),
+        trav_k.predict_ensemble_plain(trees, codes, 255, n_classes=K))
+    base = torch.randn((2053, K), device=cuda)
+    got = trav_k.predict_ensemble_cuda(trees, codes, missing_bin=255,
+                                       n_classes=K, out=base.clone())
+    want = trav_k.predict_ensemble_plain(trees, codes, 255, n_classes=K,
+                                         out=base.clone())
+    assert torch.equal(got, want)
+
+
 def _ensemble_matches_plain(trees, codes, K, missing_bin, counter):
     """The kernel against the plain version: rtol 1e-5 on the trees' real
     leaves, bit-equal on their leaves rounded to 1/64; each launch counted
@@ -771,3 +790,139 @@ def test_packed_slice_on_card_matches_cpu(cuda, objective, K):
     torch.testing.assert_close(margins, card.margins, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(card.model.predict_margin(data.codes),
                                margins)
+
+
+# --------------------------------------------------------------------------
+# the serving engine: a CUDA graph per shape bucket
+# --------------------------------------------------------------------------
+def _graph_model(T, K, F, depth, rng, device, base=0.25):
+    trees = _trees(T * K, depth, F, 256, rng, device)
+    base_margin = (float(base) if K == 1
+                   else rng.normal(size=K).astype(np.float32))
+    return gbdt.GBDTModel(trees=trees, base_margin=base_margin,
+                          objective="multi:softmax" if K > 1
+                          else "reg:squarederror", missing_bin=255,
+                          n_fields=F, max_depth=depth, n_classes=K)
+
+
+@pytest.mark.parametrize("K", [1, 7])
+def test_graph_replay_bit_equal_to_direct_kernel(cuda, K):
+    """Three row buckets (one of them padded rows), each captured once and
+    replayed bit-equal to the direct kernel call; captures count as
+    traces, replays as replays, and the kernel's launch count moves only
+    at capture."""
+    from repro_torch.core import inference
+
+    rng = np.random.default_rng(K)
+    model = _graph_model(9, K, 28, 6, rng, cuda)
+    cache = inference.PredictCache()
+    for n, traces, launches in ((100, 1, 2), (128, 1, 0), (3000, 2, 2)):
+        codes = torch.from_numpy(_codes(n, 28, 256, rng)).to(cuda)
+        direct = model.predict_margin(codes)
+        before = _build.launch_counts()["ensemble"]
+        got = model.predict_margin(codes, mode="cached", cache=cache)
+        assert torch.equal(got, direct)
+        assert cache.stats()["traces"] == traces
+        again = model.predict_margin(codes, mode="cached", cache=cache)
+        assert torch.equal(again, direct)
+        # a capture launches twice (the eager first run and the captured
+        # body); replays never count
+        assert _build.launch_counts()["ensemble"] - before == launches
+    assert cache.stats()["replays"] == 6
+
+
+def test_same_bucket_hot_swap_recaptures_nothing(cuda):
+    from repro_torch.core import inference
+
+    rng = np.random.default_rng(3)
+    v1 = _graph_model(100, 1, 28, 6, rng, cuda, base=0.5)
+    v2 = _graph_model(99, 1, 28, 6, rng, cuda, base=-1.5)
+    assert inference.bucket_trees(99) == inference.bucket_trees(100) == 104
+    codes = torch.from_numpy(_codes(500, 28, 256, rng)).to(cuda)
+    cache = inference.PredictCache()
+    assert torch.equal(v1.predict_margin(codes, mode="cached", cache=cache),
+                       v1.predict_margin(codes))
+    traces = cache.stats()["traces"]
+    # v2's trees and base margin go into the live buffers; then v1 again
+    for model in (v2, v1, v2):
+        assert torch.equal(
+            model.predict_margin(codes, mode="cached", cache=cache),
+            model.predict_margin(codes))
+    assert cache.stats()["traces"] == traces
+
+
+def test_threads_replaying_one_graph_get_their_own_rows(cuda):
+    import threading
+
+    from repro_torch.core import inference
+
+    rng = np.random.default_rng(4)
+    model = _graph_model(20, 1, 28, 6, rng, cuda)
+    batches = [torch.from_numpy(_codes(200 + 7 * i, 28, 256, rng)).to(cuda)
+               for i in range(4)]
+    want = [model.predict_margin(c) for c in batches]
+    cache = inference.PredictCache()
+    model.predict_margin(batches[0], mode="cached", cache=cache)
+    errors = []
+
+    def serve(i):
+        for _ in range(25):
+            got = model.predict_margin(batches[i], mode="cached",
+                                       cache=cache)
+            if not torch.equal(got, want[i]):
+                errors.append(i)
+
+    threads = [threading.Thread(target=serve, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors
+    assert cache.stats()["traces"] == 1 and cache.stats()["replays"] == 101
+
+
+def test_capture_while_another_thread_replays(cuda):
+    """``publish`` warms a new bucket (a capture) while the server thread
+    replays a warm one: both succeed and stay bit-equal."""
+    import threading
+
+    from repro_torch.core import inference
+
+    rng = np.random.default_rng(5)
+    model = _graph_model(16, 1, 28, 6, rng, cuda)
+    warm = torch.from_numpy(_codes(256, 28, 256, rng)).to(cuda)
+    want = model.predict_margin(warm)
+    cache = inference.PredictCache()
+    model.predict_margin(warm, mode="cached", cache=cache)
+    stop, errors = threading.Event(), []
+
+    def serve():
+        while not stop.is_set():
+            if not torch.equal(model.predict_margin(warm, mode="cached",
+                                                    cache=cache), want):
+                errors.append("replay")
+
+    t = threading.Thread(target=serve)
+    t.start()
+    try:
+        for n in (600, 1500, 5000):
+            codes = torch.from_numpy(_codes(n, 28, 256, rng)).to(cuda)
+            assert torch.equal(model.predict_margin(codes, mode="cached",
+                                                    cache=cache),
+                               model.predict_margin(codes))
+    finally:
+        stop.set()
+        t.join()
+    assert not errors and cache.stats()["traces"] == 4
+
+
+def test_trees_past_the_row_raise_at_load(cuda):
+    from repro_torch.core import inference
+
+    rng = np.random.default_rng(6)
+    model = _graph_model(4, 1, 40, 4, rng, cuda)
+    codes = torch.from_numpy(_codes(300, 28, 256, rng)).to(cuda)
+    cache = inference.PredictCache()
+    with pytest.raises(ValueError, match="splits on field"):
+        model.predict_margin(codes, mode="cached", cache=cache)
+    assert cache.stats()["traces"] == 0

@@ -193,15 +193,20 @@ def test_unported_options_raise(kw):
 
 
 def test_unported_entry_options_raise():
+    """Warm start and the cached predict mode are ported; what the entry
+    points still lack raises, and an unknown mode is refused."""
     codes, is_cat, y = _fixture(200, 3, 0, "regression", 1, 8)
     _, data = _both(codes, is_cat, 8)
     model = gbdt.train(gbdt.GBDTConfig(n_trees=1, max_depth=2), data, y,
                        device="cpu").model
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gbdt.train(gbdt.GBDTConfig(n_trees=1), data, y, init_model=model,
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.predict_margin(data, mode="cached")
+        gbdt.train(gbdt.GBDTConfig(n_trees=1, max_depth=2), data, y,
+                   plan=ExecutionPlan(mesh=object()), device="cpu")
+    cont = gbdt.train(gbdt.GBDTConfig(n_trees=1, max_depth=2), data, y,
+                      init_model=model, device="cpu").model
+    assert cont.n_trees == 2
+    assert torch.equal(cont.predict_margin(data, mode="cached"),
+                       cont.predict_margin(data))
     with pytest.raises(ValueError):
         model.predict_margin(data, mode="batched")
 

@@ -43,7 +43,10 @@ def test_guard_catches_jax_and_repro_but_not_repro_torch():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.api, repro_torch.core, "
-            "repro_torch.data, repro_torch.kernels.ops; "
+            "repro_torch.data, repro_torch.kernels.ops, "
+            "repro_torch.api.estimator, repro_torch.api.serialize, "
+            "repro_torch.core.inference, repro_torch.serving, "
+            "repro_torch.distributed.checkpoint, repro_torch.resilience; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

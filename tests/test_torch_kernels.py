@@ -406,7 +406,7 @@ def test_ensemble_plain_walks_in_record_blocks(monkeypatch):
     trees = _random_trees(5, 3, 4, 8, seed=2)
     codes = _codes(1000, 4, 8, seed=3)
     whole = trav_k.predict_ensemble_plain(_as(trees, ref, _t), _t(codes), 7)
-    monkeypatch.setattr(trav_k, "PLAIN_ROWS", 64)
+    monkeypatch.setattr(trav_k, "PLAIN_ENTRIES", 2000)  # 2 trees a pass
     blocks = trav_k.predict_ensemble_plain(_as(trees, ref, _t), _t(codes), 7)
     assert torch.equal(whole, blocks)
 
