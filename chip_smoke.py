@@ -110,6 +110,40 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    replay time against the direct eager call go into the ``ensemble`` row
    (``serve_*``), with the card's name and power limit.
 
+6. The training variants (log lines ``variants ...``), run last, on phase
+   3's Higgs-shaped data (N records, 28 fields, 256 bins, depth 6) and
+   phase 3b's Covertype-shaped data, each part a gate:
+   (a) 8 fused rounds (``fused_rounds=True``: one CUDA graph a round)
+   against the host loop: one capture and 7 replays, the fit's launches
+   (the eager round's and the captured ones times the replays) histogram =
+   partition = 6 x 8 and traversal = 8, the wrappers' counts those of the
+   eager round and the capture only, round 0's trees equal (feature,
+   threshold, is_cat), losses within rtol 1e-4; the steady round wall of
+   each and its idle share (a graph replay's span on the card, and phase
+   4's one-round profile); (b) ``hist_subtraction=True`` under the host
+   loop and fused rounds: levels >= 1 bin n // 2 records, round 0's tree
+   within the subtraction contract of the direct fit's (feature,
+   threshold, is_cat exact, leaves rtol 1e-4, atol 1e-5), the losses
+   within rtol 1e-4 (later trees' differing nodes counted), and on
+   exact-grid statistics the subtraction tree bit-equal to the direct
+   one; then at each level >= 1 of a tree
+   on the path's codes the histogram's device time with and without
+   subtraction and the subtraction's whole device time; (c) the lossguide
+   grower, ``max_leaves=32``, 4 trees: the loss falls, at most 32 leaves, 1
+   + splits histogram launches; (d) GOSS 0.2/0.1 under the host loop and
+   fused rounds: losses within rtol 1e-4; (e) on the Covertype-shaped data
+   8 fused rounds against phase 3b's host loop (steady round, idle share),
+   then 4 fused rounds with subtraction (the masked class-batched route
+   inside the graph: one launch of all n records a level) against the host
+   loop with subtraction; (f) the kernels of each part against their plain
+   versions on the same inputs: the subtraction's level histogram
+   (compacted at K = 1, masked at K = 7) bit-equal to the direct pass and to
+   its plain version on exact-grid statistics, the lossguide node
+   histogram, the host split offload against the device split search, GOSS
+   weights on the card against the CPU's.  The numbers go into the
+   ``histogram`` and ``histogram_classes`` rows with the card's name and
+   power limit (``variants_card``).
+
 The last two lines of standard output are JSON: the kernel table, then
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside this file, the script exits
@@ -1693,10 +1727,12 @@ def serving_path(seed: int, dev, smi: str) -> dict:
                 serve_card=smi)
 
 
-def round_breakdown(label: str, config, data, y, steady_ms: float) -> None:
+def round_breakdown(label: str, config, data, y, steady_ms: float):
     """Phase 4: device time by kernel over a one-round fit, set against the
     wall time of a steady round of a main path (``steady_ms``, profiler
-    off), and the host operations that take the most time."""
+    off), and the host operations that take the most time.  Returns the
+    round's device ms (host-to-device copies left out), None where the
+    profiler saw no device time."""
     import dataclasses
 
     from repro_torch.core.gbdt import train
@@ -1716,7 +1752,7 @@ def round_breakdown(label: str, config, data, y, steady_ms: float) -> None:
     if not kernels:
         log(f"{label} round breakdown: torch.profiler reported no device "
             "time")
-        return
+        return None
     total = sum(t for t, _, _ in kernels)
     # host-to-device copies are the fit's one-off label upload
     per_round = sum(t for t, key, _ in kernels if "Memcpy HtoD" not in key)
@@ -1733,6 +1769,498 @@ def round_breakdown(label: str, config, data, y, steady_ms: float) -> None:
     log(f"{label} host operations by self time:")
     for t, key, cnt in host[:10]:
         log(f"  {t / 1e3:10.3f} ms  x{cnt:<4d} {key[:90]}")
+    return per_round / 1e3
+
+
+# phase 6, the training variants
+LOSSGUIDE_LEAVES, LOSSGUIDE_TREES = 32, 4
+GOSS_TOP, GOSS_OTHER = 0.2, 0.1
+MC_FUSED_ROUNDS = 4
+
+
+def stamped_fit(config, data, y, plan=None):
+    """``train`` with a synced stamp at every round's end.  Returns the
+    result, the fit's wall time (s) and its round wall times (ms)."""
+    from repro_torch.core.gbdt import train
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stamps = [t0]
+
+    def stamp(t, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    res = train(config, data, y, plan=plan, callback=stamp)
+    torch.cuda.synchronize()
+    return (res, time.perf_counter() - t0,
+            [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])])
+
+
+def device_by_kernel(fn, reps: int = 3) -> dict:
+    """Device ms a call of ``fn`` spends in each kernel (``torch.profiler``,
+    mean of ``reps`` calls after a warm-up); empty where the profiler saw
+    no device time."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if "CUDA" in str(getattr(e, "device_type", "")) and _device_us(e) > 0:
+            out[e.key] = out.get(e.key, 0.0) + _device_us(e) / reps / 1e3
+    return out
+
+
+def idle_share(device_ms, wall_ms):
+    return None if device_ms is None else 1 - device_ms / wall_ms
+
+
+HOLD_CYCLES = 20_000_000          # ~10 ms of the card's clock
+
+
+def busy_ms(fn, reps: int = 5) -> float:
+    """Device ms of a call of ``fn`` (median of ``reps`` after a warm-up):
+    CUDA events around it, enqueued behind a ~10 ms sleep kernel, so the
+    host has queued all of ``fn``'s launches before the card reaches them
+    and the span holds no host time."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def hist_event_ms(fn, reps: int = 5) -> float:
+    """Device ms that a call of ``fn`` spends in the grouped histogram's
+    launches (its counting sort and zeroed output included): CUDA events
+    around each ``histogram_cuda`` call, summed over the call, behind a
+    sleep kernel as in :func:`busy_ms`; median of ``reps`` calls after a
+    warm-up."""
+    from repro_torch.kernels import histogram as hist_k
+
+    real, spans = hist_k.histogram_cuda, []
+
+    def timed(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*a, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    fn()
+    hist_k.histogram_cuda = timed
+    try:
+        totals = []
+        for _ in range(reps):
+            spans.clear()
+            torch.cuda._sleep(HOLD_CYCLES)
+            fn()
+            torch.cuda.synchronize()
+            totals.append(sum(a.elapsed_time(b) for a, b in spans))
+    finally:
+        hist_k.histogram_cuda = real
+    return statistics.median(totals)
+
+
+def tree_parity(a, b, what: str, rtol: float = 1e-4,
+                atol: float = 1e-5) -> None:
+    """``repro``'s subtraction contract: feature, threshold and is_cat
+    exact, leaves within rtol plus atol."""
+    for field in ("feature", "threshold", "is_cat"):
+        check(torch.equal(getattr(a, field), getattr(b, field)),
+              f"{what}: {field} equal")
+    check(bool(torch.all((a.leaf_value - b.leaf_value).abs()
+                         <= atol + rtol * b.leaf_value.abs())),
+          f"{what}: leaves within rtol {rtol}, atol {atol}")
+
+
+def level_ids(codes, codes_cm, g, h, data, plan):
+    """Each level's node ids of one tree grown from (K, n) statistics:
+    ``ids[l]`` routes the records of level l + 1."""
+    from repro_torch.core import tree as tree_mod
+    from repro_torch.kernels import ops
+
+    ids, real = [], ops.partition_level_cm
+
+    def spy(*a, **kw):
+        ids.append(real(*a, **kw))
+        return ids[-1]
+
+    ops.partition_level_cm = spy
+    try:
+        tree_mod.fit_forest(codes, codes_cm, g, h, depth=DEPTH,
+                            n_bins=data.n_bins, missing_bin=data.missing_bin,
+                            is_cat_field=data.is_categorical,
+                            field_mask=torch.ones(data.n_fields,
+                                                  dtype=torch.bool,
+                                                  device=g.device),
+                            lambda_=1.0, gamma=0.0, min_child_weight=1.0,
+                            plan=plan)
+    finally:
+        ops.partition_level_cm = real
+    return ids
+
+
+def exact_grid(shape, gen, dev):
+    """g in [-1, 1] and h in (0, 1] on a 1/m grid, m the largest power of
+    two with n·m <= 2^24 (n = shape[-1]): every partial sum of any subset
+    of the records is exact in float32, in any order."""
+    m = 1 << max(0, ((1 << 24) // shape[-1]).bit_length() - 1)
+    return (torch.randint(-m, m + 1, shape, generator=gen, device=dev) / m,
+            torch.randint(1, m + 1, shape, generator=gen, device=dev) / m)
+
+
+def subtraction_levels(data, K: int, gen, dev, label: str) -> dict:
+    """The subtraction's step ① at each level >= 1 of a tree grown on the
+    path's own codes, against the direct pass (CUDA events behind a sleep
+    kernel, :func:`busy_ms`): the histogram's device time (grouped kernel
+    and its sort) in each, the
+    whole step's (counts, compaction or masking, combine), and parity
+    (6f): on exact-grid statistics the subtraction's level histogram
+    equals the direct pass and its plain version bit for bit."""
+    from repro_torch.api.plan import ExecutionPlan
+    from repro_torch.core import tree as tree_mod
+    from repro_torch.kernels import ops
+
+    plan = ExecutionPlan().resolved()
+    plain = ExecutionPlan(hist_strategy="reference").resolved()
+    n = data.n_records
+    g, h = exact_grid((K, n), gen, dev)
+    ids = level_ids(data.codes, data.codes_cm, g, h, data, plan)
+    levels = []
+    parent = ops.build_histogram(data.codes, g, h,
+                                 torch.zeros((K, n), dtype=torch.int32,
+                                             device=dev),
+                                 n_nodes=1, n_bins=data.n_bins, plan=plan)
+    for level in range(1, DEPTH):
+        nid, nn = ids[level - 1], 2 ** level
+        direct_fn = lambda: ops.build_histogram(
+            data.codes, g, h, nid, n_nodes=nn, n_bins=data.n_bins, plan=plan)
+        sub_fn = lambda: tree_mod._subtract_level_hist(
+            data.codes, g, h, nid, parent, n_nodes=nn, n_bins=data.n_bins,
+            plan=plan)
+        direct, sub = direct_fn(), sub_fn()
+        check(torch.equal(sub, direct),
+              f"{label} level {level}: subtraction bit-equal to the direct "
+              "pass (exact-grid stats)")
+        if level == 3:
+            want = tree_mod._subtract_level_hist(
+                data.codes, g, h, nid, parent, n_nodes=nn,
+                n_bins=data.n_bins, plan=plain)
+            check(torch.equal(sub, want), f"{label} level 3: subtraction "
+                  "bit-equal to its plain version")
+            del want
+        if level == 1:
+            top = sorted(device_by_kernel(sub_fn).items(),
+                         key=lambda kv: -kv[1])[:8]
+            log(f"{label} level 1 subtraction's kernels (device ms, "
+                "torch.profiler): "
+                + "; ".join(f"{ms:.4f} {k[:60]}" for k, ms in top))
+        levels.append(dict(level=level, direct_hist_ms=hist_event_ms(
+            direct_fn), sub_hist_ms=hist_event_ms(sub_fn),
+            direct_total_ms=busy_ms(direct_fn),
+            sub_total_ms=busy_ms(sub_fn)))
+        parent = direct
+        del sub
+    log(f"{label} subtraction by level (device ms): " + json.dumps(levels))
+    return levels
+
+
+def variants_path(config, data, y, dev, host_device_ms, smi: str) -> dict:
+    """Phase 6 (a)-(d) and (f) on the Higgs-shaped path's data.  Returns the
+    phase's numbers for the histogram row."""
+    import dataclasses
+
+    from repro_torch.api.plan import ExecutionPlan
+    from repro_torch.core import gbdt
+    from repro_torch.core import splits as splits_mod
+    from repro_torch.core import tree as tree_mod
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import histogram as hist_k
+    from repro_torch.kernels.ref import TreeArrays
+
+    t_phase = time.perf_counter()
+    n = data.n_records
+    fused_cfg = dataclasses.replace(config, fused_rounds=True)
+    gbdt.round_step_cache_clear()
+
+    # (a) fused rounds against the host loop
+    host, host_s, host_rounds = stamped_fit(config, data, y)
+    _build.reset_launch_counts()
+    fused, fused_s, fused_rounds = stamped_fit(fused_cfg, data, y)
+    counted = _build.launch_counts()
+    st = fused.stats
+    log(f"variants (a): host loop {host_s:.3f} s, fused {fused_s:.3f} s; "
+        f"round wall ms host {json.dumps([round(r, 3) for r in host_rounds])}"
+        f" fused {json.dumps([round(r, 3) for r in fused_rounds])}; stats "
+        f"{json.dumps({k: v for k, v in st.items() if k != 'n_rows'})}; "
+        f"wrapper counts {json.dumps(counted)}")
+    T = config.n_trees
+    check(st["fused_graph"] and st["graph_captures"] == 1
+          and st["graph_replays"] == T - 1,
+          "fused: one capture, the other rounds replayed")
+    check(st["launches"]["histogram"] == DEPTH * T
+          and st["launches"]["partition"] == DEPTH * T
+          and st["launches"]["traversal"] == T,
+          f"fused: histogram = partition = {DEPTH} x {T}, traversal = {T}")
+    check(counted["histogram"] == 2 * DEPTH,
+          "fused: the wrappers counted the eager round and the capture only")
+    for field in ("feature", "threshold", "is_cat"):
+        check(torch.equal(getattr(fused.model.trees, field)[0],
+                          getattr(host.model.trees, field)[0]),
+              f"fused: round 0's {field} equals the host loop's")
+    check(bool(torch.allclose(torch.tensor(fused.history["train_loss"]),
+                              torch.tensor(host.history["train_loss"]),
+                              rtol=1e-4, atol=0)),
+          "fused: losses within rtol 1e-4 of the host loop's")
+    step = gbdt._round_step(fused_cfg, ExecutionPlan().resolved(), data,
+                            None)
+    # a replay's span on the card (not torch.profiler: tracing a graph's
+    # kernels has left later profiles empty)
+    replay_ms = busy_ms(step.graph.replay)
+    host_steady, fused_steady = (statistics.median(host_rounds[1:]),
+                                 statistics.median(fused_rounds[1:]))
+    out = dict(fused_round_ms=fused_steady, host_round_ms=host_steady,
+               fused_device_ms=replay_ms, host_device_ms=host_device_ms,
+               fused_idle=idle_share(replay_ms, fused_steady),
+               host_idle=idle_share(host_device_ms, host_steady),
+               variants_card=smi)
+    log(f"variants (a) Higgs steady round: fused {fused_steady:.3f} ms "
+        f"(graph replay {replay_ms:.3f} ms on the card, idle "
+        f"{out['fused_idle']:.3f}) vs host loop {host_steady:.3f} ms "
+        f"(device {host_device_ms} ms, idle {out['host_idle']})  [{smi}]")
+
+    # (b) histogram subtraction, host loop and fused
+    sub_plan = ExecutionPlan(hist_subtraction=True)
+    seen, real = [], hist_k.histogram_cuda
+
+    def spy(codes, g, *a, **kw):
+        seen.append(codes.shape[0])
+        return real(codes, g, *a, **kw)
+
+    hist_k.histogram_cuda = spy
+    try:
+        sub_host, _, sub_rounds = stamped_fit(config, data, y, sub_plan)
+        host_sizes, seen[:] = list(seen), []
+        sub_fused, _, sub_fused_rounds = stamped_fit(fused_cfg, data, y,
+                                                     sub_plan)
+        fused_sizes = list(seen)
+    finally:
+        hist_k.histogram_cuda = real
+    check(host_sizes == ([n] + [n // 2] * (DEPTH - 1)) * T,
+          "subtraction: levels >= 1 bin n // 2 records (host loop)")
+    check(fused_sizes == ([n] + [n // 2] * (DEPTH - 1)) * 2,
+          "subtraction: the eager round and the capture bin n // 2 records "
+          "at levels >= 1")
+    # round 0 grows from the same statistics in every fit and holds the
+    # subtraction contract; later rounds start from margins that differ by
+    # the derived sums' rounding, so near-tied candidates may flip between
+    # any two fits on the card: counted, and the losses gated
+    want0 = TreeArrays(*[a[0] for a in host.model.trees])
+    differ = {}
+    for what, fit in (("host loop", sub_host), ("fused", sub_fused)):
+        tree_parity(TreeArrays(*[a[0] for a in fit.model.trees]), want0,
+                    f"subtraction ({what}) round 0")
+        check(bool(torch.allclose(torch.tensor(fit.history["train_loss"]),
+                                  torch.tensor(host.history["train_loss"]),
+                                  rtol=1e-4, atol=0)),
+              f"subtraction ({what}): losses within rtol 1e-4 of the direct "
+              "fit's")
+        differ[what] = int((fit.model.trees.feature
+                            != host.model.trees.feature).sum())
+    # on exact-grid statistics the subtraction tree is the direct one
+    gen = torch.Generator(device=dev).manual_seed(7)
+    g, h = exact_grid((n,), gen, dev)
+    grow = dict(depth=DEPTH, n_bins=data.n_bins, missing_bin=data.missing_bin,
+                is_cat_field=data.is_categorical,
+                field_mask=torch.ones(data.n_fields, dtype=torch.bool,
+                                      device=dev),
+                lambda_=1.0, gamma=0.0, min_child_weight=1.0)
+    exact = [tree_mod.fit_tree(data.codes, data.codes_cm, g, h, plan=plan,
+                               **grow) for plan in (sub_plan, ExecutionPlan())]
+    check(all(torch.equal(u, v) for u, v in zip(*exact)),
+          "subtraction: on exact-grid statistics its tree equals the direct "
+          "tree bit for bit")
+    out.update(sub_host_round_ms=statistics.median(sub_rounds[1:]),
+               sub_fused_round_ms=statistics.median(sub_fused_rounds[1:]))
+    log(f"variants (b): subtraction steady round host loop "
+        f"{out['sub_host_round_ms']:.3f} ms, fused "
+        f"{out['sub_fused_round_ms']:.3f} ms; round 0 within the "
+        f"subtraction contract, losses within rtol 1e-4, node fields that "
+        f"differ from the direct fit's over {T} trees {json.dumps(differ)}; "
+        f"exact-grid tree bit-equal; histogram records a round "
+        f"{host_sizes[:DEPTH]}")
+    out["sub_levels"] = subtraction_levels(data, 1, gen, dev, "Higgs")
+
+    # (c) the lossguide grower
+    lg_cfg = dataclasses.replace(config, grow_policy="lossguide",
+                                 max_leaves=LOSSGUIDE_LEAVES,
+                                 n_trees=LOSSGUIDE_TREES)
+    _build.reset_launch_counts()
+    lg, lg_s, lg_rounds = stamped_fit(lg_cfg, data, y)
+    counts = _build.launch_counts()
+    splits = (lg.model.trees.feature >= 0).sum(dim=1)
+    loss = lg.history["train_loss"]
+    log(f"variants (c): lossguide {LOSSGUIDE_TREES} trees {lg_s:.3f} s, "
+        f"splits {splits.tolist()}, loss {loss}, launches "
+        f"{json.dumps(counts)}")
+    check(all(b < a for a, b in zip(loss, loss[1:])),
+          "lossguide: train loss strictly decreases")
+    check(int(splits.max()) + 1 <= LOSSGUIDE_LEAVES,
+          f"lossguide: at most {LOSSGUIDE_LEAVES} leaves")
+    check(counts["histogram"] == int((1 + splits).sum()),
+          "lossguide: one histogram launch for the root and one a split")
+    out["lossguide_round_ms"] = statistics.median(lg_rounds[1:])
+    # (f) the lossguide node histogram: one node, masked statistics
+    g, h = exact_grid((n,), gen, dev)
+    mask = (torch.rand((n,), generator=gen, device=dev) < 0.3).float()
+    zeros = torch.zeros((n,), dtype=torch.int32, device=dev)
+    got = hist_k.histogram_cuda(data.codes, g * mask, h * mask, zeros,
+                                n_nodes=1, n_bins=data.n_bins)
+    check(torch.equal(got, hist_k.histogram_plain(
+        data.codes, g * mask, h * mask, zeros, 1, data.n_bins)),
+        "lossguide node histogram bit-equal to its plain version")
+    # (f) the host split offload on this level histogram
+    args = (got, data.is_categorical,
+            torch.ones(data.n_fields, dtype=torch.bool, device=dev), 1.0,
+            0.0, 1.0)
+    for name, a, b in zip(splits_mod.SplitDecision._fields,
+                          splits_mod.find_best_splits_host(*args),
+                          splits_mod.find_best_splits(*args)):
+        check(torch.equal(a, b), f"host split offload: {name} equal")
+    del got
+
+    # (d) GOSS, host loop and fused: the same draws by construction
+    goss_cfg = dataclasses.replace(config, goss_top_rate=GOSS_TOP,
+                                   goss_other_rate=GOSS_OTHER)
+    goss_host, _, _ = stamped_fit(goss_cfg, data, y)
+    goss_fused, _, goss_rounds = stamped_fit(
+        dataclasses.replace(goss_cfg, fused_rounds=True), data, y)
+    log(f"variants (d): GOSS {GOSS_TOP}/{GOSS_OTHER} loss host "
+        f"{goss_host.history['train_loss']} fused "
+        f"{goss_fused.history['train_loss']}")
+    check(bool(torch.allclose(torch.tensor(goss_fused.history["train_loss"]),
+                              torch.tensor(goss_host.history["train_loss"]),
+                              rtol=1e-4, atol=0)),
+          "GOSS: fused losses within rtol 1e-4 of the host loop's")
+    check(goss_fused.stats["graph_captures"] == 1
+          and goss_fused.stats["fused_graph"], "GOSS: fused as one graph")
+    # (f) GOSS weights on the card against the CPU, the same draw
+    g_round = torch.randn((n,), generator=gen, device=dev)
+    pick = gbdt.goss_pick(n, GOSS_TOP, GOSS_OTHER, gen)
+    check(torch.equal(gbdt.goss_weights(g_round, None, GOSS_TOP, GOSS_OTHER,
+                                        pick=pick).cpu(),
+                      gbdt.goss_weights(g_round.cpu(), None, GOSS_TOP,
+                                        GOSS_OTHER, pick=pick.cpu())),
+          "GOSS weights on the card equal the CPU's")
+    out["goss_fused_round_ms"] = statistics.median(goss_rounds[1:])
+    gbdt.round_step_cache_clear()
+    torch.cuda.empty_cache()
+    log(f"variants phase (Higgs): {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def variants_multiclass(config, data, y, dev, host_steady_ms,
+                        host_device_ms, smi: str) -> dict:
+    """Phase 6 (e) and the Covertype cell's fused round: 8 fused rounds
+    against the path's host loop, then 4 fused rounds with subtraction
+    (the masked class-batched route inside the graph) against the host
+    loop with subtraction.  Returns the numbers for the class row."""
+    import dataclasses
+
+    from repro_torch.api.plan import ExecutionPlan
+    from repro_torch.core import gbdt
+    from repro_torch.kernels import histogram as hist_k
+
+    t_phase = time.perf_counter()
+    K, n = config.n_classes, data.n_records
+    gbdt.round_step_cache_clear()
+    fused_cfg = dataclasses.replace(config, fused_rounds=True)
+    fused, _, rounds = stamped_fit(fused_cfg, data, y)
+    check(fused.stats["graph_captures"] == 1 and fused.stats["fused_graph"],
+          "multi-class fused: one capture")
+    step = gbdt._round_step(fused_cfg, ExecutionPlan().resolved(), data,
+                            None)
+    replay_ms = busy_ms(step.graph.replay)
+    steady = statistics.median(rounds[1:])
+    out = dict(fused_round_ms_k7=steady, host_round_ms_k7=host_steady_ms,
+               fused_device_ms_k7=replay_ms,
+               host_device_ms_k7=host_device_ms,
+               fused_idle_k7=idle_share(replay_ms, steady),
+               host_idle_k7=idle_share(host_device_ms, host_steady_ms))
+    log(f"variants (e) Covertype steady round: fused {steady:.3f} ms "
+        f"(graph replay {replay_ms:.3f} ms on the card, idle "
+        f"{out['fused_idle_k7']:.3f}) vs "
+        f"host loop {host_steady_ms:.3f} ms (device {host_device_ms} ms, "
+        f"idle {out['host_idle_k7']})  [{smi}]")
+
+    sub_plan = ExecutionPlan(hist_subtraction=True)
+    short = dataclasses.replace(config, n_trees=MC_FUSED_ROUNDS)
+    host, _, _ = stamped_fit(short, data, y, sub_plan)
+    seen, real = [], hist_k.histogram_cuda
+
+    def spy(codes, g, *a, **kw):
+        seen.append((codes.shape[0], tuple(g.shape)))
+        return real(codes, g, *a, **kw)
+
+    hist_k.histogram_cuda = spy
+    try:
+        sub, _, sub_rounds = stamped_fit(
+            dataclasses.replace(short, fused_rounds=True), data, y, sub_plan)
+    finally:
+        hist_k.histogram_cuda = real
+    st = sub.stats
+    loss = sub.history["train_loss"]
+    log(f"variants (e): {MC_FUSED_ROUNDS} fused rounds with subtraction, "
+        f"K = {K}: loss {loss} (host loop {host.history['train_loss']}), "
+        f"stats {json.dumps({k: v for k, v in st.items() if k != 'n_rows'})}"
+        f", histogram calls {seen[:DEPTH]}")
+    check(st["fused_graph"] and st["graph_captures"] == 1
+          and st["graph_replays"] == MC_FUSED_ROUNDS - 1,
+          "multi-class subtraction: one capture, the rest replayed")
+    check(st["launches"]["histogram"] == DEPTH * MC_FUSED_ROUNDS
+          and st["launches"]["partition"] == DEPTH * MC_FUSED_ROUNDS
+          and st["launches"]["traversal"] == MC_FUSED_ROUNDS,
+          "multi-class subtraction: one class-batched launch a level")
+    check(seen == [(n, (K, n))] * DEPTH * 2,
+          "multi-class subtraction: masked statistics over all n records")
+    check(all(b < a for a, b in zip(loss, loss[1:])),
+          "multi-class subtraction: train loss strictly decreases")
+    # a derived sibling reassociates its parent's sum, and the atomics add
+    # in no fixed order, so near-tied candidates of K x 63 nodes may flip
+    # between two fits: counted, not gated
+    differ = int((sub.model.trees.feature[:K]
+                  != host.model.trees.feature[:K]).sum())
+    log(f"variants (e): round 0 nodes whose field differs from the host "
+        f"loop's: {differ} of {K * (2 ** DEPTH - 1)}")
+    check(bool(torch.allclose(torch.tensor(loss),
+                              torch.tensor(host.history["train_loss"]),
+                              rtol=1e-4, atol=0)),
+          "multi-class subtraction: losses within rtol 1e-4 of the host "
+          "loop's")
+    out["sub_fused_round_ms_k7"] = statistics.median(sub_rounds[1:])
+    gen = torch.Generator(device=dev).manual_seed(8)
+    out["sub_levels_k7"] = subtraction_levels(data, K, gen, dev,
+                                              "Covertype K = 7")
+    gbdt.round_step_cache_clear()
+    torch.cuda.empty_cache()
+    log(f"variants phase (Covertype): {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def main(argv=None) -> int:
@@ -1770,10 +2298,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     counts, steady_ms, (config, data, y) = main_path(
         args.records, args.trees, args.seed, dev)
-    round_breakdown("Higgs", config, data, y, steady_ms)
+    higgs_device_ms = round_breakdown("Higgs", config, data, y, steady_ms)
     naive_counts = naive_fit(config, data, y)
-    del data
-    torch.cuda.empty_cache()
     mc_counts, mc_steady_ms, (mc_config, mc_data, mc_y) = mc_main_path(
         MC_RECORDS, MC_ROUNDS, args.seed, dev)
     # the histogram's time depends on the codes: its row is timed on the
@@ -1794,9 +2320,8 @@ def main(argv=None) -> int:
         shape_k7=f"n={n_mc} F={MC_FIELDS} NB={N_BINS} K={MC_CLASSES} "
         f"NN={nn}, {naive_label(n_mc, MC_CLASSES, nn, MC_FIELDS, N_BINS)}, "
         "Covertype-shaped codes")
-    round_breakdown("multi-class", mc_config, mc_data, mc_y, mc_steady_ms)
-    del mc_data
-    torch.cuda.empty_cache()
+    mc_device_ms = round_breakdown("multi-class", mc_config, mc_data, mc_y,
+                                   mc_steady_ms)
     iot_counts, iot_steady_ms, iot_step5_ms, (iot_config, iot_data,
                                               iot_y) = iot_main_path(
         IOT_RECORDS, args.trees, args.seed, dev)
@@ -1812,6 +2337,16 @@ def main(argv=None) -> int:
     del iot_data
     torch.cuda.empty_cache()
     rows["ensemble"].update(serving_path(args.seed, dev, smi))
+    # phase 6 last, on the Higgs- and Covertype-shaped paths' data: its
+    # graphs and profiles then run after every earlier phase's profile
+    rows["histogram"].update(variants_path(config, data, y, dev,
+                                           higgs_device_ms, smi))
+    del data
+    torch.cuda.empty_cache()
+    rows["histogram_classes"].update(variants_multiclass(
+        mc_config, mc_data, mc_y, dev, mc_steady_ms, mc_device_ms, smi))
+    del mc_data
+    torch.cuda.empty_cache()
 
     # (row, kernel counter, source, TPU kernel, launches of which path)
     meta = [

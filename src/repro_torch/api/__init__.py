@@ -11,6 +11,9 @@
   * :class:`GBDTPipeline` — binner + model through the serving engine;
     :class:`Server` / :class:`ModelRegistry` — the deadline-batching
     server over it.
+  * :class:`RecoveryPolicy` / :class:`GracefulShutdown` — the divergence
+    sentinels and the preemption-safe exit that ``fit`` takes as
+    ``recovery=`` and ``shutdown=``.
 
 Only :mod:`repro_torch.api.plan` is imported eagerly: the kernels depend on
 it, so the modules that depend on the kernels load lazily, which keeps the
@@ -37,6 +40,11 @@ _LAZY = {
     "warmup_buckets": ("repro_torch.serving", "warmup_buckets"),
     "ServerHealth": ("repro_torch.serving", "ServerHealth"),
     "FaultSchedule": ("repro_torch.resilience", "FaultSchedule"),
+    "RecoveryPolicy": ("repro_torch.resilience", "RecoveryPolicy"),
+    "GracefulShutdown": ("repro_torch.resilience", "GracefulShutdown"),
+    "TrainingInterrupted": ("repro_torch.resilience", "TrainingInterrupted"),
+    "NumericalDivergenceError": ("repro_torch.resilience",
+                                 "NumericalDivergenceError"),
     "QueueFullError": ("repro_torch.resilience", "QueueFullError"),
     "DeadlineExceededError": ("repro_torch.resilience",
                               "DeadlineExceededError"),

@@ -9,10 +9,12 @@ engine all live behind ``fit`` / ``predict``.  The estimator runs on
 ``device`` (a constructor parameter, CUDA by default); like ``plan`` it is
 a runtime choice, and a bundle never carries it.
 
-Options of ``repro``'s estimator that the port does not have yet raise
-``NotImplementedError`` naming their ROADMAP item: ``data=`` (out-of-core,
-Queue 1 item 5), ``mesh=`` (item 8), ``recovery=`` and ``shutdown=`` (item
-6), and a non-default ``max_leaves``, GOSS or ``fused_rounds`` (item 4).
+The training variants reach ``train`` as they do in ``repro``:
+``grow_policy="lossguide"`` with ``max_leaves``, GOSS, ``fused_rounds``,
+and ``fit(recovery=, shutdown=)``.  The two options of ``repro``'s
+estimator that the port does not have yet raise ``NotImplementedError``
+naming their ROADMAP item: ``data=`` (out-of-core, Queue 1 item 5) and
+``mesh=`` (item 8).
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ from repro_torch.core.gbdt import (GBDTConfig, GBDTModel, TrainResult,
                                    train)
 from repro_torch.core.inference import GBDTPipeline, feature_importance
 from repro_torch.kernels.ref import TreeArrays
+from repro_torch.resilience.errors import TrainingInterrupted
+from repro_torch.resilience.recovery import RecoveryPolicy
 
 
 def _validate_labels(y: np.ndarray, what: str = "y") -> None:
@@ -202,9 +206,6 @@ class BoosterEstimator:
         """``objective``/``n_classes`` are the *resolved* pair from
         ``_resolve_objective``; ``n_classes`` is used verbatim (a resolved
         scalar objective carries K = None)."""
-        if self.max_leaves is not None:
-            raise _not_ported("max_leaves (the lossguide grower)",
-                              "4: training variants")
         return GBDTConfig(
             n_trees=n_trees, max_depth=self.max_depth,
             learning_rate=self.learning_rate, lambda_=self.lambda_,
@@ -214,7 +215,7 @@ class BoosterEstimator:
             colsample_bytree=self.colsample_bytree,
             goss_top_rate=self.goss_top_rate,
             goss_other_rate=self.goss_other_rate,
-            grow_policy=self.grow_policy,
+            grow_policy=self.grow_policy, max_leaves=self.max_leaves,
             fused_rounds=self.fused_rounds, log_every=self.log_every,
             early_stopping_rounds=self.early_stopping_rounds,
             n_classes=n_classes, seed=self.seed)
@@ -226,7 +227,8 @@ class BoosterEstimator:
             mesh: Any = None,
             checkpoint_dir: Optional[str] = None,
             checkpoint_every: int = 25, callback=None,
-            verbose: bool = False, recovery: Any = None,
+            verbose: bool = False,
+            recovery: Optional[RecoveryPolicy] = None,
             shutdown: Any = None) -> "BoosterEstimator":
         """Bin ``X`` (raw floats, NaN == missing) and boost ``self.n_trees``
         trees on the estimator's device.
@@ -243,6 +245,17 @@ class BoosterEstimator:
                          ``checkpoint_every`` rounds (atomic, sha-verified).
                          An explicit ``xgb_model`` takes precedence over
                          any existing checkpoints (a warning is emitted).
+        recovery:        a :class:`repro_torch.resilience.RecoveryPolicy`
+                         arming the divergence sentinels (the host loop
+                         raises the typed error, fused rounds roll back and
+                         back the learning rate off).
+        shutdown:        a :class:`repro_torch.resilience.GracefulShutdown`
+                         — on SIGTERM/SIGINT the trainer finishes the round
+                         in flight and raises a resumable
+                         :class:`TrainingInterrupted`; the estimator keeps
+                         the partial model as fitted state and, with
+                         ``checkpoint_dir``, saves a resume checkpoint
+                         before re-raising.
         """
         if data is not None:
             raise _not_ported("fit(data=...) (out-of-core streaming)",
@@ -250,9 +263,6 @@ class BoosterEstimator:
         if mesh is not None:
             raise _not_ported("fit(mesh=...) (distributed training)",
                               "8: distributed")
-        if recovery is not None or shutdown is not None:
-            raise _not_ported("fit(recovery=..., shutdown=...)",
-                              "6: resilience")
         plan = self._resolve_plan(plan)
         device = self._device()
         if X is None or y is None:
@@ -290,15 +300,36 @@ class BoosterEstimator:
                     checkpoint_dir,
                     GBDTPipeline(binner=binner, model=model), t_idx + 1)
 
-        result = train(config, data, y, eval_set=ev, init_model=init_model,
-                       callback=cb, verbose=verbose, plan=plan,
-                       device=device)
+        try:
+            result = train(config, data, y, eval_set=ev,
+                           init_model=init_model, callback=cb,
+                           verbose=verbose, plan=plan, device=device,
+                           recovery=recovery, shutdown=shutdown)
+        except TrainingInterrupted as stop:
+            self._finish_interrupted(stop, binner, checkpoint_dir)
+            raise
         self._model, self._binner, self._result = result.model, binner, result
         if checkpoint_dir is not None:
             # step numbers count ROUNDS (the unit of the per-round saves)
             serialize.save_checkpoint(checkpoint_dir, self,
                                       result.model.n_rounds)
         return self
+
+    def _finish_interrupted(self, stop: TrainingInterrupted, binner,
+                            checkpoint_dir: Optional[str]) -> None:
+        """A graceful shutdown stopped the fit after a committed round:
+        keep the partial ensemble as fitted state and save a resume
+        checkpoint (step = rounds, the unit of the per-round saves), then
+        let the typed error propagate."""
+        if stop.result is None or stop.result.model is None:
+            return
+        self._model, self._binner = stop.result.model, binner
+        self._result = stop.result
+        if checkpoint_dir is not None and self._model.n_rounds > 0:
+            serialize.save_checkpoint(checkpoint_dir, self,
+                                      self._model.n_rounds)
+            if stop.checkpoint_dir is None:
+                stop.checkpoint_dir = checkpoint_dir
 
     def _resume_or_warm_start(self, xgb_model: Any,
                               checkpoint_dir: Optional[str],

@@ -1,17 +1,28 @@
 """ExecutionPlan — which implementation runs each GBDT step.
 
-The PyTorch counterpart of :mod:`repro.api.plan`, cut to the three step
-strategies.  ``"cuda"`` sends a step to its hand-written CUDA kernel,
-``"reference"`` to the kernel's plain PyTorch version, and ``"auto"``
-resolves to ``"cuda"``.  The kernel wrappers themselves take the plain
-version for tensors that lie on the CPU and launch the kernel (or raise)
-for CUDA tensors, so ``"auto"`` means the kernel on the card and the plain
-version on the CPU.  Nothing probes a kernel or falls back from it: on a
-CUDA tensor the kernel runs or the call raises.
+The PyTorch counterpart of :mod:`repro.api.plan`.  ``"cuda"`` sends a step
+to its hand-written CUDA kernel, ``"reference"`` to the kernel's plain
+PyTorch version, and ``"auto"`` resolves to ``"cuda"``.  The kernel
+wrappers themselves take the plain version for tensors that lie on the
+CPU and launch the kernel (or raise) for CUDA tensors, so ``"auto"`` means
+the kernel on the card and the plain version on the CPU.  Nothing probes a
+kernel or falls back from it: on a CUDA tensor the kernel runs or the call
+raises.
 
 Step ① also takes ``"cuda_packed"``, the counterpart of ``repro``'s
 ``"pallas_packed"``: the naive-packing histogram of the paper's Fig. 9
-ablation, a twin for comparison that is never the default.
+ablation, a twin for comparison that is never the default; and the plain
+PyTorch baselines of ``repro``'s software strategies, ``"scatter"``,
+``"scatter_private"``, ``"sort"`` and ``"onehot"``
+(:mod:`repro_torch.kernels.ops`).  Step ⑤'s batch inference also takes
+``"scan"``, the one-tree-at-a-time baseline.
+
+``repro``'s Pallas grid knobs (``records_per_block``, ``fields_per_block``,
+``trees_per_block``, ``interpret``) size TPU launches and have no meaning
+here; ``chunk_bytes``/``packed_codes`` (out-of-core) and ``mesh``/
+``data_axes`` (distributed) are not ported yet.  Saved ``repro`` configs
+name the Pallas strategies: :func:`lift_legacy_strategy` maps them onto
+the CUDA kernels where a legacy setting is lifted into a plan.
 """
 from __future__ import annotations
 
@@ -21,7 +32,14 @@ from typing import Optional
 import torch
 
 STRATEGIES = ("cuda", "reference")
-HIST_STRATEGIES = STRATEGIES + ("cuda_packed",)
+PLAIN_HIST_STRATEGIES = ("scatter", "scatter_private", "sort", "onehot")
+HIST_STRATEGIES = STRATEGIES + ("cuda_packed",) + PLAIN_HIST_STRATEGIES
+TRAVERSAL_STRATEGIES = STRATEGIES + ("scan",)
+# repro's Pallas strategy names -> the CUDA kernel that replaces each
+LEGACY_STRATEGIES = {"pallas_grouped": "cuda", "pallas_packed": "cuda_packed",
+                     "pallas": "cuda"}
+_STRATEGY_FIELDS = ("hist_strategy", "partition_strategy",
+                    "traversal_strategy")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -36,16 +54,45 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def lift_legacy_strategy(name):
+    """A strategy name of a saved ``repro`` config or a legacy keyword, as
+    the port spells it: the Pallas names become their CUDA kernels, every
+    other value passes as it is."""
+    return LEGACY_STRATEGIES.get(name, name)
+
+
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
-    """Kernel selection for step ① (histogram), ③ (partition) and ⑤
-    (traversal and batch inference).  Each field is ``"auto"``, ``"cuda"``
-    or ``"reference"``, and ``hist_strategy`` may also be
-    ``"cuda_packed"``; ``mesh`` exists to refuse multi-device plans."""
+    """Kernel selection for step ① (histogram), ② (split search), ③
+    (partition) and ⑤ (traversal and batch inference).
+
+    Fields
+    ------
+    hist_strategy:       step ① — ``"cuda"``, ``"reference"``,
+                         ``"cuda_packed"`` or a plain baseline of
+                         ``PLAIN_HIST_STRATEGIES``; or ``"auto"``
+    partition_strategy:  step ③ — ``"cuda"`` | ``"reference"`` | ``"auto"``
+    traversal_strategy:  step ⑤ / batch inference — ``"cuda"``,
+                         ``"reference"``, ``"scan"`` (batch inference one
+                         tree at a time; a single walk is the plain one) or
+                         ``"auto"``
+    host_offload_split:  run step ② on the host (the paper's offload): one
+                         copy of the level's histogram to the host, numpy,
+                         one copy of the decisions back
+    hist_subtraction:    at each level > 0 of the depthwise grower bin only
+                         the smaller child of every split parent and derive
+                         the sibling as ``parent − smaller`` (paper §II-A).
+                         ``None`` resolves to ``False``: a derived sibling
+                         reassociates the parent's sum, so the direct pass
+                         stays the default
+    mesh:                exists to refuse multi-device plans
+    """
 
     hist_strategy: str = "auto"
     partition_strategy: str = "auto"
     traversal_strategy: str = "auto"
+    host_offload_split: bool = False
+    hist_subtraction: Optional[bool] = None
     mesh: Optional[object] = None
 
     def __post_init__(self):
@@ -55,22 +102,52 @@ class ExecutionPlan:
                 "Distributed)")
         for name, allowed in (("hist_strategy", HIST_STRATEGIES),
                               ("partition_strategy", STRATEGIES),
-                              ("traversal_strategy", STRATEGIES)):
+                              ("traversal_strategy", TRAVERSAL_STRATEGIES)):
             value = getattr(self, name)
             if value not in allowed + ("auto",):
                 raise ValueError(f"unknown {name} {value!r}; choose from "
                                  f"{allowed + ('auto',)}")
 
+    @classmethod
+    def from_config(cls, config) -> "ExecutionPlan":
+        """Lift a ``GBDTConfig``'s legacy per-step fields (deprecated where
+        the config is built) into one resolved plan; ``repro``'s Pallas
+        names map onto the CUDA kernels."""
+        return cls(**{name: lift_legacy_strategy(getattr(config, name))
+                      for name in _STRATEGY_FIELDS},
+                   host_offload_split=bool(config.host_offload_split)
+                   ).resolved()
+
     def resolved(self) -> "ExecutionPlan":
-        """Replace every ``"auto"`` with ``"cuda"``."""
-        kw = {name: "cuda" for name in ("hist_strategy", "partition_strategy",
-                                        "traversal_strategy")
+        """Replace every ``"auto"`` with ``"cuda"`` and an unset
+        ``hist_subtraction`` with ``False``."""
+        kw = {name: "cuda" for name in _STRATEGY_FIELDS
               if getattr(self, name) == "auto"}
+        if self.hist_subtraction is None:
+            kw["hist_subtraction"] = False
         return dataclasses.replace(self, **kw) if kw else self
 
     def replace(self, **changes) -> "ExecutionPlan":
         return dataclasses.replace(self, **changes)
 
+    def describe(self) -> str:
+        sub = "+sub" if self.hist_subtraction else ""
+        split = "host" if self.host_offload_split else "device"
+        return (f"ExecutionPlan(hist={self.hist_strategy}{sub}, "
+                f"split={split}, partition={self.partition_strategy}, "
+                f"traversal={self.traversal_strategy}, single-device)")
 
-def resolve_plan(plan: Optional[ExecutionPlan] = None) -> ExecutionPlan:
-    return (plan if plan is not None else ExecutionPlan()).resolved()
+
+def resolve_plan(plan: Optional[ExecutionPlan] = None,
+                 **loose) -> ExecutionPlan:
+    """A concrete plan from ``plan`` (the default plan when None) and
+    legacy loose settings: entries that are ``None``, ``"auto"`` or
+    ``False`` are ignored, any other value (a Pallas name lifted by
+    :func:`lift_legacy_strategy`) overrides the plan field of the same
+    name."""
+    loose = {k: lift_legacy_strategy(v) for k, v in loose.items()
+             if v is not None and v != "auto" and v is not False}
+    base = plan if plan is not None else ExecutionPlan()
+    if loose:
+        base = dataclasses.replace(base, **loose)
+    return base.resolved()

@@ -11,13 +11,21 @@ whole ensemble, directly or through the compile-once engine of
 :mod:`repro_torch.core.inference`; ``train(init_model=...)`` continues a
 fit (warm start, checkpoint resume).
 
-Options of the reference trainer that this port does not have yet raise
-``NotImplementedError`` naming their ROADMAP item.
+The training variants of the reference trainer are here too: the
+lossguide grower (``grow_policy="lossguide"``, ``max_leaves``), GOSS
+(:func:`goss_weights`), the divergence sentinels and graceful shutdown
+(``train(recovery=, shutdown=)``), and fused rounds (``fused_rounds``):
+on the card each boosting round is one CUDA graph, replayed round after
+round (:class:`_RoundStep`).  The out-of-core and distributed trainers are
+not ported yet (ROADMAP Queue 1 items 5 and 8).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
+import traceback
+import warnings
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -26,10 +34,15 @@ import torch
 from repro_torch.api.plan import ExecutionPlan, resolve_device, resolve_plan
 from repro_torch.core import losses as losses_mod
 from repro_torch.core import tree as tree_mod
-from repro_torch.core.binning import BinnedDataset
-from repro_torch.kernels import ops
+from repro_torch.core.binning import BinnedDataset, PackedCodes
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels import traversal as trav_k
 from repro_torch.kernels.ref import TreeArrays
+from repro_torch.resilience import metrics as _metrics
+from repro_torch.resilience.errors import (NumericalDivergenceError,
+                                           TrainingInterrupted)
+from repro_torch.resilience.recovery import RecoveryPolicy
+from repro_torch.resilience.shutdown import GracefulShutdown
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,22 +58,52 @@ class GBDTConfig:
     objective: str = "reg:squarederror"
     subsample: float = 1.0           # stochastic GB (Friedman 2002)
     colsample_bytree: float = 1.0
-    goss_top_rate: float = 0.0       # GOSS (not ported yet)
-    goss_other_rate: float = 0.0
-    grow_policy: str = "depthwise"   # "lossguide" is not ported yet
-    fused_rounds: bool = False       # not ported yet
-    log_every: int = 10              # verbose cadence (rounds)
+    goss_top_rate: float = 0.0       # GOSS: kept fraction by |gradient|
+    goss_other_rate: float = 0.0     # GOSS: sampled fraction of the rest
+    grow_policy: str = "depthwise"   # "depthwise" | "lossguide"
+    max_leaves: Optional[int] = None  # lossguide only
+    fused_rounds: bool = False       # a round as one step: on the card one
+    #                                  CUDA graph, replayed round after round
+    log_every: int = 10              # host-read / verbose cadence (rounds)
+    # deprecated per-step strategy settings, lifted into the plan with a
+    # DeprecationWarning (repro's Pallas names map onto the CUDA kernels);
+    # pass train(plan=ExecutionPlan(...)) instead
+    hist_strategy: str = "auto"
+    partition_strategy: str = "auto"
+    traversal_strategy: str = "auto"
+    host_offload_split: bool = False  # the paper's step-② offload
     early_stopping_rounds: Optional[int] = None
     n_classes: Optional[int] = None  # multi:softmax only; K trees per round
     seed: int = 0
 
     def __post_init__(self):
+        if (self.hist_strategy != "auto"
+                or self.partition_strategy != "auto"
+                or self.traversal_strategy != "auto"
+                or self.host_offload_split):
+            warnings.warn(
+                "legacy strategy-string kwargs are deprecated; "
+                "GBDTConfig's hist_strategy / partition_strategy / "
+                "traversal_strategy / host_offload_split fields move to "
+                "ExecutionPlan — pass plan=ExecutionPlan(...) to "
+                "train()/fit() instead", DeprecationWarning, stacklevel=3)
         if self.max_depth < 1 or self.max_depth > 10:
             raise ValueError("max_depth must be in [1, 10]")
         if self.grow_policy not in ("depthwise", "lossguide"):
             raise ValueError(f"unknown grow_policy {self.grow_policy!r}")
         if self.log_every < 1:
             raise ValueError("log_every must be >= 1")
+        if self.fused_rounds and self.grow_policy != "depthwise":
+            raise ValueError("fused_rounds requires the depthwise "
+                             "grow_policy (lossguide growth is host-driven)")
+        if self.goss_top_rate or self.goss_other_rate:
+            if not (0.0 <= self.goss_top_rate < 1.0
+                    and 0.0 < self.goss_other_rate <= 1.0
+                    and self.goss_top_rate + self.goss_other_rate <= 1.0):
+                raise ValueError(
+                    "GOSS rates need 0 <= top_rate < 1, 0 < other_rate <= 1 "
+                    f"and top+other <= 1; got top={self.goss_top_rate}, "
+                    f"other={self.goss_other_rate}")
         if self.objective in losses_mod.MULTICLASS_OBJECTIVES:
             if self.n_classes is None or self.n_classes < 2:
                 raise ValueError(
@@ -72,15 +115,6 @@ class GBDTConfig:
             raise ValueError(
                 f"n_classes={self.n_classes} only applies to multi-class "
                 f"objectives, not {self.objective!r}")
-        todo = []
-        if self.fused_rounds:
-            todo.append("fused_rounds (ROADMAP Queue 1: training variants)")
-        if self.grow_policy == "lossguide":
-            todo.append("the lossguide grower (ROADMAP Queue 1: training variants)")
-        if self.goss_top_rate or self.goss_other_rate:
-            todo.append("GOSS (ROADMAP Queue 1: training variants)")
-        if todo:
-            raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
 
 @dataclasses.dataclass
@@ -254,24 +288,137 @@ def _round_generator(config: GBDTConfig, t_idx: int,
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def goss_sizes(n: int, top_rate: float, other_rate: float):
+    """(kept by |gradient|, sampled of the rest) record counts of GOSS over
+    n records, as ``repro``'s :func:`goss_weights` sizes them."""
+    n_top = min(int(np.ceil(top_rate * n)), n)
+    n_other = min(int(np.ceil(other_rate * n)), n - n_top)
+    return n_top, n_other
+
+
+def goss_pick(n: int, top_rate: float, other_rate: float,
+              gen: torch.Generator) -> torch.Tensor:
+    """GOSS's random draw: ``n_other`` distinct positions among the n −
+    n_top records below the top set, by rank (a permutation's head).  It
+    does not depend on the gradients, so a fused round draws it before its
+    graph replays."""
+    n_top, n_other = goss_sizes(n, top_rate, other_rate)
+    return torch.randperm(n - n_top, generator=gen,
+                          device=gen.device)[:n_other]
+
+
+def goss_weights(g: torch.Tensor, gen: Optional[torch.Generator],
+                 top_rate: float, other_rate: float,
+                 pick: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gradient-based One-Side Sampling weights (LightGBM-style GOSS).
+
+    Keeps the top ``top_rate`` fraction of records by gradient magnitude at
+    weight 1, samples ``other_rate``·n of the rest uniformly at weight
+    ``(1 - top_rate) / other_rate`` (so the small-gradient records keep
+    their expected share of g and h) and drops the others (weight 0).
+    ``g`` is (n,) or (n, K); multi-class records rank by the sum of their
+    per-class |g|.  Records rank by a stable sort of −|g|, the key and tie
+    order of ``repro``'s ``jnp.argsort``; the sample is ``pick``
+    (:func:`goss_pick`), drawn from ``gen`` when None.  JAX's threefry
+    streams cannot be reproduced, so the sample differs from ``repro``'s.
+    """
+    score = g.abs() if g.ndim == 1 else g.abs().sum(dim=-1)
+    n = score.shape[0]
+    n_top, n_other = goss_sizes(n, top_rate, other_rate)
+    order = torch.argsort(-score, stable=True)
+    w = torch.zeros((n,), dtype=torch.float32, device=g.device)
+    w.scatter_(0, order[:n_top], 1.0)
+    if n_other > 0:
+        if pick is None:
+            pick = goss_pick(n, top_rate, other_rate, gen)
+        w.scatter_(0, order[n_top:][pick], (1.0 - top_rate) / other_rate)
+    return w
+
+
+def _round_draws(config: GBDTConfig, gen: torch.Generator, n: int,
+                 F: int) -> Dict[str, torch.Tensor]:
+    """The round's random inputs, drawn from its stream in ``repro``'s
+    order: GOSS's sample, the subsample uniforms, the field uniforms.  None
+    depends on the gradients, so a fused round draws them before its graph
+    replays and both trainers draw the same numbers.  Without GOSS the
+    stream is consumed as it was before GOSS was ported."""
+    draws = {}
+    if config.goss_top_rate or config.goss_other_rate:
+        draws["goss_pick"] = goss_pick(n, config.goss_top_rate,
+                                       config.goss_other_rate, gen)
+    if config.subsample < 1.0:
+        draws["row_uniform"] = torch.rand((n,), generator=gen,
+                                          device=gen.device)
+    if config.colsample_bytree < 1.0:
+        draws["field_uniform"] = torch.rand((F,), generator=gen,
+                                            device=gen.device)
+    return draws
+
+
 def _round_stats(config: GBDTConfig, gen: torch.Generator, g, h, n: int,
                  F: int, K: Optional[int] = None):
-    """Per-round row subsampling and the per-tree field mask; g, h are
+    """The round's stochastic filters on the gradient statistics (GOSS,
+    row subsampling, the per-tree field mask), drawn from ``gen``; g, h are
     (n,) or, for K classes, (n, K)."""
+    return _apply_draws(config, _round_draws(config, gen, n, F), g, h, F, K)
+
+
+def _apply_draws(config: GBDTConfig, draws: Dict[str, torch.Tensor], g, h,
+                 F: int, K: Optional[int] = None):
+    """:func:`_round_stats` from the round's ``draws``
+    (:func:`_round_draws`).  Reads nothing back from the device."""
     device = g.device
-    if config.subsample < 1.0:
-        mask = (torch.rand((n,), generator=gen, device=device)
-                < config.subsample).to(torch.float32)
+    if "goss_pick" in draws:
+        w = goss_weights(g, None, config.goss_top_rate,
+                         config.goss_other_rate, pick=draws["goss_pick"])
+        if K is not None:
+            w = w[:, None]
+        g, h = g * w, h * w
+    if "row_uniform" in draws:
+        mask = (draws["row_uniform"] < config.subsample).to(torch.float32)
         if K is not None:          # same record draw for every class
             mask = mask[:, None]
         g, h = g * mask, h * mask
-    if config.colsample_bytree < 1.0:
-        field_mask = (torch.rand((F,), generator=gen, device=device)
-                      < config.colsample_bytree)
-        field_mask[torch.argmax(field_mask.to(torch.int32))] = True
+    if "field_uniform" in draws:
+        field_mask = draws["field_uniform"] < config.colsample_bytree
+        # keep at least one field: the first drawn in, else field 0
+        field_mask = field_mask.scatter(
+            0, torch.argmax(field_mask.to(torch.int32)).reshape(1), True)
     else:
         field_mask = torch.ones((F,), dtype=torch.bool, device=device)
     return g, h, field_mask
+
+
+def _grow_round(config: GBDTConfig, plan: ExecutionPlan,
+                loss: losses_mod.Loss, data: BinnedDataset, y, margins,
+                draws: Dict[str, torch.Tensor]) -> TreeArrays:
+    """Steps ①–④ of one round: gradient statistics, the round's filters,
+    the tree (K class trees at once for a multi-class loss) and shrinkage,
+    folded into the stored leaves.  Shared by the host loop and the fused
+    round."""
+    K = loss.n_outputs
+    g, h = loss.grad_hess(margins, y)
+    g, h, field_mask = _apply_draws(config, draws, g, h, data.n_fields, K)
+    common = dict(depth=config.max_depth, n_bins=data.n_bins,
+                  missing_bin=data.missing_bin,
+                  is_cat_field=data.is_categorical,
+                  field_mask=field_mask, lambda_=config.lambda_,
+                  gamma=config.gamma,
+                  min_child_weight=config.min_child_weight, plan=plan)
+    if K is not None:
+        # one class-batched pass grows all K per-class trees
+        tree = tree_mod.fit_forest(data.codes, data.codes_cm,
+                                   g.T.contiguous(), h.T.contiguous(),
+                                   **common)
+    elif config.grow_policy == "depthwise":
+        tree = tree_mod.fit_tree(data.codes, data.codes_cm, g.contiguous(),
+                                 h.contiguous(), **common)
+    else:
+        tree = tree_mod.fit_tree_lossguide(
+            data.codes, data.codes_cm, g.contiguous(), h.contiguous(),
+            max_leaves=config.max_leaves, **common)
+    # shrinkage is folded into the stored leaf values
+    return tree._replace(leaf_value=tree.leaf_value * config.learning_rate)
 
 
 def _validate_multiclass_labels(K: int, y: torch.Tensor,
@@ -303,10 +450,14 @@ def train(config: GBDTConfig, data: BinnedDataset, y,
           callback: Optional[Callable[[int, GBDTModel], None]] = None,
           verbose: bool = False,
           plan: Optional[ExecutionPlan] = None,
-          device=None) -> TrainResult:
+          device=None,
+          recovery: Optional[RecoveryPolicy] = None,
+          shutdown: Optional[GracefulShutdown] = None) -> TrainResult:
     """Fit a GBDT ensemble on ``device`` (CUDA by default; the data moves
     there if it lies elsewhere).  ``eval_set`` is ``(BinnedDataset,
-    labels)`` and drives early stopping.
+    labels)`` and drives early stopping.  ``plan`` selects the kernels of
+    every step; when omitted it is lifted from the config's legacy
+    per-step fields.
 
     ``init_model`` continues a fit (warm start, checkpoint resume): its
     trees and base margin seed the ensemble, its margins are replayed
@@ -315,22 +466,31 @@ def train(config: GBDTConfig, data: BinnedDataset, y,
     stream a one-go fit would have drawn.  With the plain versions on the
     CPU (deterministic), a fit of A rounds continued by B is bit-equal to
     a fit of A + B.
+
+    ``config.fused_rounds`` runs each round as one step
+    (:func:`_train_fused`; a CUDA graph on the card).  ``recovery`` arms
+    the divergence sentinels: the host loop raises
+    :class:`NumericalDivergenceError` at a non-finite loss, the fused loop
+    rolls back to its last finite round (see :func:`_train_fused`).
+    ``shutdown`` (a :class:`GracefulShutdown`) makes the fit
+    preemption-safe: a requested shutdown finishes the round in flight and
+    raises :class:`TrainingInterrupted` carrying the partial result.
     """
     device = resolve_device(device)
-    plan = resolve_plan(plan)
+    plan = (ExecutionPlan.from_config(config) if plan is None
+            else resolve_plan(plan))
     loss = losses_mod.get_loss(config.objective, config.n_classes)
     K = loss.n_outputs                 # None for scalar objectives
     data = data.to(device)
     y = torch.as_tensor(y, dtype=torch.float32, device=device)
+    ev_data = ev_y = eval_margins = None
     if eval_set is not None:
         ev_data = eval_set[0].to(device)
         ev_y = torch.as_tensor(eval_set[1], dtype=torch.float32,
                                device=device)
     if K is not None:
-        _validate_multiclass_labels(K, y,
-                                    ev_y if eval_set is not None else None)
+        _validate_multiclass_labels(K, y, ev_y)
     n, F = data.codes.shape
-    depth = config.max_depth
 
     trees: List[TreeArrays] = []       # one entry per round: (K, ...) at K
     history: Dict[str, List[float]] = {"train_loss": []}
@@ -338,7 +498,8 @@ def train(config: GBDTConfig, data: BinnedDataset, y,
     if eval_set is not None:
         history["eval_loss"] = []
     if init_model is not None:
-        init_model = _warm_model(init_model, config, K, depth, device)
+        init_model = _warm_model(init_model, config, K, config.max_depth,
+                                 device)
         trees = (_unstack_forests(init_model.trees, init_model.n_rounds, K)
                  if K is not None else
                  [TreeArrays(*[a[i] for a in init_model.trees])
@@ -354,33 +515,25 @@ def train(config: GBDTConfig, data: BinnedDataset, y,
         margins = base.expand((n,) + base.shape).clone()   # (n,) or (n, K)
         if eval_set is not None:
             eval_margins = base.expand((ev_y.shape[0],) + base.shape).clone()
+
+    def model() -> GBDTModel:
+        return _as_model(trees, base_margin, config, data.missing_bin, F)
+
+    if config.fused_rounds:
+        return _train_fused(config, plan, loss, data, y, ev_data, ev_y,
+                            trees, margins, eval_margins, model, history,
+                            step_times, callback, verbose, device, recovery,
+                            shutdown)
+
     best_eval, best_round = np.inf, -1
     # step ⑤ for one round: K class trees at once, or the one tree
     predict_round = _predict_forest if K is not None else _predict_one_tree
-
     start = len(trees)     # a warm start continues the round numbering
     for t_idx in range(start, start + config.n_trees):
         t0 = time.perf_counter()
-        g, h = loss.grad_hess(margins, y)
-        g, h, field_mask = _round_stats(
-            config, _round_generator(config, t_idx, device), g, h, n, F, K)
-        common = dict(depth=depth, n_bins=data.n_bins,
-                      missing_bin=data.missing_bin,
-                      is_cat_field=data.is_categorical,
-                      field_mask=field_mask, lambda_=config.lambda_,
-                      gamma=config.gamma,
-                      min_child_weight=config.min_child_weight, plan=plan)
-        if K is not None:
-            # one class-batched pass grows all K per-class trees
-            tree = tree_mod.fit_forest(data.codes, data.codes_cm,
-                                       g.T.contiguous(), h.T.contiguous(),
-                                       **common)
-        else:
-            tree = tree_mod.fit_tree(data.codes, data.codes_cm,
-                                     g.contiguous(), h.contiguous(),
-                                     **common)
-        # shrinkage is folded into the stored leaf values
-        tree = tree._replace(leaf_value=tree.leaf_value * config.learning_rate)
+        draws = _round_draws(config, _round_generator(config, t_idx, device),
+                             n, F)
+        tree = _grow_round(config, plan, loss, data, y, margins, draws)
         _sync(device)
         t1 = time.perf_counter()
         step_times["binning_split"] += t1 - t0
@@ -409,19 +562,389 @@ def train(config: GBDTConfig, data: BinnedDataset, y,
         if verbose and (t_idx % config.log_every == 0
                         or t_idx == start + config.n_trees - 1):
             print(f"[gbdt] tree {t_idx:4d}  train_loss={train_loss:.6f}")
+        # divergence sentinel: the loop reads the loss every round anyway,
+        # so the check is free; rollback lives in the fused loop, here it
+        # fails fast with the typed error
+        if recovery is not None and not np.isfinite(train_loss):
+            raise NumericalDivergenceError(
+                f"non-finite training loss at round {t_idx}",
+                round_index=t_idx, what="loss")
         if callback is not None:
-            callback(t_idx, _as_model(trees, base_margin, config,
-                                      data.missing_bin, F))
+            callback(t_idx, model())
+        if shutdown is not None and shutdown.requested:
+            _interrupt(shutdown, t_idx, TrainResult(
+                model=model(), history=history, step_times=step_times,
+                stats={"n_rows": n, "interrupted": True}, margins=margins))
         if stop:
             if verbose:
                 print(f"[gbdt] early stop at tree {t_idx} "
                       f"(best {best_round}: {best_eval:.6f})")
             break
 
-    return TrainResult(model=_as_model(trees, base_margin, config,
-                                       data.missing_bin, F),
-                       history=history, step_times=step_times,
+    return TrainResult(model=model(), history=history, step_times=step_times,
                        stats={"n_rows": n}, margins=margins)
+
+
+def _interrupt(shutdown: GracefulShutdown, t_idx: int,
+               partial: TrainResult) -> None:
+    """Raise the typed resumable interrupt after round ``t_idx``
+    committed."""
+    raise TrainingInterrupted(
+        f"shutdown ({shutdown.signal_name}) after round {t_idx}",
+        rounds_done=partial.model.n_rounds, signal_name=shutdown.signal_name,
+        result=partial)
+
+
+# --------------------------------------------------------------------------
+# fused boosting rounds: one step a round, a CUDA graph on the card
+# --------------------------------------------------------------------------
+ROUND_STEP_CACHE = 4       # cached round steps (each holds a copy of its
+#                            data and, on the card, a graph's memory pool)
+_ROUND_STEPS: "collections.OrderedDict[tuple, _RoundStep]" = \
+    collections.OrderedDict()
+
+
+def _fused_step_key(config: GBDTConfig) -> GBDTConfig:
+    """Strip the fields that do not shape a round (loop controls such as
+    the seed, the tree count and early stopping, and the legacy strategy
+    fields already lifted into the plan), so a seed sweep reuses one
+    step."""
+    return dataclasses.replace(
+        config, n_trees=1, seed=0, early_stopping_rounds=None, log_every=1,
+        max_leaves=None, hist_strategy="auto", partition_strategy="auto",
+        traversal_strategy="auto", host_offload_split=False)
+
+
+@dataclasses.dataclass
+class _RoundState:
+    """What a fused round reads and writes: the data, labels, margins (both
+    updated in place) and the round's draws."""
+    data: BinnedDataset
+    y: torch.Tensor
+    margins: torch.Tensor
+    ev_data: Optional[BinnedDataset] = None
+    ev_y: Optional[torch.Tensor] = None
+    ev_margins: Optional[torch.Tensor] = None
+    draws: Optional[Dict[str, torch.Tensor]] = None
+
+
+def _copy_codes(dst, src) -> None:
+    if isinstance(src, PackedCodes):
+        dst.data.copy_(src.data)
+    else:
+        dst.copy_(src)
+
+
+def _clone_codes(codes):
+    if isinstance(codes, PackedCodes):
+        return PackedCodes(codes.data.clone(), codes.n, codes.bits)
+    return codes.clone()
+
+
+def _static_data(data: Optional[BinnedDataset]) -> Optional[BinnedDataset]:
+    if data is None:
+        return None
+    return dataclasses.replace(data, codes=_clone_codes(data.codes),
+                               codes_cm=_clone_codes(data.codes_cm),
+                               is_categorical=data.is_categorical.clone())
+
+
+class _RoundStep:
+    """One fused boosting round for one (step key, plan, shapes): gradient
+    statistics and the round's filters, the level loop, leaf settling and
+    shrinkage, step ⑤ into the train (and eval) margins in place and the
+    loss means, all on the device.
+
+    On the card the round is one CUDA graph over static buffers that hold
+    a copy of the fit's data, labels and margins (:meth:`begin`) and of
+    each round's draws.  The round that meets the step first runs eagerly
+    on a side stream, on those buffers (the kernels' first use builds
+    their libraries and reads the card's limits, which a capture may not),
+    and its result is that round's; then the round is captured there, and
+    every later round replays it.  A round that cannot be captured raises,
+    naming the operation; it never runs eagerly instead.  On the CPU, and
+    under ``host_offload_split`` (which reads the host by design), the same
+    round runs eagerly on the fit's own tensors.
+
+    Kernel wrappers count their launches when they run eagerly and when
+    they are captured, never at a replay: ``captured`` holds the launches
+    one replay makes.
+    """
+
+    def __init__(self, config: GBDTConfig, plan: ExecutionPlan,
+                 use_graph: bool):
+        self.config, self.plan, self.use_graph = config, plan, use_graph
+        self.loss = losses_mod.get_loss(config.objective, config.n_classes)
+        self.static: Optional[_RoundState] = None
+        self.graph = None
+        self.outputs = None
+        self.captured: Dict[str, int] = {}
+        self.runs = 0
+
+    def begin(self, data, y, margins, ev_data=None, ev_y=None,
+              ev_margins=None) -> _RoundState:
+        """The state a fit's rounds run on: the fit's own tensors, or on
+        the card the graph's static buffers with them copied in."""
+        if not self.use_graph:
+            return _RoundState(data, y, margins, ev_data, ev_y, ev_margins)
+        st = self.static
+        if st is None:
+            self.static = _RoundState(
+                _static_data(data), y.clone(), margins.clone(),
+                _static_data(ev_data),
+                None if ev_y is None else ev_y.clone(),
+                None if ev_margins is None else ev_margins.clone())
+            return self.static
+        for dst, src in ((st.data, data), (st.ev_data, ev_data)):
+            if src is not None:
+                _copy_codes(dst.codes, src.codes)
+                _copy_codes(dst.codes_cm, src.codes_cm)
+                dst.is_categorical.copy_(src.is_categorical)
+        for dst, src in ((st.y, y), (st.margins, margins),
+                         (st.ev_y, ev_y), (st.ev_margins, ev_margins)):
+            if src is not None:
+                dst.copy_(src)
+        return st
+
+    def _body(self, st: _RoundState):
+        predict_round = (_predict_forest if self.loss.n_outputs is not None
+                         else _predict_one_tree)
+        tree = _grow_round(self.config, self.plan, self.loss, st.data, st.y,
+                           st.margins, st.draws)
+        predict_round(tree, st.data, self.plan, st.margins)
+        tl = torch.mean(self.loss.value(st.margins, st.y))
+        evl = None
+        if st.ev_data is not None:
+            predict_round(tree, st.ev_data, self.plan, st.ev_margins)
+            evl = torch.mean(self.loss.value(st.ev_margins, st.ev_y))
+        return tree, tl, evl
+
+    def run(self, st: _RoundState, draws: Dict[str, torch.Tensor]):
+        """One round on ``st`` with ``draws``: ``((tree, train loss, eval
+        loss), launches, first)`` — the launches the round made on the card
+        and whether it was this step's first run (a capture on the card, a
+        trace elsewhere)."""
+        first = self.runs == 0
+        self.runs += 1
+        if not self.use_graph:
+            st.draws = draws
+            before = _build.launch_counts()
+            out = self._body(st)
+            return out, _count_delta(before), first
+        if st.draws is None:
+            st.draws = {k: v.clone() for k, v in draws.items()}
+        else:
+            for k, v in draws.items():
+                st.draws[k].copy_(v)
+        if self.graph is None:
+            out, eager = self._capture(st)
+            return out, eager, first
+        self.graph.replay()
+        tree, tl, evl = self.outputs
+        out = (TreeArrays(*[a.clone() for a in tree]), tl.clone(),
+               None if evl is None else evl.clone())
+        return out, dict(self.captured), first
+
+    def _capture(self, st: _RoundState):
+        dev = st.margins.device
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        before = _build.launch_counts()
+        with torch.cuda.stream(stream):
+            out = self._body(st)           # this round, eagerly
+            eager = _count_delta(before)
+            mid = _build.launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                outputs = self._body(st)
+            except Exception as exc:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass        # the capture is already invalid
+                raise RuntimeError(
+                    "a fused round could not be captured as a CUDA graph "
+                    f"({self.plan.describe()}): {_where(exc)}") from exc
+            graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        self.captured = _count_delta(mid)
+        self.graph, self.outputs = graph, outputs
+        return out, eager
+
+
+def _count_delta(before: Dict[str, int]) -> Dict[str, int]:
+    now = _build.launch_counts()
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+
+def _where(exc: BaseException) -> str:
+    """The operation that raised: the innermost frame of this package in
+    the traceback, and the error."""
+    frames = traceback.extract_tb(exc.__traceback__)
+    own = [f for f in frames if "repro_torch" in f.filename] or frames
+    f = own[-1]
+    return (f"{f.name} at {f.filename.rsplit('/', 1)[-1]}:{f.lineno} "
+            f"({(f.line or '').strip()}) raised {type(exc).__name__}: {exc}")
+
+
+def _round_step(config: GBDTConfig, plan: ExecutionPlan,
+                data: BinnedDataset, n_eval: Optional[int]) -> _RoundStep:
+    """The cached step of ``config``'s step key, the plan and the shapes of
+    ``data`` (on its device), made on first use (the least recently used
+    of ``ROUND_STEP_CACHE`` steps makes room)."""
+    device = data.codes.device
+    key = (_fused_step_key(config), plan, data.n_records, data.n_fields,
+           data.n_bins, n_eval, isinstance(data.codes, PackedCodes), device)
+    step = _ROUND_STEPS.get(key)
+    if step is None:
+        use_graph = device.type == "cuda" and not plan.host_offload_split
+        step = _ROUND_STEPS[key] = _RoundStep(key[0], plan, use_graph)
+        while len(_ROUND_STEPS) > ROUND_STEP_CACHE:
+            _ROUND_STEPS.popitem(last=False)
+    _ROUND_STEPS.move_to_end(key)
+    return step
+
+
+def round_step_cache_clear() -> None:
+    """Drop every cached fused round step (and its graph and buffers)."""
+    _ROUND_STEPS.clear()
+
+
+def _train_fused(config, plan, loss, data, y, ev_data, ev_y, trees, margins,
+                 eval_margins, model, history, step_times, callback, verbose,
+                 device, recovery=None, shutdown=None) -> TrainResult:
+    """The boosting loop over fused rounds (:class:`_RoundStep`).
+
+    The host reads no per-round value unless it has to: losses stay device
+    scalars, read in bulk at the end.  Early stopping reads the eval loss
+    each round; the divergence sentinel reads one ``isfinite`` over the
+    loss and the margins every ``config.log_every`` rounds.  A trip with a
+    ``recovery`` policy rolls the fit back to the last finite sentinel
+    snapshot and replays at the same learning rate (a one-off glitch
+    replays bit-equal), backing the rate off by
+    ``recovery.divergence_backoff`` when the same window diverges twice
+    (the learning rate is part of the step key, so that recaptures);
+    without a policy the sentinel raises :class:`NumericalDivergenceError`.
+
+    ``stats``: ``fused_graph`` (rounds ran as a CUDA graph),
+    ``graph_captures`` (steps met first: captures on the card, traces
+    elsewhere), ``graph_replays`` (the other rounds) and ``launches``
+    (each kernel's launches in the fit: the eager rounds' and the captured
+    launches times the replays).
+    """
+    live = config                      # LR backoff replaces this copy only
+    n, F = data.n_records, data.n_fields
+    n_eval = None if ev_data is None else ev_data.n_records
+    step = _round_step(live, plan, data, n_eval)
+    st = step.begin(data, y, margins, ev_data, ev_y, eval_margins)
+    train_dev: List[torch.Tensor] = []
+    eval_dev: List[torch.Tensor] = []
+    best_eval, best_round = np.inf, -1
+    rstats = {"fused_graph": step.use_graph, "graph_captures": 0,
+              "graph_replays": 0, "divergence_rollbacks": 0}
+    launches: Dict[str, int] = collections.Counter()
+    t_loop = time.perf_counter()
+    start = len(trees)
+    end = start + config.n_trees
+
+    def flush_history():
+        # one bulk read materialises the whole loss trajectory
+        for name, dev_list in (("train_loss", train_dev),
+                               ("eval_loss", eval_dev)):
+            if dev_list:
+                history[name].extend(torch.stack(dev_list).cpu().tolist())
+        step_times["fused_rounds"] = time.perf_counter() - t_loop
+
+    def result(**extra) -> TrainResult:
+        flush_history()
+        return TrainResult(
+            model=model(), history=history, step_times=step_times,
+            stats={"n_rows": n, "fused_rounds": True, **rstats,
+                   "launches": dict(launches), **extra},
+            margins=st.margins.clone())
+
+    def snapshot(t_next):
+        """The resumable loop state, taken only at finite sentinel checks,
+        so a rollback always lands on finite state."""
+        return {"t": t_next, "trees": len(trees), "dev": len(train_dev),
+                "margins": st.margins.clone(),
+                "eval": (None if st.ev_margins is None
+                         else st.ev_margins.clone()),
+                "best": (best_eval, best_round)}
+
+    snap = snapshot(start)
+    diverged_at = -1                   # sentinel window of the last trip
+    t_idx = start
+    stop_early = False
+    while t_idx < end and not stop_early:
+        draws = _round_draws(live, _round_generator(config, t_idx, device),
+                             n, F)
+        (tree, tl, evl), ran, first = step.run(st, draws)
+        launches.update(ran)
+        rstats["graph_captures" if first else "graph_replays"] += 1
+        trees.append(tree)
+        train_dev.append(tl)
+        if evl is not None:
+            eval_dev.append(evl)
+            if config.early_stopping_rounds is not None:
+                ev_f = float(evl)               # the one per-round read
+                if ev_f < best_eval - 1e-12:
+                    best_eval, best_round = ev_f, t_idx
+                if t_idx - best_round >= config.early_stopping_rounds:
+                    if verbose:
+                        print(f"[gbdt] early stop at tree {t_idx} "
+                              f"(best {best_round}: {best_eval:.6f})")
+                    stop_early = True
+        if verbose and (t_idx % config.log_every == 0 or t_idx == end - 1):
+            print(f"[gbdt] tree {t_idx:4d}  train_loss={float(tl):.6f}")
+
+        # ---- divergence sentinel (one device reduction, one read)
+        if t_idx % config.log_every == 0 or t_idx == end - 1 or stop_early:
+            finite = bool(torch.isfinite(tl)
+                          & torch.isfinite(st.margins).all())
+            if not finite:
+                if (recovery is None or rstats["divergence_rollbacks"]
+                        >= recovery.max_divergence_rollbacks):
+                    raise NumericalDivergenceError(
+                        f"non-finite loss/margins at round {t_idx}",
+                        round_index=t_idx, what="loss/margins")
+                rstats["divergence_rollbacks"] += 1
+                _metrics.record("recoveries")
+                del trees[snap["trees"]:]
+                del train_dev[snap["dev"]:]
+                del eval_dev[snap["dev"]:]
+                best_eval, best_round = snap["best"]
+                if diverged_at == snap["t"]:
+                    # the same window diverged on its replay: genuine
+                    # divergence, not a glitch — shrink the steps
+                    live = dataclasses.replace(
+                        live, learning_rate=(live.learning_rate
+                                             * recovery.divergence_backoff))
+                    step = _round_step(live, plan, data, n_eval)
+                    rstats["fused_graph"] &= step.use_graph
+                    if verbose:
+                        print(f"[gbdt] round {snap['t']} diverged twice; "
+                              f"learning_rate -> {live.learning_rate:g}")
+                elif verbose:
+                    print(f"[gbdt] divergence at round {t_idx}; rolling "
+                          f"back to round {snap['t']}")
+                # copies: an eager round updates its margins in place
+                st = step.begin(data, y, snap["margins"].clone(), ev_data,
+                                ev_y, None if snap["eval"] is None
+                                else snap["eval"].clone())
+                diverged_at = snap["t"]
+                t_idx = snap["t"]
+                stop_early = False
+                continue
+            snap = snapshot(t_idx + 1)
+        if callback is not None:
+            callback(t_idx, model())
+        if shutdown is not None and shutdown.requested:
+            _interrupt(shutdown, t_idx, result(interrupted=True))
+        t_idx += 1
+    _sync(device)
+    return result()
 
 
 def _as_model(trees, base_margin, config, missing_bin, F) -> GBDTModel:

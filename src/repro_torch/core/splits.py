@@ -1,7 +1,8 @@
 """Step ② — evaluating histogram bins to pick split points.
 
 The counterpart of :func:`repro.core.splits.find_best_splits`, in PyTorch
-on the histogram's device.
+on the histogram's device, and of ``find_best_splits_host``, the paper's
+offload of step ② to the host (numpy).
 
 Split semantics (paper Fig 3 + missing-value handling):
   numeric field f, bin t:  "code <= t" goes left;
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -105,3 +107,77 @@ def find_best_splits(hist: Tensor, is_cat_field: Tensor, field_mask: Tensor,
         node_h=Hp.to(torch.float32),
         left_h=hl.to(torch.float32),
     )
+
+
+# --------------------------------------------------------------------------
+# host-offloaded twin (the paper's step-② offload)
+# --------------------------------------------------------------------------
+def _np_best_splits(hist, is_cat_field, field_mask, lambda_, gamma,
+                    min_child_weight):
+    NN, F, NB, _ = hist.shape
+    G = hist[..., 0].sum(-1)
+    H = hist[..., 1].sum(-1)
+    Gp, Hp = G[:, 0], H[:, 0]
+    Gm, Hm = hist[:, :, NB - 1, 0], hist[:, :, NB - 1, 1]
+    v = hist[:, :, : NB - 1, :]
+    parent = (Gp ** 2 / (Hp + lambda_))[:, None, None]
+
+    def gain_of(GL, HL):
+        GR, HR = Gp[:, None, None] - GL, Hp[:, None, None] - HL
+        ok = (HL >= min_child_weight) & (HR >= min_child_weight)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            gn = 0.5 * (GL ** 2 / (HL + lambda_) + GR ** 2 / (HR + lambda_)
+                        - parent) - gamma
+        return np.where(ok, gn, -np.inf)
+
+    cumG, cumH = np.cumsum(v[..., 0], -1), np.cumsum(v[..., 1], -1)
+    num_dr, num_dl = gain_of(cumG, cumH), gain_of(cumG + Gm[..., None],
+                                                  cumH + Hm[..., None])
+    cat_dr, cat_dl = gain_of(v[..., 0], v[..., 1]), gain_of(
+        v[..., 0] + Gm[..., None], v[..., 1] + Hm[..., None])
+    catf = is_cat_field[None, :, None]
+    cand_dr = np.where(catf, cat_dr, num_dr)
+    cand_dl = np.where(catf, cat_dl, num_dl)
+    go_dl = cand_dl > cand_dr
+    cand = np.where(field_mask[None, :, None],
+                    np.maximum(cand_dl, cand_dr), -np.inf)
+    HL = np.where(catf, v[..., 1], cumH) + np.where(go_dl, Hm[..., None],
+                                                    0.0)
+    t_best = np.argmax(cand, -1)
+    gain_f = np.take_along_axis(cand, t_best[..., None], -1)[..., 0]
+    dl_f = np.take_along_axis(go_dl, t_best[..., None], -1)[..., 0]
+    hl_f = np.take_along_axis(HL, t_best[..., None], -1)[..., 0]
+    f_best = np.argmax(gain_f, -1)
+    gain = np.take_along_axis(gain_f, f_best[:, None], 1)[:, 0]
+    thr = np.take_along_axis(t_best, f_best[:, None], 1)[:, 0]
+    dl = np.take_along_axis(dl_f, f_best[:, None], 1)[:, 0]
+    hl = np.take_along_axis(hl_f, f_best[:, None], 1)[:, 0]
+    gain = np.where(np.isfinite(gain), gain, -1.0)
+    return (gain.astype(np.float32), f_best.astype(np.int32),
+            thr.astype(np.int32), is_cat_field[f_best].astype(np.int32),
+            dl.astype(np.int32), Gp.astype(np.float32), Hp.astype(np.float32),
+            hl.astype(np.float32))
+
+
+def find_best_splits_host(hist: Tensor, is_cat_field: Tensor,
+                          field_mask: Tensor, lambda_: float, gamma: float,
+                          min_child_weight: float) -> SplitDecision:
+    """Step ② on the host (the paper's offload): the level's (NN, F, NB, 2)
+    histogram, the field flags and the field mask cross to the host in one
+    device->host copy, numpy picks the splits (:func:`_np_best_splits`),
+    and the eight (NN,) decision arrays cross back in one host->device
+    copy.  It reads the host by design, so a round that uses it cannot be
+    captured in a CUDA graph."""
+    NN, F, NB, _ = hist.shape
+    flat = torch.cat([hist.reshape(-1).to(torch.float32),
+                      is_cat_field.to(torch.float32),
+                      field_mask.to(torch.float32)]).cpu().numpy()
+    host = _np_best_splits(flat[:-2 * F].reshape(NN, F, NB, 2),
+                           flat[-2 * F:-F] != 0, flat[-F:] != 0,
+                           float(lambda_), float(gamma),
+                           float(min_child_weight))
+    words = np.stack([a.view(np.int32) for a in host])          # (8, NN)
+    back = torch.from_numpy(words).to(hist.device)
+    return SplitDecision(*[back[i].view(torch.float32)
+                           if a.dtype == np.float32 else back[i]
+                           for i, a in enumerate(host)])

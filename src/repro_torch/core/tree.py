@@ -1,42 +1,87 @@
 """Tree growing — steps ①–④ of the paper's training algorithm.
 
-The counterpart of :func:`repro.core.tree.fit_forest` and ``fit_tree``:
-the level-by-level grower, class-batched.  K trees (one per class of a
-multi-class objective, K = 1 otherwise) grow level-synchronously over the
-same records; every record carries one level-local node id per class.
-One histogram launch per level covers every vertex of every class, step ②
-picks the splits with the class axis folded into the node axis, and one
-partition launch routes every class's records straight from the
-column-major copy.  The result is a fixed-shape ``TreeArrays`` (complete
-binary tree with pass-through nodes), with a leading (K, ...) axis from
-:func:`fit_forest`; :func:`fit_tree` is its K = 1 slice.
+The counterpart of :mod:`repro.core.tree`'s in-memory growers:
 
-Histogram subtraction, the chunked grower and the lossguide grower are not
-ported yet (ROADMAP Queue 1: training variants, out-of-core).
+  * :func:`fit_forest` / :func:`fit_tree` — the level-by-level grower,
+    class-batched.  K trees (one per class of a multi-class objective,
+    K = 1 otherwise) grow level-synchronously over the same records; every
+    record carries one level-local node id per class.  One histogram
+    launch per level covers every vertex of every class, step ② picks the
+    splits with the class axis folded into the node axis (on the device, or
+    on the host under ``plan.host_offload_split``), and one partition
+    launch routes every class's records straight from the column-major
+    copy.  With ``plan.hist_subtraction``, levels > 0 bin only the smaller
+    child of every split parent and derive the sibling as ``parent −
+    smaller`` (paper §II-A).  Nothing in the level loop reads the host
+    (the host offload apart), so a CUDA graph can capture it.
+  * :func:`fit_tree_lossguide` — the vertex-by-vertex (best-first)
+    grower: a gain heap on the host, one histogram of the smaller child a
+    split on the device, its sibling ``parent − child``.
+
+Both return a fixed-shape ``TreeArrays`` (complete binary tree with
+pass-through nodes), with a leading (K, ...) axis from :func:`fit_forest`.
+
+The chunked grower is not ported yet (ROADMAP Queue 1 item 5:
+out-of-core).
 """
 from __future__ import annotations
 
+import heapq
+import warnings
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.api.plan import ExecutionPlan, resolve_plan
 from repro_torch.core import splits as splits_mod
+from repro_torch.core.binning import PackedCodes
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import TreeArrays
+
+
+def _lift_loose_kwargs(plan: Optional[ExecutionPlan],
+                       **loose) -> ExecutionPlan:
+    """Resolve the growers' plan, lifting any legacy per-step keyword
+    (``hist_strategy=`` etc., ``repro``'s Pallas names included) into it
+    with a deprecation warning."""
+    passed = sorted(k for k, v in loose.items()
+                    if v is not None and v != "auto" and v is not False)
+    if passed:
+        warnings.warn(
+            "legacy strategy-string kwargs are deprecated; pass "
+            f"plan=ExecutionPlan({', '.join(f'{k}=...' for k in passed)}) "
+            "instead", DeprecationWarning, stacklevel=3)
+    return resolve_plan(plan, **loose)
+
+
+def _gather_fields(codes_cm, idx):
+    """Leading-axis (field) gather from the (F, n) column-major copy,
+    unpacked: from ``PackedCodes`` only the gathered rows expand to
+    uint8."""
+    if isinstance(codes_cm, PackedCodes):
+        return codes_cm[idx].unpack()
+    return codes_cm[idx]
 
 
 def fit_tree(codes, codes_cm, g, h, *, depth: int, n_bins: int,
              missing_bin: int, is_cat_field, field_mask,
              lambda_: float, gamma: float, min_child_weight: float,
-             plan: Optional[ExecutionPlan] = None) -> TreeArrays:
+             plan: Optional[ExecutionPlan] = None,
+             hist_strategy: Optional[str] = None,
+             partition_strategy: Optional[str] = None,
+             host_offload_split: Optional[bool] = None) -> TreeArrays:
     """Grow one depth-``depth`` tree: the K = 1 slice of :func:`fit_forest`.
 
     codes: (n, F) uint8 row-major (step-① input);
     codes_cm: (F, n) uint8 column-major copy (step-③ input); both may be
     ``PackedCodes``, which steps ① and ③ read as they are;
-    g, h: (n,) float32 gradient statistics on the same device.
+    g, h: (n,) float32 gradient statistics on the same device.  The legacy
+    per-step keywords lift into ``plan`` with a ``DeprecationWarning``.
     """
+    plan = _lift_loose_kwargs(plan, hist_strategy=hist_strategy,
+                              partition_strategy=partition_strategy,
+                              host_offload_split=host_offload_split)
     forest = fit_forest(codes, codes_cm, g[None], h[None], depth=depth,
                         n_bins=n_bins, missing_bin=missing_bin,
                         is_cat_field=is_cat_field, field_mask=field_mask,
@@ -48,14 +93,20 @@ def fit_tree(codes, codes_cm, g, h, *, depth: int, n_bins: int,
 def fit_forest(codes, codes_cm, g, h, *, depth: int, n_bins: int,
                missing_bin: int, is_cat_field, field_mask,
                lambda_: float, gamma: float, min_child_weight: float,
-               plan: Optional[ExecutionPlan] = None) -> TreeArrays:
+               plan: Optional[ExecutionPlan] = None,
+               hist_strategy: Optional[str] = None,
+               partition_strategy: Optional[str] = None,
+               host_offload_split: Optional[bool] = None) -> TreeArrays:
     """Grow K depth-``depth`` trees level-synchronously, one per class,
     over a shared code stream.
 
     g, h: (K, n) float32 contiguous per-class statistics.  Returns
-    TreeArrays with leading (K, ...) axes.
+    TreeArrays with leading (K, ...) axes.  The legacy per-step keywords
+    lift into ``plan`` with a ``DeprecationWarning``.
     """
-    plan = resolve_plan(plan)
+    plan = _lift_loose_kwargs(plan, hist_strategy=hist_strategy,
+                              partition_strategy=partition_strategy,
+                              host_offload_split=host_offload_split)
     K, n = g.shape
     device = codes.device
     n_int, n_leaf = 2 ** depth - 1, 2 ** depth
@@ -66,20 +117,30 @@ def fit_forest(codes, codes_cm, g, h, *, depth: int, n_bins: int,
              torch.zeros((K, n_int), **i32),                   # default_left
              torch.zeros((K, n_leaf), dtype=torch.float32, device=device),
              torch.zeros((K, n_leaf), dtype=torch.bool, device=device))
+    find = (splits_mod.find_best_splits_host if plan.host_offload_split
+            else splits_mod.find_best_splits)
     node_ids = torch.zeros((K, n), **i32)          # per-class vertex ids
+    hist = None
     for level in range(depth):
-        # step ① — one pass bins every vertex of every class
-        hist = ops.build_histogram(codes, g, h, node_ids, n_nodes=2 ** level,
-                                   n_bins=n_bins, plan=plan)
+        nn = 2 ** level
+        # step ① — one pass bins every vertex of every class; with
+        # plan.hist_subtraction, levels > 0 bin only the smaller child of
+        # each parent and derive the sibling from the last level's hist
+        if plan.hist_subtraction and level > 0:
+            hist = _subtract_level_hist(codes, g, h, node_ids, hist,
+                                        n_nodes=nn, n_bins=n_bins, plan=plan)
+        else:
+            hist = ops.build_histogram(codes, g, h, node_ids, n_nodes=nn,
+                                       n_bins=n_bins, plan=plan)
         # step ② — split decisions + tree-table updates
         state, _, _ = _decide_level(
             hist, level, depth, state, is_cat_field, field_mask, lambda_,
-            gamma, min_child_weight)
+            gamma, min_child_weight, find)
         # step ③ — route every class's records to children, reading the
         # chosen fields straight from the column-major copy; the level's
         # splits are handed over as views of the tree tables, where step ②
         # wrote them (feature -1 where a node does not split)
-        off, nn = 2 ** level - 1, 2 ** level
+        off = nn - 1
         node_ids = ops.partition_level_cm(
             node_ids, codes_cm,
             *[table[:, off:off + nn] for table in state[:4]],
@@ -93,19 +154,20 @@ def fit_forest(codes, codes_cm, g, h, *, depth: int, n_bins: int,
 
 
 def _decide_level(hist, level, depth, state, is_cat_field, field_mask,
-                  lambda_, gamma, min_child_weight):
+                  lambda_, gamma, min_child_weight,
+                  find=splits_mod.find_best_splits):
     """Step ② for one level: pick splits from the (K, nn, F, NB, 2) level
-    histogram and fold them into the (K, ...) tree-table ``state``."""
+    histogram with ``find`` (on the device, or the host offload) and fold
+    them into the (K, ...) tree-table ``state``."""
     feature, threshold, is_cat, default_left, value_bottom, value_set = state
     K, nn, F, n_bins, _ = hist.shape
     off = nn - 1
     reps = 2 ** (depth - level)
 
-    # find_best_splits is vectorised over nodes: fold the class axis into
+    # the split search is vectorised over nodes: fold the class axis into
     # the node axis
-    flat = splits_mod.find_best_splits(hist.reshape(K * nn, F, n_bins, 2),
-                                       is_cat_field, field_mask, lambda_,
-                                       gamma, min_child_weight)
+    flat = find(hist.reshape(K * nn, F, n_bins, 2), is_cat_field, field_mask,
+                lambda_, gamma, min_child_weight)
     best = splits_mod.SplitDecision(*[a.reshape(K, nn) for a in flat])
     resolved = value_set[:, torch.arange(nn, device=hist.device) * reps]
     do_split = (best.gain > 0.0) & ~resolved
@@ -139,3 +201,212 @@ def _settle_bottom_leaves(g, h, node_ids, value_bottom, value_set, n_leaf,
     Hb = zeros.index_add(0, slot, h.reshape(-1).to(torch.float32))
     wb = splits_mod.leaf_weight(Gb, Hb, lambda_).reshape(K, n_leaf)
     return torch.where(value_set, value_bottom, wb)
+
+
+# --------------------------------------------------------------------------
+# histogram subtraction (paper §II-A) for the level-wise grower
+# --------------------------------------------------------------------------
+def _child_is_smaller(smaller_is_left):
+    """(K, NN/2) per-parent 'left child is smaller' -> (K, NN) per-child
+    'this node is the smaller sibling' (children of parent p sit at slots
+    2p / 2p+1)."""
+    sil2 = smaller_is_left.repeat_interleave(2, dim=1)          # (K, NN)
+    left_slot = (torch.arange(sil2.shape[1], device=sil2.device) % 2) == 0
+    return torch.where(left_slot[None, :], sil2, ~sil2)
+
+
+def _combine_sibling_hist(parent_hist, small, is_small):
+    """The level histogram from the smaller children's: ``hist[c] =
+    small[c]`` where c is the smaller sibling, else ``parent[c // 2] −
+    small[sibling(c)]`` (no explicit binning at the other child).  Exact in
+    real arithmetic; in float32 the derived sibling reassociates the
+    parent's sum."""
+    K, nn, F, NB, S = small.shape
+    sib = small.reshape(K, nn // 2, 2, F, NB, S).flip(2)
+    derived = parent_hist.repeat_interleave(2, dim=1) - sib.reshape(
+        small.shape)
+    return torch.where(is_small[:, :, None, None, None], small, derived)
+
+
+def _compact_selected(codes, g, h, nid, sel, n_half: int):
+    """Pack the ``sel``-marked records into a fixed (n_half, ...) buffer.
+
+    ``n_half = n // 2`` always fits: summed over parents, ``min(left,
+    right) <= (left + right) / 2``, so the smaller children hold at most
+    ``n // 2`` records (selection is by record count, which is what
+    guarantees the bound).  Positions come from a cumulative sum and a
+    binary search in it, so nothing reads the host.  Slots past the
+    selected count are padding with zero statistics (adding exactly +0.0)
+    and node 0.
+    """
+    n = codes.shape[0]
+    # slot j takes the (j + 1)-th selected record: the first position where
+    # the running count of selected records reaches j + 1 (n past the last)
+    idx = torch.searchsorted(torch.cumsum(sel, 0),
+                             torch.arange(1, n_half + 1, device=g.device))
+    valid = idx < n
+    take = torch.where(valid, idx, 0)
+    return (codes[take],
+            torch.where(valid, g[take], 0.0),
+            torch.where(valid, h[take], 0.0),
+            torch.where(valid, nid[take], 0))
+
+
+def _node_counts(nid, n_nodes: int):
+    """(K, n_nodes) records a node of (K, n) node ids, exact (float64): a
+    histogram over the (class, node) slots, which sums a block's records
+    in shared memory first, where a scatter-add of ones into so few slots
+    would serialize on their addresses."""
+    K = nid.shape[0]
+    slot = nid + torch.arange(K, device=nid.device)[:, None] * n_nodes
+    return torch.histc(slot.to(torch.float64), bins=K * n_nodes, min=0,
+                       max=K * n_nodes).reshape(K, n_nodes)
+
+
+def _subtract_level_hist(codes, g, h, node_ids, parent_hist, *,
+                         n_nodes: int, n_bins: int, plan: ExecutionPlan):
+    """Step ① for one level (> 0) by smaller-child subtraction.
+
+    Bins only the records that landed in the smaller child of each split
+    parent and derives every sibling as ``parent − smaller``.  Per-node
+    record counts come from an on-device scatter-add of the freshly
+    partitioned node ids (:func:`_node_counts`; no host read in the level
+    loop).
+
+    Class handling, as ``repro``'s: the class-batched CUDA kernels
+    (``"cuda"``, ``"cuda_packed"``) read the codes once for all K classes,
+    so at K > 1 they keep one class-batched launch with the bigger child's
+    statistics masked to zero (the counterpart of ``repro``'s Pallas
+    route); everywhere else each class's smaller-child records are
+    compacted into an ``n // 2`` buffer and binned by one launch a class,
+    half the record stream each.
+    """
+    K, n = g.shape
+    nid = node_ids.long()
+    counts = _node_counts(nid, n_nodes)
+    smaller_is_left = counts[:, 0::2] <= counts[:, 1::2]       # (K, NN/2)
+    is_small = _child_is_smaller(smaller_is_left)              # (K, NN)
+    sel = torch.gather(is_small, 1, nid)                       # (K, n)
+    if K > 1 and plan.hist_strategy in ("cuda", "cuda_packed"):
+        w = sel.to(torch.float32)
+        small = ops.build_histogram(codes, g * w, h * w, node_ids,
+                                    n_nodes=n_nodes, n_bins=n_bins, plan=plan)
+        return _combine_sibling_hist(parent_hist, small, is_small)
+    n_half = max(1, n // 2)
+    smalls = []
+    for k in range(K):
+        ck, gk, hk, nk = _compact_selected(codes, g[k], h[k], node_ids[k],
+                                           sel[k], n_half)
+        smalls.append(ops.build_histogram(ck, gk, hk, nk, n_nodes=n_nodes,
+                                          n_bins=n_bins, plan=plan))
+    return _combine_sibling_hist(parent_hist, torch.stack(smalls), is_small)
+
+
+# --------------------------------------------------------------------------
+# vertex-by-vertex (best-first) grower with the smaller-child subtraction
+# --------------------------------------------------------------------------
+def fit_tree_lossguide(codes, codes_cm, g, h, *, depth: int, n_bins: int,
+                       missing_bin: int, is_cat_field, field_mask,
+                       lambda_: float, gamma: float, min_child_weight: float,
+                       max_leaves: Optional[int] = None,
+                       plan: Optional[ExecutionPlan] = None,
+                       hist_strategy: Optional[str] = None) -> TreeArrays:
+    """Best-first growth to at most ``max_leaves`` leaves (all 2^depth slots
+    when None); bins only the smaller child per split (§II-A).
+
+    The gain heap runs on the host, ties broken by push order; each node's
+    histogram is one launch at ``n_nodes=1`` over statistics masked to the
+    node's records, and each split's search reads its decision back (one
+    host read a node).  The split's predicate column is read from the
+    column-major copy (one packed row unpacked for ``PackedCodes``).
+    """
+    plan = _lift_loose_kwargs(plan, hist_strategy=hist_strategy)
+    n, F = codes.shape
+    device = g.device
+    n_int = 2 ** depth - 1
+    n_leaf_slots = 2 ** depth
+    max_leaves = max_leaves or n_leaf_slots
+    g = g.to(torch.float32)
+    h = h.to(torch.float32)
+
+    feature = np.full((n_int,), -1, np.int32)
+    threshold = np.zeros((n_int,), np.int32)
+    is_cat_a = np.zeros((n_int,), np.int32)
+    default_left = np.zeros((n_int,), np.int32)
+    value_bottom = np.zeros((n_leaf_slots,), np.float32)
+    root_nodes = torch.zeros((n,), dtype=torch.int32, device=device)
+
+    def hist_of(mask):
+        return ops.build_histogram(codes, g * mask, h * mask, root_nodes,
+                                   n_nodes=1, n_bins=n_bins,
+                                   plan=plan)[0]                # (F, NB, 2)
+
+    def best_of(hist):
+        d = splits_mod.find_best_splits(hist[None], is_cat_field, field_mask,
+                                        lambda_, gamma, min_child_weight)
+        # one host read of the decision; field ids and codes are exact in
+        # float32
+        gain, f, t, c, dl, G, H, HL = torch.stack(
+            [a[0].to(torch.float32) for a in d]).cpu().tolist()
+        return gain, int(f), int(t), int(c), int(dl), G, H, HL
+
+    heap = []
+    counter = 0  # tie-break: deterministic heap order
+
+    def push(pos, level, hist, mask):
+        nonlocal counter
+        gain, f, t, c, dl, G, H, HL = best_of(hist)
+        heapq.heappush(heap, (-gain, counter,
+                              dict(pos=pos, level=level, hist=hist, mask=mask,
+                                   f=f, t=t, c=c, dl=dl, G=G, H=H, HL=HL,
+                                   gain=gain)))
+        counter += 1
+
+    def settle_leaf(e):
+        reps = 2 ** (depth - e["level"])
+        base = e["pos"] - (2 ** e["level"] - 1)
+        w = -e["G"] / (e["H"] + lambda_)
+        value_bottom[base * reps:(base + 1) * reps] = w
+
+    root_mask = torch.ones((n,), dtype=torch.float32, device=device)
+    push(0, 0, hist_of(root_mask), root_mask)
+    n_leaves = 1
+    while heap and n_leaves < max_leaves:
+        _, _, e = heapq.heappop(heap)
+        if e["gain"] <= 0.0 or e["level"] >= depth:
+            settle_leaf(e)
+            continue
+        pos, lvl = e["pos"], e["level"]
+        feature[pos], threshold[pos] = e["f"], e["t"]
+        is_cat_a[pos], default_left[pos] = e["c"], e["dl"]
+
+        # step ③ — one predicate, one column from the column-major copy
+        col = _gather_fields(codes_cm, e["f"]).to(torch.int32)
+        left = (col == e["t"]) if e["c"] == 1 else (col <= e["t"])
+        miss = col == missing_bin
+        left = (left | miss) if e["dl"] == 1 else (left & ~miss)
+        mask_l = e["mask"] * left.to(torch.float32)
+        mask_r = e["mask"] - mask_l
+
+        # step ① for the children: bin only the smaller one (by the
+        # hessian mass the decision routed left, already on the host); its
+        # sibling is parent − child
+        hl = e["HL"]
+        hr = e["H"] - e["HL"]
+        if hl <= hr:
+            hist_small = hist_of(mask_l)
+            hist_l, hist_r = hist_small, e["hist"] - hist_small
+        else:
+            hist_small = hist_of(mask_r)
+            hist_l, hist_r = e["hist"] - hist_small, hist_small
+
+        push(2 * pos + 1, lvl + 1, hist_l, mask_l)
+        push(2 * pos + 2, lvl + 1, hist_r, mask_r)
+        n_leaves += 1
+
+    while heap:  # settle everything left on the heap as leaves
+        _, _, e = heapq.heappop(heap)
+        settle_leaf(e)
+
+    return TreeArrays(*[torch.from_numpy(a).to(device) for a in (
+        feature, threshold, is_cat_a, default_left, value_bottom)])

@@ -13,6 +13,8 @@ the CPU:
   * ``traverse_forest_ref``      — step ⑤ for one round's K class trees
   * ``ensemble_leaves``          — batch inference over a stacked ensemble
                                    (each record's leaf in each tree)
+  * ``predict_ensemble_ref``     — batch inference one tree at a time (the
+                                   ``"scan"`` baseline)
 
 The class-batched versions compute what ``jax.vmap`` over the class axis
 computes in the JAX package, one class after another.
@@ -199,3 +201,24 @@ def ensemble_leaves(trees: TreeArrays, codes: Tensor, missing_bin: int,
         node = 2 * node + 2 - go_left.long()
     return torch.gather(trees.leaf_value.T, 0, node - (2 ** depth - 1))
 
+
+
+def predict_ensemble_ref(trees: TreeArrays, codes: Tensor, missing_bin: int,
+                         n_classes: int = 1, out=None) -> Tensor:
+    """Batch inference one tree at a time (the paper's §II-B baseline, the
+    ``"scan"`` traversal strategy): every tree re-reads every code.
+
+    Trees are stacked (T, ...), round-major for K = ``n_classes`` > 1
+    (tree t adds into margin column t % K); returns (n,), or (n, K) at
+    K > 1.  Each record's leaves are added in tree order onto what ``out``
+    holds ((n, K), or (n,) at K = 1; returned) or onto zeros.
+    """
+    n, K, T = codes.shape[0], n_classes, trees.feature.shape[0]
+    if out is None:
+        out = torch.zeros((n,) if K == 1 else (n, K),
+                          dtype=trees.leaf_value.dtype, device=codes.device)
+    cols = out.view(n, K)
+    for t in range(T):
+        cols[:, t % K] += traverse_ref(TreeArrays(*[a[t] for a in trees]),
+                                       codes, missing_bin)
+    return out

@@ -33,6 +33,7 @@ from repro_torch.core import binning, gbdt, inference
 from repro_torch.data import make_tabular
 from repro_torch.distributed import checkpoint as ckpt
 from repro_torch.kernels.ref import TreeArrays
+from repro_torch.resilience import GracefulShutdown, RecoveryPolicy
 
 JAX_REFERENCE = JaxPlan(hist_strategy="scatter",
                         partition_strategy="reference",
@@ -457,14 +458,23 @@ def test_fit_validates_inputs(case):
 
 
 @pytest.mark.parametrize("kw", [dict(data=object()), dict(mesh=object()),
-                                dict(recovery=object()),
-                                dict(shutdown=object())])
+                                dict(recovery=RecoveryPolicy()),
+                                dict(shutdown=GracefulShutdown())])
 def test_unported_fit_options_raise(kw):
-    X = np.zeros((8, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        est_mod.BoosterRegressor(n_trees=1, device="cpu").fit(
-            None if "data" in kw else X, None if "data" in kw
-            else np.zeros(8), **kw)
+    """``data=`` and ``mesh=`` are not ported and raise naming their
+    ROADMAP item; ``recovery=`` and ``shutdown=`` are ported and fit."""
+    X = np.random.default_rng(0).normal(size=(64, 2))
+    y = X[:, 0].copy()
+    est = est_mod.BoosterRegressor(n_trees=2, max_depth=2, device="cpu")
+    if "data" in kw or "mesh" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            est.fit(None if "data" in kw else X,
+                    None if "data" in kw else y, **kw)
+        return
+    est.fit(X, y, **kw)
+    assert est.n_trees_ == 2 and not est.stats_.get("interrupted")
+    loss = est.history_["train_loss"]
+    assert loss[-1] < loss[0]
 
 
 @pytest.mark.parametrize("params", [dict(max_leaves=8),
@@ -472,9 +482,23 @@ def test_unported_fit_options_raise(kw):
                                          goss_other_rate=0.1),
                                     dict(fused_rounds=True)])
 def test_unported_params_raise_at_fit(params):
-    est = est_mod.BoosterRegressor(n_trees=1, device="cpu", **params)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        est.fit(np.zeros((8, 2)), np.zeros(8))
+    """The lossguide grower's ``max_leaves``, GOSS and fused rounds are
+    ported: each reaches ``train`` and fits."""
+    X = np.random.default_rng(1).normal(size=(200, 3))
+    y = X[:, 0] - X[:, 1]
+    grow = dict(grow_policy="lossguide") if "max_leaves" in params else {}
+    est = est_mod.BoosterRegressor(n_trees=3, max_depth=4, device="cpu",
+                                   **params, **grow)
+    gbdt.round_step_cache_clear()
+    est.fit(X, y)
+    assert est.n_trees_ == 3
+    loss = est.history_["train_loss"]
+    assert loss[-1] < loss[0]
+    if "max_leaves" in params:
+        splits = (est.model_.trees.feature >= 0).sum(dim=1)
+        assert int(splits.max()) <= params["max_leaves"] - 1
+    if "fused_rounds" in params:
+        assert est.stats_["fused_rounds"] and est.stats_["graph_replays"] == 2
 
 
 def test_unfitted_raises():

@@ -9,13 +9,19 @@ Integer outputs are bit-equal; histograms bit-equal on dyadic g, h; the
 ensemble sum, taken in another order, to rtol 1e-5.  Each class-batched
 kernel is held against its plain version at K = 1 and K > 1, and each
 kernel that reads 4-bit ``PackedCodes`` also against its uint8 twin.
+The training variants (histogram subtraction, the lossguide grower, the
+host split offload, GOSS, fused rounds as CUDA graphs) are held against
+their direct or host-loop counterparts on the card and against the CPU.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.api.plan import ExecutionPlan
-from repro_torch.core import binning, gbdt
+from repro_torch.core import binning, gbdt, splits
+from repro_torch.core import tree as tree_mod
 from repro_torch.core.binning import PackedCodes
 from repro_torch.data import make_tabular
 from repro_torch.kernels import _build, ref
@@ -926,3 +932,241 @@ def test_trees_past_the_row_raise_at_load(cuda):
     with pytest.raises(ValueError, match="splits on field"):
         model.predict_margin(codes, mode="cached", cache=cache)
     assert cache.stats()["traces"] == 0
+
+
+# --------------------------------------------------------------------------
+# the training variants on the card
+# --------------------------------------------------------------------------
+def _grower_case(n, F, n_bins, K, rng, packed=None):
+    """A dataset on the CPU (its last field categorical) and dyadic (K, n)
+    statistics, so every order of summation is exact."""
+    codes = _codes(n, F, n_bins, rng)
+    codes[:, -1] %= 3
+    is_cat = np.arange(F) == F - 1
+    data = binning.dataset_from_codes(codes, is_cat, n_bins, packed=packed,
+                                      device="cpu")
+    g = torch.from_numpy(rng.integers(-64, 64, (K, n)) / 64).float()
+    h = torch.from_numpy(rng.integers(1, 64, (K, n)) / 64).float()
+    common = dict(n_bins=n_bins, missing_bin=n_bins - 1,
+                  is_cat_field=torch.from_numpy(is_cat),
+                  field_mask=torch.ones(F, dtype=torch.bool), lambda_=1.0,
+                  gamma=0.0, min_child_weight=0.5)
+    return data, g, h, common
+
+
+def _on(common, device):
+    return {k: v.to(device) if isinstance(v, torch.Tensor) else v
+            for k, v in common.items()}
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_subtraction_level_on_card_bit_equal_to_direct(cuda, K, monkeypatch):
+    """Masked statistics in one class-batched launch at K > 1, the
+    smaller children compacted into n // 2 records at K = 1: either way
+    the level's histogram equals the direct pass on dyadic stats."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(40 + K)
+    n, F = 20_001, 28
+    codes = torch.from_numpy(_codes(n, F, 256, rng)).to(cuda)
+    g, h, parent = _dyadic_stats(K, n, 8, rng, cuda)
+    if K == 1:
+        g, h, parent = g[None], h[None], parent[None]
+    child = (2 * parent + torch.randint(0, 2, parent.shape, device=cuda,
+                                        dtype=torch.int32)).contiguous()
+    plan = ExecutionPlan().resolved()
+    parent_hist = ops.build_histogram(codes, g, h, parent, n_nodes=8,
+                                      n_bins=256, plan=plan)
+    seen = []
+    real = hist_k.histogram_cuda
+
+    def spy(codes, g, *a, **kw):
+        seen.append((codes.shape[0], tuple(g.shape)))
+        return real(codes, g, *a, **kw)
+
+    monkeypatch.setattr(hist_k, "histogram_cuda", spy)
+    got = tree_mod._subtract_level_hist(codes, g, h, child, parent_hist,
+                                        n_nodes=16, n_bins=256, plan=plan)
+    assert seen == ([(n, (K, n))] if K > 1 else [(n // 2, (n // 2,))])
+    direct = ops.build_histogram(codes, g, h, child, n_nodes=16, n_bins=256,
+                                 plan=plan)
+    assert torch.equal(got, direct)
+    plain = tree_mod._subtract_level_hist(
+        codes.cpu(), g.cpu(), h.cpu(), child.cpu(), parent_hist.cpu(),
+        n_nodes=16, n_bins=256, plan=plan)
+    assert torch.equal(got.cpu(), plain)
+
+
+@pytest.mark.parametrize("K,packed", [(1, False), (4, False), (1, True)])
+def test_subtraction_grower_on_card_matches_direct(cuda, K, packed):
+    rng = np.random.default_rng(50 + K)
+    data, g, h, common = _grower_case(30_000, 20, 16 if packed else 64, K,
+                                      rng, packed=packed)
+    dev = data.to(cuda)
+    kw = dict(depth=5, **_on(common, cuda))
+    args = (dev.codes, dev.codes_cm, g.to(cuda), h.to(cuda))
+    sub = tree_mod.fit_forest(*args, plan=ExecutionPlan(
+        hist_subtraction=True), **kw)
+    direct = tree_mod.fit_forest(*args, plan=ExecutionPlan(), **kw)
+    cpu = tree_mod.fit_forest(data.codes, data.codes_cm, g, h, depth=5,
+                              plan=ExecutionPlan(hist_subtraction=True),
+                              **common)
+    for a, b, c in zip(sub, direct, cpu):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+def test_lossguide_on_packed_codes_on_card(cuda):
+    """The lossguide grower reads its predicate column from the packed
+    column-major copy (one row unpacked) and bins each node with the nibble
+    kernel at one node: 1 + splits launches; its tree equals the CPU's on
+    dyadic stats."""
+    rng = np.random.default_rng(60)
+    data, g, h, common = _grower_case(40_000, 115, 16, 1, rng, packed=True)
+    dev = data.to(cuda)
+    assert isinstance(dev.codes_cm, PackedCodes)
+    _build.reset_launch_counts()
+    card = tree_mod.fit_tree_lossguide(dev.codes, dev.codes_cm, g[0].to(cuda),
+                                       h[0].to(cuda), depth=6, max_leaves=20,
+                                       **_on(common, cuda))
+    counts = _build.launch_counts()
+    splits = int((card.feature >= 0).sum())
+    assert 1 <= splits <= 19
+    assert counts["histogram_nibble"] == 1 + splits
+    cpu = tree_mod.fit_tree_lossguide(data.codes, data.codes_cm, g[0], h[0],
+                                      depth=6, max_leaves=20, **common)
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_host_split_offload_on_card_matches_device(cuda):
+    rng = np.random.default_rng(61)
+    data, g, h, common = _grower_case(5000, 12, 32, 3, rng)
+    codes = data.codes.to(cuda)
+    nid = torch.from_numpy(rng.integers(0, 4, (3, 5000)).astype(np.int32))
+    hist = hist_k.histogram_cuda(codes, g.to(cuda), h.to(cuda), nid.to(cuda),
+                                 n_nodes=4, n_bins=32).reshape(12, 12, 32, 2)
+    c = _on(common, cuda)
+    args = (hist, c["is_cat_field"], c["field_mask"], 1.0, 0.0, 0.5)
+    host = splits.find_best_splits_host(*args)
+    dev = splits.find_best_splits(*args)
+    for name, a, b in zip(dev._fields, host, dev):
+        assert a.device == b.device and torch.equal(a, b), name
+
+
+def test_goss_weights_on_card_match_cpu(cuda):
+    rng = np.random.default_rng(62)
+    g = torch.from_numpy((rng.integers(-20, 21, (50_000, 3)) / 8)
+                         .astype(np.float32))
+    pick = gbdt.goss_pick(50_000, 0.2, 0.1,
+                          torch.Generator(device=cuda).manual_seed(1))
+    assert pick.device.type == "cuda"
+    card = gbdt.goss_weights(g.to(cuda), None, 0.2, 0.1, pick=pick)
+    cpu = gbdt.goss_weights(g, None, 0.2, 0.1, pick=pick.cpu())
+    assert torch.equal(card.cpu(), cpu)
+
+
+def _variant_fit_data(K, n):
+    """Card data whose labels split evenly (two halves, or K equal
+    classes): the base margin is then 0, round 0's g and h are dyadic and
+    its histograms exact in any order of summation, so round 0's trees of
+    two fits agree bit for bit."""
+    X, score, _ = make_tabular(n, 10, 0, missing_rate=0.05, seed=7)
+    rank = np.argsort(np.argsort(score, kind="stable"), kind="stable")
+    y = (rank * (K or 2) // n).astype(np.float32)
+    b = binning.Binner(64).fit(X)
+    return b.transform(X), y
+
+
+FUSED_CARD_CASES = {
+    "logistic": (dict(objective="binary:logistic"), {}),
+    "stochastic": (dict(objective="binary:logistic", subsample=0.7,
+                        colsample_bytree=0.6), {}),
+    # GOSS samples by rank of |g|: where the atomics' order moves a margin
+    # by an ulp, two records of nearly equal |g| can swap ranks and the
+    # sample with them, so both fits drift apart by a few records' weight;
+    # at 10^6 records that stays far below the tolerance
+    "goss": (dict(objective="binary:logistic", goss_top_rate=0.2,
+                  goss_other_rate=0.1), {}),
+    "squared": (dict(objective="reg:squarederror"), {}),
+    "subtraction": (dict(objective="binary:logistic"),
+                    dict(hist_subtraction=True)),
+    "softmax_sub": (dict(objective="multi:softmax", n_classes=4),
+                    dict(hist_subtraction=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CARD_CASES))
+def test_fused_fit_on_card_matches_host_loop(cuda, case):
+    """One CUDA graph a round against the host loop on the same data and
+    draws: round 0's trees equal (its sums are exact), the losses within
+    rtol 1e-4; the graph is captured once and replayed every later round,
+    and its replays carry each kernel's launches of the round."""
+    kw, plan_kw = FUSED_CARD_CASES[case]
+    K = kw.get("n_classes")
+    data, y = _variant_fit_data(K, 1_000_000 if case == "goss" else 20_000)
+    plan = ExecutionPlan(**plan_kw)
+    config = gbdt.GBDTConfig(n_trees=5, max_depth=4, seed=2, **kw)
+    gbdt.round_step_cache_clear()
+    host = gbdt.train(config, data, y, plan=plan)
+    _build.reset_launch_counts()
+    fused = gbdt.train(dataclasses.replace(config, fused_rounds=True), data,
+                       y, plan=plan)
+    counts = _build.launch_counts()
+    stats = fused.stats
+    assert stats["fused_graph"]
+    assert (stats["graph_captures"], stats["graph_replays"]) == (1, 4)
+    launches = stats["launches"]
+    assert launches["histogram"] == launches["partition"] == 4 * 5
+    assert launches["traversal"] == 5
+    # the wrappers counted the eager round and the capture, not replays
+    assert counts["histogram"] == 2 * 4 and counts["traversal"] == 2
+    Kt = K or 1
+    for field in ("feature", "threshold", "is_cat"):
+        assert torch.equal(getattr(fused.model.trees, field)[:Kt],
+                           getattr(host.model.trees, field)[:Kt]), field
+    np.testing.assert_allclose(fused.history["train_loss"],
+                               host.history["train_loss"], rtol=1e-4)
+    torch.testing.assert_close(fused.margins, host.margins, rtol=1e-4,
+                               atol=1e-4)
+    # a second fit of the same step key replays from its first round
+    again = gbdt.train(dataclasses.replace(config, fused_rounds=True,
+                                           seed=3), data, y, plan=plan).stats
+    assert (again["graph_captures"], again["graph_replays"]) == (0, 5)
+
+
+def test_fused_fit_on_packed_codes_on_card(cuda):
+    """Fused rounds on 4-bit codes (the nibble histogram, partition and
+    step ⑤ inside the graph): round 0 equal to the host loop's, the
+    losses within rtol 1e-4, the nibble kernels' launches replayed."""
+    X, score, _ = make_tabular(20_000, 9, 0, missing_rate=0.05, seed=8)
+    rank = np.argsort(np.argsort(score, kind="stable"), kind="stable")
+    y = (rank * 2 // len(rank)).astype(np.float32)
+    data = binning.Binner(16).fit(X).transform(X)
+    assert isinstance(data.codes, PackedCodes)
+    config = gbdt.GBDTConfig(n_trees=4, max_depth=4,
+                             objective="binary:logistic")
+    gbdt.round_step_cache_clear()
+    host = gbdt.train(config, data, y)
+    fused = gbdt.train(dataclasses.replace(config, fused_rounds=True), data,
+                       y)
+    launches = fused.stats["launches"]
+    assert launches["histogram_nibble"] == launches["partition_nibble"] \
+        == 4 * 4 and launches["traversal"] == 4
+    for field in ("feature", "threshold", "is_cat"):
+        assert torch.equal(getattr(fused.model.trees, field)[0],
+                           getattr(host.model.trees, field)[0]), field
+    np.testing.assert_allclose(fused.history["train_loss"],
+                               host.history["train_loss"], rtol=1e-4)
+
+
+def test_fused_rounds_with_host_offload_run_eagerly(cuda):
+    data, y = _variant_fit_data(None, 5000)
+    config = gbdt.GBDTConfig(n_trees=3, max_depth=3,
+                             objective="binary:logistic", fused_rounds=True)
+    plan = ExecutionPlan(host_offload_split=True)
+    res = gbdt.train(config, data, y, plan=plan)
+    assert not res.stats["fused_graph"]
+    host = gbdt.train(dataclasses.replace(config, fused_rounds=False), data,
+                      y, plan=plan)
+    np.testing.assert_allclose(res.history["train_loss"],
+                               host.history["train_loss"], rtol=1e-4)

@@ -185,11 +185,22 @@ def test_state_round_trip():
 @pytest.mark.parametrize("kw", [
     dict(fused_rounds=True), dict(grow_policy="lossguide"),
     dict(goss_top_rate=0.2, goss_other_rate=0.1),
-    # multi-class is ported; an unported option beside it still raises
     dict(objective="multi:softmax", n_classes=3, fused_rounds=True)])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gbdt.GBDTConfig(**kw)
+    """The training variants are ported: each config is accepted and a
+    short fit runs on the CPU (the fused fit counts its one trace)."""
+    task = "multiclass" if "n_classes" in kw else "regression"
+    X, y, _ = make_tabular(600, 4, 0, task=task, n_classes=3, seed=4)
+    codes = binning.Binner(16).fit(X).transform_codes(X)
+    data = binning.dataset_from_codes(codes, None, 16, device="cpu")
+    gbdt.round_step_cache_clear()
+    res = gbdt.train(gbdt.GBDTConfig(n_trees=2, max_depth=3, **kw), data, y,
+                     device="cpu")
+    assert res.model.n_rounds == 2
+    assert res.history["train_loss"][1] < res.history["train_loss"][0]
+    if kw.get("fused_rounds"):
+        assert (res.stats["graph_captures"], res.stats["graph_replays"]) \
+            == (1, 1) and not res.stats["fused_graph"]
 
 
 def test_unported_entry_options_raise():

@@ -46,7 +46,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.data, repro_torch.kernels.ops, "
             "repro_torch.api.estimator, repro_torch.api.serialize, "
             "repro_torch.core.inference, repro_torch.serving, "
-            "repro_torch.distributed.checkpoint, repro_torch.resilience; "
+            "repro_torch.distributed.checkpoint, repro_torch.resilience, "
+            "repro_torch.resilience.recovery, "
+            "repro_torch.resilience.shutdown, repro_torch.resilience.metrics, "
+            "repro_torch.core.tree, repro_torch.core.splits; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
