@@ -110,7 +110,7 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    replay time against the direct eager call go into the ``ensemble`` row
    (``serve_*``), with the card's name and power limit.
 
-6. The training variants (log lines ``variants ...``), run last, on phase
+6. The training variants (log lines ``variants ...``), on phase
    3's Higgs-shaped data (N records, 28 fields, 256 bins, depth 6) and
    phase 3b's Covertype-shaped data, each part a gate:
    (a) 8 fused rounds (``fused_rounds=True``: one CUDA graph a round)
@@ -143,6 +143,34 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    weights on the card against the CPU's.  The numbers go into the
    ``histogram`` and ``histogram_classes`` rows with the card's name and
    power limit (``variants_card``).
+7. Out-of-core training (log lines ``stream ...``), run last, on the raw
+   float32 matrices of phases 3, 3b and 3c, each streamed from an
+   ``ArraySource`` in host memory with that phase's binner and the
+   default ``chunk_bytes`` (64 MiB): chunks staged in pinned memory,
+   uploaded on a copy stream and binned on the card.  Each part is a gate:
+   (a) ``fit_forest_chunked`` on the stream against ``fit_forest`` on the
+   phase's in-memory codes, on exact-grid statistics: trees and final node
+   ids bit-equal, and every chunk's codes binned on the card bit-equal to
+   the host's (the IoT packed stream also against its uint8 stream);
+   (b) ``train_streaming`` of the phase's rounds against its in-memory
+   fit: histogram and partition launched once a chunk a level, the loss
+   falling every round, round 0's split fields and categorical flags
+   exact and its leaves within rtol 1e-4 + 1e-5 (on the Covertype-shaped
+   cell its roots' fields and flags: below an indicator's split, float32
+   rounding decides splits of no real gain), every loss within rtol 1e-4,
+   later rounds' differing nodes counted; the
+   steady streamed round against the in-memory host loop's, and one level
+   pass split into host staging, upload, card binning and growth (CUDA
+   events), overlapped, and its peak device memory against
+   ``chunk_bytes``; (c) a warm start of 2 trees from the streamed Higgs
+   model: ``_streamed_margins`` bit-equal to ``predict_margin`` on the
+   same codes, the ensemble launched once a chunk, the warm start's
+   margins equal to its model's ``predict_margin``; (d) the Covertype
+   stream through ``RetryingSource(FaultySource(...))`` under a seeded
+   error storm and one injected ``DeviceOOMError``: the storm absorbed,
+   ``chunk_rows`` halved and counted in ``stats``, the model within (b)'s
+   contract of (b)'s.  The kernel rows gain ``stream_launches``, the
+   histogram rows the streamed round and the pass breakdown.
 
 The last two lines of standard output are JSON: the kernel table, then
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -159,6 +187,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -209,22 +238,35 @@ def time_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+PROFILE_ATTEMPTS = 3               # profiles taken before an empty one fails
+
+
 def device_ms(fn, kernel: str, reps: int = 3) -> float:
     """Device time of one call of ``fn`` spent in kernels whose name holds
-    ``kernel`` (``torch.profiler``, mean of ``reps`` calls after a
-    warm-up); fails where the profiler sees none."""
+    ``kernel`` (every kernel for ``""``; ``torch.profiler``, mean of
+    ``reps`` calls after a warm-up).  A profile now and then comes back
+    without device events (PERF.md §7), so an empty one is taken again,
+    up to ``PROFILE_ATTEMPTS`` profiles; fails where none sees the
+    kernel."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(_device_us(e) for e in prof.key_averages()
-                if kernel in e.key
-                and "CUDA" in str(getattr(e, "device_type", "")))
-    check(total > 0, f"torch.profiler saw device time of {kernel}")
+    total = 0.0
+    for attempt in range(PROFILE_ATTEMPTS):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(_device_us(e) for e in prof.key_averages()
+                    if kernel in e.key
+                    and "CUDA" in str(getattr(e, "device_type", "")))
+        if total > 0:
+            break
+        log(f"torch.profiler saw no device time of {kernel or 'a kernel'} "
+            f"(profile {attempt + 1} of {PROFILE_ATTEMPTS})")
+    check(total > 0,
+          f"torch.profiler saw device time of {kernel or 'a kernel'}")
     return total / reps / 1e3
 
 
@@ -985,6 +1027,7 @@ def iot_main_path(n: int, n_trees: int, seed: int, dev):
     n_eval = n // 10
     t0 = time.perf_counter()
     X, y, _, spec = paper_dataset("iot", n_override=n + n_eval, seed=seed + 1)
+    X = X.astype(np.float32)          # the raw matrix phase 7 streams
     t1 = time.perf_counter()
     binner = Binner(IOT_BINS).fit(X[:n])
     t2 = time.perf_counter()
@@ -997,7 +1040,6 @@ def iot_main_path(n: int, n_trees: int, seed: int, dev):
     log(f"data: {spec.name} n={n} held-out={n_eval} F={F}  make "
         f"{t1 - t0:.3f} s  Binner.fit {t2 - t1:.3f} s  transform "
         f"{t3 - t2:.3f} s  positives {float(y_tr.mean()):.4f}")
-    del X
     check(isinstance(data.codes, PackedCodes)
           and tuple(data.codes.data.shape) == (n, (F + 1) // 2)
           and isinstance(data.codes_cm, PackedCodes)
@@ -1057,7 +1099,8 @@ def iot_main_path(n: int, n_trees: int, seed: int, dev):
     log(f"packed step ⑤ of one round (training rows): {step5_ms:.4f} ms of "
         "device time (torch.profiler, every kernel)")
     steady_ms = statistics.median(rounds_ms[1:] or rounds_ms)
-    return counts, steady_ms, step5_ms, (config, data, y_tr)
+    return counts, steady_ms, step5_ms, (config, data, y_tr), \
+        dict(X=X[:n], binner=binner, res=res)
 
 
 def step5_device_ms(model, data) -> float:
@@ -1069,19 +1112,8 @@ def step5_device_ms(model, data) -> float:
 
     tree = TreeArrays(*[a[0] for a in model.trees])
     margins = torch.zeros((data.n_records,), device=tree.feature.device)
-    step = lambda: gbdt._predict_one_tree(tree, data, None, margins)
-    step()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-    total = sum(_device_us(e) for e in prof.key_averages()
-                if "CUDA" in str(getattr(e, "device_type", "")))
-    check(total > 0, "torch.profiler saw step ⑤'s device time")
-    return total / 3 / 1e3
+    return device_ms(lambda: gbdt._predict_one_tree(tree, data, None,
+                                                    margins), "")
 
 
 def main_path(n: int, n_trees: int, seed: int, dev):
@@ -1096,6 +1128,7 @@ def main_path(n: int, n_trees: int, seed: int, dev):
     n_eval = max(1, n // 10)
     t0 = time.perf_counter()
     X, y, _, spec = paper_dataset("higgs", n_override=n + n_eval, seed=seed)
+    X = X.astype(np.float32)          # the raw matrix phase 7 streams
     t1 = time.perf_counter()
     binner = Binner(N_BINS).fit(X[:n])
     t2 = time.perf_counter()
@@ -1107,7 +1140,6 @@ def main_path(n: int, n_trees: int, seed: int, dev):
     log(f"data: {spec.name} n={n} held-out={n_eval} F={X.shape[1]}  "
         f"make {t1 - t0:.3f} s  Binner.fit {t2 - t1:.3f} s  "
         f"transform {t3 - t2:.3f} s")
-    del X
     config = GBDTConfig(n_trees=n_trees, max_depth=DEPTH, learning_rate=0.1,
                         objective="binary:logistic", seed=seed)
 
@@ -1154,7 +1186,8 @@ def main_path(n: int, n_trees: int, seed: int, dev):
         "(rtol 1e-5)")
     # round 0 carries one-off costs (first use of PyTorch's CUDA modules)
     steady_ms = statistics.median(rounds_ms[1:] or rounds_ms)
-    return counts, steady_ms, (config, data, y_tr)
+    return counts, steady_ms, (config, data, y_tr), \
+        dict(X=X[:n], binner=binner, res=res)
 
 
 def class_histogram(codes, gen, dev, label: str, real_stats: bool) -> dict:
@@ -1355,6 +1388,7 @@ def mc_main_path(n: int, n_rounds: int, seed: int, dev):
     t0 = time.perf_counter()
     X, y, cats = make_tabular(n + n_eval, MC_NUMERIC, MC_BINARY, n_cats=2,
                               task="multiclass", n_classes=K, seed=seed)
+    X = X.astype(np.float32)          # the raw matrix phase 7 streams
     t1 = time.perf_counter()
     binner = Binner(N_BINS, categorical_fields=cats).fit(X[:n])
     t2 = time.perf_counter()
@@ -1368,7 +1402,6 @@ def mc_main_path(n: int, n_rounds: int, seed: int, dev):
         f"({len(cats)} categorical) K={K}  make {t1 - t0:.3f} s  "
         f"Binner.fit {t2 - t1:.3f} s  transform {t3 - t2:.3f} s  "
         f"held-out class counts {counts_ev}")
-    del X
     config = GBDTConfig(n_trees=n_rounds, max_depth=DEPTH, learning_rate=0.1,
                         objective="multi:softmax", n_classes=K, seed=seed)
 
@@ -1426,7 +1459,8 @@ def mc_main_path(n: int, n_rounds: int, seed: int, dev):
                                atol=1e-5)
     log("predict rows sum to 1")
     steady_ms = statistics.median(rounds_ms[1:] or rounds_ms)
-    return counts, steady_ms, (config, data, y_tr)
+    return counts, steady_ms, (config, data, y_tr), \
+        dict(X=X[:n], binner=binner, res=res)
 
 
 def _host_ms(fn, reps: int = 20) -> float:
@@ -1448,8 +1482,6 @@ def serving_path(seed: int, dev, smi: str) -> dict:
     Returns the ``serve_*`` keys of the ensemble row."""
     import shutil
     import threading
-
-    import numpy as np
 
     from repro_torch.api import (BoosterClassifier, ExecutionPlan,
                                  ModelRegistry, Server, warmup_buckets)
@@ -1889,9 +1921,19 @@ def tree_parity(a, b, what: str, rtol: float = 1e-4,
           f"{what}: leaves within rtol {rtol}, atol {atol}")
 
 
+def grower_args(data, dev) -> dict:
+    """The growers' keywords for a depth-6 tree over ``data``'s fields."""
+    return dict(depth=DEPTH, n_bins=data.n_bins, missing_bin=data.missing_bin,
+                is_cat_field=data.is_categorical.to(dev),
+                field_mask=torch.ones(data.n_fields, dtype=torch.bool,
+                                      device=dev),
+                lambda_=1.0, gamma=0.0, min_child_weight=1.0)
+
+
 def level_ids(codes, codes_cm, g, h, data, plan):
-    """Each level's node ids of one tree grown from (K, n) statistics:
-    ``ids[l]`` routes the records of level l + 1."""
+    """One tree grown from (K, n) statistics and each level's node ids:
+    ``ids[l]`` routes the records of level l + 1, ``ids[-1]`` holds the
+    final leaf slots."""
     from repro_torch.core import tree as tree_mod
     from repro_torch.kernels import ops
 
@@ -1903,17 +1945,11 @@ def level_ids(codes, codes_cm, g, h, data, plan):
 
     ops.partition_level_cm = spy
     try:
-        tree_mod.fit_forest(codes, codes_cm, g, h, depth=DEPTH,
-                            n_bins=data.n_bins, missing_bin=data.missing_bin,
-                            is_cat_field=data.is_categorical,
-                            field_mask=torch.ones(data.n_fields,
-                                                  dtype=torch.bool,
-                                                  device=g.device),
-                            lambda_=1.0, gamma=0.0, min_child_weight=1.0,
-                            plan=plan)
+        tree = tree_mod.fit_forest(codes, codes_cm, g, h, plan=plan,
+                                   **grower_args(data, g.device))
     finally:
         ops.partition_level_cm = real
-    return ids
+    return tree, ids
 
 
 def exact_grid(shape, gen, dev):
@@ -1941,7 +1977,7 @@ def subtraction_levels(data, K: int, gen, dev, label: str) -> dict:
     plain = ExecutionPlan(hist_strategy="reference").resolved()
     n = data.n_records
     g, h = exact_grid((K, n), gen, dev)
-    ids = level_ids(data.codes, data.codes_cm, g, h, data, plan)
+    _, ids = level_ids(data.codes, data.codes_cm, g, h, data, plan)
     levels = []
     parent = ops.build_histogram(data.codes, g, h,
                                  torch.zeros((K, n), dtype=torch.int32,
@@ -2263,6 +2299,586 @@ def variants_multiclass(config, data, y, dev, host_steady_ms,
     return out
 
 
+# phase 7, out-of-core training
+STREAM_WARM_TREES = 2             # (c): trees of the warm start
+STREAM_STORM_READS = 200          # (d): chunk reads the seeded storm covers
+
+
+def stream_chunks(src, binner, rows: int, packed: bool, dev, codes=None):
+    """A pass as ``train_streaming`` makes it (``gbdt.binned_pass``): raw
+    chunks staged in the pinned ring, uploaded on the copy stream and
+    binned on the card, 4-bit packed where ``packed``.  Returns the
+    zero-argument callable the chunked grower takes.  Given the in-memory
+    row-major ``codes`` (the host's binning), each chunk's codes are held
+    against them bit for bit."""
+    from repro_torch.core.gbdt import binned_pass
+
+    def chunks():
+        for lo, hi, c in binned_pass(src, binner, rows, packed, dev):
+            if codes is not None:
+                check(torch.equal(c.data, codes.data[lo:hi]) if packed
+                      else torch.equal(c, codes[lo:hi]),
+                      f"rows {lo}:{hi} binned on the card equal the "
+                      "host's codes")
+            yield lo, hi, c
+    return chunks
+
+
+def chunked_gate(label: str, chunks, data, K: int, gen, dev,
+                 twin=None) -> None:
+    """(a): the chunked grower on the card-binned stream against
+    ``fit_forest`` on the in-memory codes, on exact-grid statistics: the
+    same trees and final node ids, bit for bit; ``twin`` (a second chunk
+    stream, the uint8 one of a packed stream) is held to the same."""
+    from repro_torch.core import tree as tree_mod
+
+    n = data.n_records
+    g, h = exact_grid((K, n), gen, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole, ids = level_ids(data.codes, data.codes_cm, g, h, data, None)
+    ids = ids[-1]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    streams = [("stream", chunks)] + ([("uint8 stream", twin)] if twin
+                                       else [])
+    for what, stream in streams:
+        t2 = time.perf_counter()
+        tree, sids = tree_mod.fit_forest_chunked(stream, g.cpu(), h.cpu(),
+                                                 **grower_args(data, dev))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for field, a, b in zip(tree._fields, tree, whole):
+            check(torch.equal(a, b), f"{label} (a): the chunked {what}'s "
+                  f"{field} equals fit_forest's")
+        check(torch.equal(sids, ids), f"{label} (a): the chunked {what}'s "
+              "final node ids equal fit_forest's")
+        log(f"stream (a) {label}: fit_forest_chunked on the {what} "
+            f"{t3 - t2:.3f} s against fit_forest {t1 - t0:.3f} s, trees "
+            "and node ids bit-equal on exact-grid statistics")
+
+
+def stream_ties(config, data, y, rows: int, dev):
+    """What :func:`tie_witness` reads for a stream of ``rows``-row chunks
+    over ``data``: round 0's statistics and the uint8 codes."""
+    from repro_torch.kernels import ops
+
+    def make():
+        g, h = round0_stats(config, y, data.n_fields, dev)
+        return dict(codes=ops.unpack_codes(data.codes), g=g, h=h, rows=rows,
+                    n_bins=data.n_bins, config=config)
+    return make
+
+
+def stream_fit(label: str, config, src, binner, y, mem, mem_steady_ms: float,
+               smi: str, data):
+    """(b): ``train_streaming`` over the raw matrix against the in-memory
+    fit ``mem`` of phase 3 on ``data``: round 0 under
+    :func:`round0_contract`, every loss within rtol 1e-4, the loss falling
+    every round; later rounds' differing nodes counted.
+    Returns the fit, its launch counts and its steady round (ms)."""
+    from repro_torch.core.gbdt import train_streaming
+    from repro_torch.kernels import _build
+
+    K = config.n_classes or 1
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    stamps = [t0]
+    res = train_streaming(config, src, binner, y,
+                          callback=lambda t, m: stamps.append(
+                              time.perf_counter()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    st = res.stats
+    loss, mem_loss = res.history["train_loss"], mem.history["train_loss"]
+    rounds = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    steady = statistics.median(rounds[1:] or rounds)
+    log(f"stream (b) {label}: {config.n_trees} rounds {wall:.3f} s, "
+        f"stats {json.dumps(st)}; steady round {steady:.3f} ms against the "
+        f"in-memory host loop's {mem_steady_ms:.3f} ms "
+        f"({steady / mem_steady_ms:.2f}x)  [{smi}]")
+    log(f"stream (b) {label}: round wall ms "
+        + json.dumps([round(r, 3) for r in rounds]))
+    log(f"stream (b) {label}: loss {loss}; in-memory {mem_loss}")
+    log(f"stream (b) {label}: launches {json.dumps(counts)}; device memory "
+        f"above the fit's inputs at its peak {peak / 2 ** 20:.1f} MiB")
+    hist = "histogram_nibble" if src_packed(binner) else "histogram"
+    part = "partition_nibble" if src_packed(binner) else "partition"
+    per_tree = DEPTH * st["n_chunks"]
+    check(counts[hist] == per_tree * config.n_trees
+          and counts[part] == per_tree * config.n_trees,
+          f"{label} (b): histogram and partition launched once a chunk a "
+          "level")
+    check(all(b < a for a, b in zip(loss, loss[1:])),
+          f"{label} (b): the streamed loss falls every round")
+    round0_contract(f"{label} (b)", res.model, mem.model, binner,
+                    stream_ties(config, data, y, st["chunk_rows"],
+                                data.codes_cm.device))
+    check(bool(np.allclose(loss, mem_loss, rtol=1e-4, atol=0)),
+          f"{label} (b): losses within rtol 1e-4 of the in-memory fit's")
+    a, b = res.model.trees, mem.model.trees
+    differ = int((a.feature[K:] != b.feature[K:]).sum())
+    log(f"stream (b) {label}: nodes of rounds >= 1 whose field differs from "
+        f"the in-memory fit's: {differ} of {a.feature[K:].numel()}")
+    return res, counts, steady, peak
+
+
+def round0_stats(config, y, n_fields: int, dev):
+    """Round 0's (K, n) gradient statistics as the trainers draw them."""
+    from repro_torch.core import gbdt
+    from repro_torch.core.losses import get_loss
+
+    loss = get_loss(config.objective, config.n_classes)
+    yt = torch.as_tensor(np.asarray(y), dtype=torch.float32, device=dev)
+    base = gbdt.base_margin_tensor(
+        loss.base_margin(yt).cpu().numpy().astype(np.float32)
+        if config.n_classes else float(loss.base_margin(yt)), dev)
+    n = yt.shape[0]
+    g, h = loss.grad_hess(base.expand((n,) + base.shape).clone(), yt)
+    g, h, _ = gbdt._round_stats(config, gbdt._round_generator(config, 0, dev),
+                                g, h, n, n_fields, config.n_classes)
+    return ((g.T, h.T) if config.n_classes else (g[None], h[None]))
+
+
+def split_gain(hist, f: int, t: int, cat: bool, dl: bool, config):
+    """The gain of one split on a node's (F, NB, 2) histogram, in the
+    histogram's dtype, by ``find_best_splits``' formula (the parent's sums
+    from field 0), and the hessian of its lighter child; a gain of 0 for
+    no split (a node splits where its gain is > 0), -inf where a child
+    holds less hessian than ``min_child_weight``."""
+    if f < 0:
+        return 0.0, float("inf")
+    NB = hist.shape[1]
+    Gp, Hp = hist[0, :, 0].sum(), hist[0, :, 1].sum()
+    v = hist[f, :NB - 1]
+    GL, HL = v[t] if cat else torch.cumsum(v, 0)[t]
+    if dl:
+        GL, HL = GL + hist[f, NB - 1, 0], HL + hist[f, NB - 1, 1]
+    GR, HR = Gp - GL, Hp - HL
+    light = min(float(HL), float(HR))
+    if light < config.min_child_weight:
+        return float("-inf"), light
+    lam = config.lambda_
+    return float(0.5 * (GL ** 2 / (HL + lam) + GR ** 2 / (HR + lam)
+                        - Gp ** 2 / (Hp + lam)) - config.gamma), light
+
+
+def tie_witness(k: int, node: int, sel, splits: dict, ties) -> dict:
+    """Why a held node splits differently in two fits: both choices
+    (``splits``: side -> (field, bin, is_cat, default_left)) evaluated on
+    the node's records in float64, and in float32 as a whole pass and as
+    the stream's chunked pass (per-chunk histograms summed in order) sum
+    them on the card.  ``rounding`` is the largest float32 error of either
+    gain, summed over the two choices.  A choice is a phantom where in
+    float64 a child holds less than ``min_child_weight`` of hessian (it
+    sends no record that way: the node lies below a split on the same
+    field) by less than float32 sums can err: the lighter child's hessian
+    is a difference of two sums over the node's m records, each off by at
+    most (m - 1)·2^-24 of the parent's hessian."""
+    from repro_torch.kernels import ops
+
+    codes, g, h, rows, config = (ties["codes"], ties["g"][k], ties["h"][k],
+                                 ties["rows"], ties["config"])
+    n, F = codes.shape
+    NB = ties["n_bins"]
+    idx = sel.nonzero()[:, 0]
+    c, gs, hs = codes[idx], g[idx], h[idx]
+    flat = (torch.arange(F, device=c.device) * NB + c.long()).reshape(-1)
+    h64 = torch.zeros((F * NB, 2), dtype=torch.float64, device=c.device)
+    h64.index_add_(0, flat, torch.stack(
+        [gs.double(), hs.double()], -1).repeat_interleave(F, 0))
+    h64 = h64.reshape(F, NB, 2)
+
+    def f32(bounds):
+        acc = None
+        for lo, hi in bounds:
+            part = idx[(idx >= lo) & (idx < hi)]
+            if part.numel() == 0:
+                continue
+            one = ops.build_histogram(
+                codes[part].contiguous(), g[part][None].contiguous(),
+                h[part][None].contiguous(),
+                torch.zeros((1, part.numel()), dtype=torch.int32,
+                            device=c.device), n_nodes=1, n_bins=NB)[0, 0]
+            acc = one if acc is None else acc.add_(one)
+        return acc
+
+    sums = (f32([(0, n)]),
+            f32([(lo, min(lo + rows, n)) for lo in range(0, n, rows)]))
+    m = int(idx.numel())
+    h_bound = 2 * m * 2.0 ** -24 * float(h64[0, :, 1].sum())
+    out = {"tree": k, "node": node, "records": m, "hessian_bound": h_bound}
+    err, phantom = 0.0, False
+    for side, d in splits.items():
+        g64, light64 = split_gain(h64, *d, config)
+        g32 = [split_gain(x, *d, config)[0] for x in sums]
+        out[side] = {"split": list(d[:2]) if d[0] >= 0 else None,
+                     "gain64": g64, "gain32": g32}
+        if g64 == float("-inf"):
+            out[side]["light_child_hessian64"] = light64
+            phantom |= config.min_child_weight - light64 <= h_bound
+        err += max((abs(x - g64) for x in g32 if np.isfinite(x - g64)),
+                   default=0.0)
+    gains = [out[side]["gain64"] for side in splits]
+    out["gap64"] = abs(gains[0] - gains[1]) if all(
+        np.isfinite(gains)) else float("inf")
+    out["rounding"] = err
+    out["phantom"] = phantom
+    return out
+
+
+def canonical_round0(model, binary, has_missing) -> list:
+    """Round 0's (K, ...) tables on the host, with every split on a
+    two-category field written as ``code == 0``: ``code == 1`` with the
+    missing values sent one way is the same partition as ``code == 0``
+    with them sent the other way and the children swapped, and the two
+    tie exactly in exact arithmetic, so float32 rounding picks one.  The
+    missing direction of a field with no missing value is written as 0.
+    The last two tables are the bins and directions the fit chose, moved
+    with the swapped subtrees."""
+    K = model.n_classes
+    f, t, c, d, leaf = (x[:K].cpu().clone() for x in model.trees)
+    t0, d0 = t.clone(), d.clone()
+    NN = f.shape[1]
+    for k in range(K):
+        for i in range(NN):
+            if not (f[k, i] >= 0 and c[k, i] and binary[int(f[k, i])]
+                    and t[k, i] == 1):
+                continue
+            t[k, i], d[k, i] = 0, 1 - d[k, i]
+            lo, hi, width = 2 * i + 1, 2 * i + 2, 1
+            while True:
+                for arr, off in ((f, 0), (t, 0), (c, 0), (d, 0), (t0, 0),
+                                 (d0, 0), (leaf, NN)):
+                    if (lo < NN) == (off == 0):
+                        a, b = lo - off, hi - off
+                        tmp = arr[k, a:a + width].clone()
+                        arr[k, a:a + width] = arr[k, b:b + width]
+                        arr[k, b:b + width] = tmp
+                if lo >= NN:
+                    break
+                lo, hi, width = 2 * lo + 1, 2 * hi + 1, 2 * width
+    d = torch.where(torch.as_tensor(has_missing)[f.clamp(min=0).long()], d,
+                    0)
+    return [f, t, c, d, leaf, t0, d0]
+
+
+def round0_contract(what: str, model, ref, binner, ties) -> None:
+    """Round 0 of ``model`` against ``ref`` under the stream's contract,
+    on :func:`canonical_round0` tables.  A node is held when every split
+    above it is the same in both (field, bin, categorical flag and missing
+    direction; two nodes that do not split agree).  A held node splits as
+    the reference's does, or :func:`tie_witness` (on what ``ties()``
+    returns, :func:`stream_ties`) shows why it may not: its two choices'
+    float64 gains lie within float32 rounding of each other, or one choice
+    is a phantom.  Every leaf slot under held, agreeing nodes lies within
+    rtol 1e-4 + atol 1e-5 of the reference's.  Nodes that differ are
+    counted, and the first one of each differing subtree is logged with
+    its witness."""
+    K = model.n_classes
+    ties = ties()
+    codes, missing = ties["codes"], ties["n_bins"] - 1
+    dev = codes.device
+    binary = binner._is_cat & (binner._n_value_bins == 2)
+    has_missing = (codes == missing).any(0).cpu().numpy()
+    fa, ta, ca, da, la, ta0, da0 = canonical_round0(model, binary,
+                                                    has_missing)
+    fb, tb, cb, db, lb, tb0, db0 = canonical_round0(ref, binary, has_missing)
+    NN = fa.shape[1]
+    eq = (fa == fb) & ((fb < 0) | ((ta == tb) & (ca == cb) & (da == db)))
+    held = torch.ones_like(eq)
+    for i in range(1, NN):
+        held[:, i] = held[:, (i - 1) // 2] & eq[:, (i - 1) // 2]
+    first = held & ~eq
+    parent = (NN + torch.arange(la.shape[1]) - 1) // 2
+    leaf_held = held[:, parent] & eq[:, parent]
+    close = (la - lb).abs() <= 1e-5 + 1e-4 * lb.abs()
+    witnesses = []
+    for k in range(K):
+        nodes = first[k].nonzero()[:, 0].tolist()
+        if not nodes:
+            continue
+        tabs = [x[k].to(dev) for x in (fb, tb, cb, db)]
+        ids = torch.zeros(codes.shape[0], dtype=torch.long, device=dev)
+        for level in range(DEPTH):
+            lo = 2 ** level - 1
+            for i in (i for i in nodes if lo <= i < 2 * lo + 1):
+                splits = {side: tuple(int(x[k, i]) for x in tabs_)
+                          for side, tabs_ in (("reference",
+                                               (fb, tb0, cb, db0)),
+                                              ("fit", (fa, ta0, ca, da0)))}
+                witnesses.append(tie_witness(k, i, ids == i, splits, ties))
+            f = tabs[0][ids]
+            col = codes.gather(1, f.clamp(min=0)[:, None])[:, 0].long()
+            thr = tabs[1][ids]
+            left = torch.where(tabs[2][ids].bool(), col == thr, col <= thr)
+            left = torch.where(col == missing, tabs[3][ids].bool(), left)
+            ids = 2 * ids + 1 + (~(left | (f < 0))).long()
+    for w in witnesses:
+        log(f"{what}: tie witness {json.dumps(w)}")
+    log(f"{what}: round 0's nodes whose split differs (two-category splits "
+        f"written as code == 0): {int((~eq).sum())} of {eq.numel()}, below "
+        f"{int(first.sum())} held nodes that differ "
+        f"({sum(w['phantom'] for w in witnesses)} of them phantoms); leaf "
+        f"slots held {int(leaf_held.sum())} of {leaf_held.numel()}")
+    check(bool(torch.all(close[leaf_held])),
+          f"{what}: round 0's leaves under held, agreeing nodes within rtol "
+          "1e-4, atol 1e-5")
+    for w in witnesses:
+        check(w["phantom"] or w["gap64"] <= w["rounding"],
+              f"{what}: tree {w['tree']} node {w['node']} splits otherwise "
+              "only at a phantom or where its choices' gains lie within "
+              "float32 rounding")
+
+
+def src_packed(binner) -> bool:
+    from repro_torch.core.binning import PACK_MAX_BINS
+    return binner.max_bins <= PACK_MAX_BINS
+
+
+def pass_breakdown(label: str, src, binner, K: int, model, dev,
+                   smi: str) -> dict:
+    """One level pass at NN = 32, as the trainer makes it, with the default
+    ``chunk_bytes``: first its stages serialized chunk by chunk and timed
+    apart (host staging: the copy into pinned memory, host clock; upload,
+    card binning with the pack, growth: the statistics' upload, the
+    histogram and the partition, each by CUDA events), then the same pass
+    overlapped (the prefetch worker uploads chunk i + 1 while chunk i bins
+    and grows) for its wall time and its peak device memory above what was
+    allocated before it: the second of two such passes, the first having
+    allocated the pinned ring."""
+    from repro_torch.api.plan import ExecutionPlan
+    from repro_torch.core import tree as tree_mod
+    from repro_torch.core.binning import PackedCodes
+    from repro_torch.kernels import ops
+
+    packed = src_packed(binner)
+    plan = ExecutionPlan(packed_codes=packed)
+    F, n = src.n_fields, src.n_rows
+    rows = min(plan.chunk_rows(F, K), n)
+    nn = 2 ** (DEPTH - 1)
+    gen = torch.Generator().manual_seed(7)
+    g = torch.rand((K, n), generator=gen).pin_memory()
+    h = torch.rand((K, n), generator=gen).pin_memory()
+    nid = torch.randint(0, nn, (K, n), generator=gen,
+                        dtype=torch.int32).pin_memory()
+    off = nn - 1
+    tables = [t[:K, off:off + nn].contiguous() for t in model.trees[:4]]
+    kplan = plan.without_chunking().resolved()
+
+    def grow(codes, lo, hi, hist):
+        up = [torch.empty((K, hi - lo), dtype=a.dtype, device=dev)
+              for a in (g, h, nid)]
+        for dst, a in zip(up, (g, h, nid)):
+            for k in range(K):
+                dst[k].copy_(a[k, lo:hi], non_blocking=True)
+        hist = ops.accumulate_histogram(hist, codes, up[0], up[1], up[2],
+                                        n_nodes=nn, n_bins=binner.max_bins,
+                                        plan=kplan)
+        tree_mod._partition_chunk(codes, up[2], *tables,
+                                  missing_bin=binner.max_bins - 1,
+                                  plan=kplan)
+        return hist
+
+    def new_hist():
+        return torch.zeros((K, nn, F, binner.max_bins, 2), device=dev)
+
+    # serialized, stage by stage
+    pinned = torch.empty((rows * F,), dtype=torch.float32, pin_memory=True)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    stage = dict(host_staging_ms=0.0, upload_ms=0.0, binning_ms=0.0,
+                 growth_ms=0.0)
+    hist = new_hist()
+    lo = 0
+    for X, _ in src.chunks(rows):
+        hi = lo + X.shape[0]
+        t0 = time.perf_counter()
+        host = pinned[:X.size].view(X.shape)
+        host.copy_(torch.from_numpy(X))
+        stage["host_staging_ms"] += (time.perf_counter() - t0) * 1e3
+        ev[0].record()
+        xd = host.to(dev, non_blocking=True)
+        ev[1].record()
+        codes = binner.transform_chunk(xd)
+        codes = PackedCodes.pack(codes) if packed else codes
+        ev[2].record()
+        hist = grow(codes, lo, hi, hist)
+        ev[3].record()
+        ev[3].synchronize()
+        for key, a, b in (("upload_ms", 0, 1), ("binning_ms", 1, 2),
+                          ("growth_ms", 2, 3)):
+            stage[key] += ev[a].elapsed_time(ev[b])
+        lo = hi
+    serial = sum(stage.values())
+    # overlapped, as the trainer streams; twice, the second timed: the
+    # first allocates the pinned ring, which later passes take from the
+    # pinned memory cache
+    del hist, xd, codes, pinned
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        hist = new_hist()
+        for lo, hi, codes in stream_chunks(src, binner, rows, packed, dev)():
+            hist = grow(codes, lo, hi, hist)
+        del codes
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() - base
+        del hist
+    wall = walls[-1]
+    raw = n * F * 4
+    out = dict(stage, serial_ms=serial, overlapped_ms=wall,
+               first_overlapped_ms=walls[0],
+               chunk_rows=rows, n_chunks=-(-n // rows), peak_bytes=peak,
+               chunk_bytes=plan.DEFAULT_CHUNK_BYTES,
+               model_bytes=rows * ((1 if packed else 2) * F + 12 * K),
+               raw_bytes=raw, upload_gb_per_s=raw / stage["upload_ms"] / 1e6)
+    log(f"stream pass {label} (NN = {nn}, {out['n_chunks']} chunks of "
+        f"{rows}): host staging {stage['host_staging_ms']:.3f} ms, upload "
+        f"{stage['upload_ms']:.3f} ms ({out['upload_gb_per_s']:.2f} GB/s of "
+        f"raw float32), card binning {stage['binning_ms']:.3f} ms, growth "
+        f"{stage['growth_ms']:.3f} ms; serialized {serial:.3f} ms, "
+        f"overlapped {wall:.3f} ms (the first pass, which allocates the "
+        f"pinned ring: {walls[0]:.3f} ms)  [{smi}]")
+    log(f"stream pass {label}: peak device memory above the pass's start "
+        f"{peak / 2 ** 20:.1f} MiB against chunk_bytes "
+        f"{plan.DEFAULT_CHUNK_BYTES / 2 ** 20:.0f} MiB (the reference "
+        f"formula's chunk: {out['model_bytes'] / 2 ** 20:.1f} MiB; a chunk's "
+        f"raw floats {rows * F * 4 / 2 ** 20:.1f} MiB)")
+    return out
+
+
+def streaming_path(paths: dict, dev, smi: str) -> dict:
+    """Phase 7: out-of-core training on the card over the raw matrices of
+    phases 3, 3b and 3c, each from an ``ArraySource`` in host memory, with
+    those phases' binners and the default ``chunk_bytes`` (64 MiB).  Gates
+    (a)-(d); returns the kernel rows' ``stream_*`` numbers."""
+    import dataclasses
+
+    from repro_torch.api.plan import ExecutionPlan
+    from repro_torch.core import gbdt
+    from repro_torch.data.pipeline import ArraySource
+    from repro_torch.kernels import _build
+    from repro_torch.resilience import (DeviceOOMError, FaultSchedule,
+                                        FaultySource, RecoveryPolicy,
+                                        RetryingSource, RetryPolicy,
+                                        seeded_schedule)
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    out = {}
+    for key, label in (("higgs", "Higgs"), ("cover", "Covertype"),
+                       ("iot", "IoT")):
+        p = paths[key]
+        K = p["config"].n_classes or 1
+        packed = src_packed(p["binner"])
+        src = ArraySource(p["X"], p["y"])
+        rows = ExecutionPlan(packed_codes=packed).chunk_rows(src.n_fields, K)
+        log(f"stream {label}: {src.n_rows} x {src.n_fields} float32 "
+            f"({src.X.nbytes / 1e9:.3f} GB a pass), K = {K}, "
+            f"{'packed' if packed else 'uint8'} chunks of {rows} rows, "
+            f"{-(-src.n_rows // rows)} a pass, {DEPTH + 1} passes a round")
+        # (a)
+        chunks = stream_chunks(src, p["binner"], rows, packed, dev,
+                               p["data"].codes)
+        twin = (stream_chunks(src, p["binner"], rows, False, dev)
+                if packed else None)
+        chunked_gate(label, chunks, p["data"], K, gen, dev, twin)
+        # (b)
+        res, counts, steady, peak = stream_fit(
+            label, p["config"], src, p["binner"], p["y"], p["res"],
+            p["steady_ms"], smi, p["data"])
+        if key == "cover":
+            # a second witness: one chunk a pass sums as the in-memory fit
+            one = gbdt.train_streaming(
+                dataclasses.replace(p["config"], n_trees=1), src,
+                p["binner"], p["y"], chunk_rows=src.n_rows)
+            log(f"stream (b) {label} in one chunk a pass: loss "
+                f"{one.history['train_loss']}; in-memory "
+                f"{p['res'].history['train_loss'][:1]}")
+            round0_contract(f"{label} (b) in one chunk", one.model,
+                            p["res"].model, p["binner"],
+                            stream_ties(p["config"], p["data"], p["y"],
+                                        src.n_rows, dev))
+        out[key] = dict(res=res, counts=counts, steady_ms=steady,
+                        fit_peak_bytes=peak,
+                        breakdown=pass_breakdown(label, src, p["binner"], K,
+                                                 res.model, dev, smi))
+    # (c) a warm start of 2 more trees from the streamed Higgs model
+    p, res = paths["higgs"], out["higgs"]["res"]
+    src = ArraySource(p["X"], p["y"])
+    rows = res.stats["chunk_rows"]
+    direct = res.model.predict_margin(p["data"])
+    streamed = gbdt._streamed_margins(
+        res.model, stream_chunks(src, p["binner"], rows, False, dev),
+        src.n_rows, ExecutionPlan().resolved(), dev)
+    check(torch.equal(streamed, direct), "Higgs (c): _streamed_margins "
+          "equals predict_margin on the same codes bit for bit")
+    _build.reset_launch_counts()
+    warm = gbdt.train_streaming(
+        dataclasses.replace(p["config"], n_trees=STREAM_WARM_TREES), src,
+        p["binner"], p["y"], init_model=res.model)
+    warm_counts = _build.launch_counts()
+    loss = res.history["train_loss"] + warm.history["train_loss"]
+    log(f"stream (c) Higgs warm start: {STREAM_WARM_TREES} trees, loss "
+        f"{warm.history['train_loss']}, launches {json.dumps(warm_counts)}")
+    check(warm.model.n_trees == res.model.n_trees + STREAM_WARM_TREES,
+          "Higgs (c): the warm start continues the ensemble")
+    check(warm_counts["ensemble"] == res.stats["n_chunks"],
+          "Higgs (c): the streamed margins launch the ensemble once a chunk")
+    check(all(b < a for a, b in zip(loss, loss[1:])),
+          "Higgs (c): the loss keeps falling")
+    check(torch.equal(warm.model.predict_margin(p["data"]), warm.margins),
+          "Higgs (c): the warm start's margins equal predict_margin")
+    out["higgs"]["warm_counts"] = warm_counts
+    # (d) a seeded error storm absorbed below the trainer, then one OOM
+    p, ref = paths["cover"], out["cover"]["res"]
+    rows = ref.stats["chunk_rows"]
+    storm = seeded_schedule(5, "source", STREAM_STORM_READS, rate=0.1)
+    oom = FaultSchedule().add("source", 2 * (DEPTH + 1) * ref.stats[
+        "n_chunks"] + 3, exc=DeviceOOMError)         # in round 2 or so
+    flaky = RetryingSource(
+        FaultySource(FaultySource(ArraySource(p["X"], p["y"]), storm), oom),
+        RetryPolicy(base_delay_s=0.0, max_delay_s=0.0, jitter=0.0))
+    t0 = time.perf_counter()
+    res = gbdt.train_streaming(
+        p["config"], flaky, p["binner"], p["y"],
+        recovery=RecoveryPolicy(min_chunk_rows=max(1, rows // 4)))
+    st = res.stats
+    log(f"stream (d) Covertype under a seeded storm and one OOM: "
+        f"{time.perf_counter() - t0:.3f} s, stats {json.dumps(st)}, retry "
+        f"stats {json.dumps(flaky.stats)}, storm faults fired "
+        f"{len(storm.fired)}, OOM fired {oom.fired}")
+    check(len(oom.fired) == 1, "Covertype (d): the OOM was injected")
+    check(flaky.stats["retries"] > 0 and st["recoveries"] == 0,
+          "Covertype (d): the storm is absorbed by RetryingSource")
+    check(st["oom_halvings"] == 1 and st["chunk_rows"] == rows // 2
+          and st["n_chunks"] == -(-len(p["y"]) // (rows // 2)),
+          "Covertype (d): the OOM halves chunk_rows, counted in stats")
+    check(flaky._closed, "Covertype (d): the retrying source is closed")
+    K = p["config"].n_classes
+    a, b = res.model.trees, ref.model.trees
+    round0_contract("Covertype (d)", res.model, ref.model, p["binner"],
+                    stream_ties(p["config"], p["data"], p["y"], rows, dev))
+    check(bool(np.allclose(res.history["train_loss"],
+                           ref.history["train_loss"], rtol=1e-4, atol=0)),
+          "Covertype (d): losses within rtol 1e-4 of (b)'s")
+    log(f"stream (d): nodes of rounds >= 1 whose field differs from (b)'s: "
+        f"{int((a.feature[K:] != b.feature[K:]).sum())} of "
+        f"{a.feature[K:].numel()}")
+    torch.cuda.empty_cache()
+    log(f"streaming phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--records", type=int, default=10_000_000)
@@ -2296,12 +2912,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows.update(packed_parity(args.records, args.seed, dev))
     torch.cuda.empty_cache()
-    counts, steady_ms, (config, data, y) = main_path(
+    counts, steady_ms, (config, data, y), higgs_raw = main_path(
         args.records, args.trees, args.seed, dev)
     higgs_device_ms = round_breakdown("Higgs", config, data, y, steady_ms)
     naive_counts = naive_fit(config, data, y)
-    mc_counts, mc_steady_ms, (mc_config, mc_data, mc_y) = mc_main_path(
-        MC_RECORDS, MC_ROUNDS, args.seed, dev)
+    mc_counts, mc_steady_ms, (mc_config, mc_data, mc_y), mc_raw = \
+        mc_main_path(MC_RECORDS, MC_ROUNDS, args.seed, dev)
     # the histogram's time depends on the codes: its row is timed on the
     # multi-class path's own, after that path's launch counts were read
     gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
@@ -2323,7 +2939,7 @@ def main(argv=None) -> int:
     mc_device_ms = round_breakdown("multi-class", mc_config, mc_data, mc_y,
                                    mc_steady_ms)
     iot_counts, iot_steady_ms, iot_step5_ms, (iot_config, iot_data,
-                                              iot_y) = iot_main_path(
+                                              iot_y), iot_raw = iot_main_path(
         IOT_RECORDS, args.trees, args.seed, dev)
     rows["traversal_nibble"]["iot_step5_device_ms"] = iot_step5_ms
     # the nibble and uint8 kernels on the path's own codes, NN = 32
@@ -2334,19 +2950,39 @@ def main(argv=None) -> int:
                                     uint8_ms_path_codes=nib["uint8_ms"])
     round_breakdown("IoT-shaped packed", iot_config, iot_data, iot_y,
                     iot_steady_ms)
-    del iot_data
-    torch.cuda.empty_cache()
     rows["ensemble"].update(serving_path(args.seed, dev, smi))
-    # phase 6 last, on the Higgs- and Covertype-shaped paths' data: its
-    # graphs and profiles then run after every earlier phase's profile
+    # phase 6 on the Higgs- and Covertype-shaped paths' data: its graphs
+    # and profiles run after every earlier phase's profile
     rows["histogram"].update(variants_path(config, data, y, dev,
                                            higgs_device_ms, smi))
-    del data
-    torch.cuda.empty_cache()
     rows["histogram_classes"].update(variants_multiclass(
         mc_config, mc_data, mc_y, dev, mc_steady_ms, mc_device_ms, smi))
-    del mc_data
+    # phase 7 last: the three paths' raw matrices streamed out-of-core, held
+    # against their in-memory fits
+    paths = {key: dict(raw, config=cfg, data=d, y=yy, steady_ms=ms)
+             for key, raw, cfg, d, yy, ms in (
+                 ("higgs", higgs_raw, config, data, y, steady_ms),
+                 ("cover", mc_raw, mc_config, mc_data, mc_y, mc_steady_ms),
+                 ("iot", iot_raw, iot_config, iot_data, iot_y,
+                  iot_steady_ms))}
+    stream = streaming_path(paths, dev, smi)
+    del paths, data, mc_data, iot_data
     torch.cuda.empty_cache()
+    for row, key, counter in (
+            ("histogram", "higgs", "histogram"),
+            ("partition", "higgs", "partition"),
+            ("histogram_classes", "cover", "histogram"),
+            ("partition_classes", "cover", "partition"),
+            ("histogram_nibble", "iot", "histogram_nibble"),
+            ("partition_nibble", "iot", "partition_nibble")):
+        rows[row]["stream_launches"] = stream[key]["counts"][counter]
+    rows["ensemble"]["stream_launches"] = \
+        stream["higgs"]["warm_counts"]["ensemble"]
+    for row, key in (("histogram", "higgs"), ("histogram_classes", "cover"),
+                     ("histogram_nibble", "iot")):
+        rows[row].update(stream_round_ms=stream[key]["steady_ms"],
+                         stream_fit_peak_bytes=stream[key]["fit_peak_bytes"],
+                         stream_pass=stream[key]["breakdown"])
 
     # (row, kernel counter, source, TPU kernel, launches of which path)
     meta = [

@@ -12,8 +12,13 @@
     :class:`Server` / :class:`ModelRegistry` — the deadline-batching
     server over it.
   * :class:`RecoveryPolicy` / :class:`GracefulShutdown` — the divergence
-    sentinels and the preemption-safe exit that ``fit`` takes as
-    ``recovery=`` and ``shutdown=``.
+    sentinels, a streamed fit's replay and OOM degradation, and the
+    preemption-safe exit that ``fit`` takes as ``recovery=`` and
+    ``shutdown=``; :class:`RetryingSource` / :class:`RetryPolicy` — a
+    data source that retries transient read failures.
+  * :class:`DataSource`, :class:`ArraySource`, :class:`NpzShardSource`,
+    :class:`SyntheticSource`, :func:`write_npz_shards` — the chunked
+    sources that ``fit(data=...)`` streams.
 
 Only :mod:`repro_torch.api.plan` is imported eagerly: the kernels depend on
 it, so the modules that depend on the kernels load lazily, which keeps the
@@ -34,6 +39,11 @@ _LAZY = {
     "GBDTPipeline": ("repro_torch.core.inference", "GBDTPipeline"),
     "make_tabular": ("repro_torch.data.synthetic", "make_tabular"),
     "paper_dataset": ("repro_torch.data.synthetic", "paper_dataset"),
+    "DataSource": ("repro_torch.data.pipeline", "DataSource"),
+    "ArraySource": ("repro_torch.data.pipeline", "ArraySource"),
+    "NpzShardSource": ("repro_torch.data.pipeline", "NpzShardSource"),
+    "SyntheticSource": ("repro_torch.data.synthetic", "SyntheticSource"),
+    "write_npz_shards": ("repro_torch.data.pipeline", "write_npz_shards"),
     "Server": ("repro_torch.serving", "Server"),
     "ModelRegistry": ("repro_torch.serving", "ModelRegistry"),
     "Request": ("repro_torch.serving", "Request"),
@@ -41,6 +51,8 @@ _LAZY = {
     "ServerHealth": ("repro_torch.serving", "ServerHealth"),
     "FaultSchedule": ("repro_torch.resilience", "FaultSchedule"),
     "RecoveryPolicy": ("repro_torch.resilience", "RecoveryPolicy"),
+    "RetryPolicy": ("repro_torch.resilience", "RetryPolicy"),
+    "RetryingSource": ("repro_torch.resilience", "RetryingSource"),
     "GracefulShutdown": ("repro_torch.resilience", "GracefulShutdown"),
     "TrainingInterrupted": ("repro_torch.resilience", "TrainingInterrupted"),
     "NumericalDivergenceError": ("repro_torch.resilience",
@@ -50,6 +62,8 @@ _LAZY = {
                               "DeadlineExceededError"),
     "DispatcherCrashError": ("repro_torch.resilience",
                              "DispatcherCrashError"),
+    "ShardCorruptionError": ("repro_torch.resilience",
+                             "ShardCorruptionError"),
 }
 
 __all__ = ["ExecutionPlan", "resolve_device", "resolve_plan"] + sorted(_LAZY)

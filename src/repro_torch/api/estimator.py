@@ -11,13 +11,16 @@ a runtime choice, and a bundle never carries it.
 
 The training variants reach ``train`` as they do in ``repro``:
 ``grow_policy="lossguide"`` with ``max_leaves``, GOSS, ``fused_rounds``,
-and ``fit(recovery=, shutdown=)``.  The two options of ``repro``'s
-estimator that the port does not have yet raise ``NotImplementedError``
-naming their ROADMAP item: ``data=`` (out-of-core, Queue 1 item 5) and
-``mesh=`` (item 8).
+and ``fit(recovery=, shutdown=)``.  ``fit(data=...)`` (a ``DataSource``, an
+``(X, y)`` tuple or an npz-shard directory), or arrays under
+``ExecutionPlan(chunk_bytes=...)``, trains out-of-core through
+``core.gbdt.train_streaming``.  ``mesh=``, the one option of ``repro``'s
+estimator that the port does not have yet, raises ``NotImplementedError``
+naming its ROADMAP item (Queue 1 item 8).
 """
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import Any, Dict, Iterator, Optional, Tuple
 
@@ -26,10 +29,10 @@ import torch
 
 from repro_torch.api import serialize
 from repro_torch.api.plan import ExecutionPlan, resolve_device, resolve_plan
-from repro_torch.core.binning import Binner
+from repro_torch.core.binning import Binner, StreamingBinner
 from repro_torch.core.gbdt import (GBDTConfig, GBDTModel, TrainResult,
                                    _predict_forest, base_margin_tensor,
-                                   train)
+                                   train, train_streaming)
 from repro_torch.core.inference import GBDTPipeline, feature_importance
 from repro_torch.kernels.ref import TreeArrays
 from repro_torch.resilience.errors import TrainingInterrupted
@@ -239,6 +242,14 @@ class BoosterEstimator:
                          ``GBDTModel``, or a bundle path (of either
                          package) — ``n_trees`` *additional* trees are
                          grown (XGBoost semantics).
+        data:            out-of-core input in place of (X, y): a
+                         ``repro_torch.data.DataSource``, an ``(X, y)``
+                         tuple or an npz-shard directory path.  One pass
+                         gathers the labels and feeds a
+                         ``StreamingBinner``'s sketches, then
+                         ``train_streaming`` re-streams the chunks a level
+                         at a time.  Arrays with a plan that sets
+                         ``chunk_bytes`` stream through an ``ArraySource``.
         plan:            ExecutionPlan override for this fit.
         checkpoint_dir:  when set, resumes from the newest valid step
                          checkpoint and writes one every
@@ -248,7 +259,10 @@ class BoosterEstimator:
         recovery:        a :class:`repro_torch.resilience.RecoveryPolicy`
                          arming the divergence sentinels (the host loop
                          raises the typed error, fused rounds roll back and
-                         back the learning rate off).
+                         back the learning rate off); a streamed fit
+                         replays transient failures from a checkpoint or
+                         memory and halves its chunks on a device OOM (its
+                         ``checkpoint_dir`` defaults to this fit's).
         shutdown:        a :class:`repro_torch.resilience.GracefulShutdown`
                          — on SIGTERM/SIGINT the trainer finishes the round
                          in flight and raises a resumable
@@ -257,16 +271,28 @@ class BoosterEstimator:
                          ``checkpoint_dir``, saves a resume checkpoint
                          before re-raising.
         """
-        if data is not None:
-            raise _not_ported("fit(data=...) (out-of-core streaming)",
-                              "5: out-of-core")
         if mesh is not None:
             raise _not_ported("fit(mesh=...) (distributed training)",
                               "8: distributed")
         plan = self._resolve_plan(plan)
+        if data is None and plan.chunk_bytes is not None and X is not None:
+            if y is None:
+                raise TypeError("fit needs (X, y) arrays or data=DataSource")
+            from repro_torch.data.pipeline import ArraySource
+            # no eager float64 copy: the chunk_bytes cap is the point
+            data, X, y = ArraySource(np.asarray(X), np.asarray(y)), None, None
+        if data is not None:
+            if X is not None or y is not None:
+                raise ValueError(
+                    "pass either (X, y) arrays or data=..., not both")
+            return self._fit_streaming(
+                data, eval_set=eval_set, xgb_model=xgb_model, plan=plan,
+                checkpoint_dir=checkpoint_dir,
+                checkpoint_every=checkpoint_every, callback=callback,
+                verbose=verbose, recovery=recovery, shutdown=shutdown)
         device = self._device()
         if X is None or y is None:
-            raise TypeError("fit needs (X, y) arrays")
+            raise TypeError("fit needs (X, y) arrays or data=DataSource")
         X = np.asarray(X, dtype=np.float64)
         y = np.asarray(y)
         _validate_fit_arrays(X, y)
@@ -311,6 +337,91 @@ class BoosterEstimator:
         self._model, self._binner, self._result = result.model, binner, result
         if checkpoint_dir is not None:
             # step numbers count ROUNDS (the unit of the per-round saves)
+            serialize.save_checkpoint(checkpoint_dir, self,
+                                      result.model.n_rounds)
+        return self
+
+    def _fit_streaming(self, data, *, eval_set, xgb_model, plan,
+                       checkpoint_dir, checkpoint_every, callback,
+                       verbose, recovery=None,
+                       shutdown=None) -> "BoosterEstimator":
+        """``fit`` over a chunked DataSource: one pass gathers the labels
+        and feeds a ``StreamingBinner`` (unless a warm start fixes the
+        bins), then ``core.gbdt.train_streaming`` re-streams the chunks a
+        level at a time; the binned matrix never exists."""
+        from repro_torch.data.pipeline import as_source
+
+        device = self._device()
+        source = as_source(data)
+        F = source.n_fields
+        init_model, binner, n_trees = self._resume_or_warm_start(
+            xgb_model, checkpoint_dir, verbose)
+
+        # pass 0: the labels, and the quantile sketches when no warm binner
+        # fixes the bin edges already
+        sketch = None
+        if binner is None:
+            binner = sketch = StreamingBinner(
+                max_bins=self.max_bins,
+                categorical_fields=self.categorical_fields,
+                sketch_size=self.sketch_size)
+        ys = []
+        for X_chunk, y_chunk in source.chunks(plan.chunk_rows(F)):
+            if y_chunk is None:
+                raise ValueError(
+                    "streaming fit needs a labeled DataSource (every "
+                    "chunk must yield a y)")
+            if sketch is not None:
+                sketch.partial_fit(X_chunk)
+            ys.append(np.asarray(y_chunk))
+        if not ys:
+            raise ValueError("DataSource yielded no chunks")
+        if sketch is not None:
+            sketch.finalize()
+        y = np.concatenate(ys)
+        _validate_labels(y, what="streamed labels")
+
+        objective, n_classes = self._resolve_objective(y)
+        objective, n_classes = self._check_warm_model(init_model, objective,
+                                                      n_classes)
+        ev = None
+        if eval_set is not None:
+            X_val, y_val = eval_set
+            X_val = np.asarray(X_val, dtype=np.float64)
+            y_val = np.asarray(y_val, dtype=np.float32)
+            _validate_fit_arrays(X_val, y_val, what="eval_set")
+            ev = (binner.transform(X_val, device=device), y_val)
+
+        if (recovery is not None and recovery.checkpoint_dir is None
+                and checkpoint_dir is not None):
+            recovery = dataclasses.replace(
+                recovery, checkpoint_dir=checkpoint_dir,
+                checkpoint_every=checkpoint_every)
+        # when the trainer checkpoints, the callback must not write the
+        # same steps again
+        trainer_saves = (recovery is not None
+                         and recovery.checkpoint_dir is not None)
+
+        def cb(t_idx, model):
+            if callback is not None:
+                callback(t_idx, model)
+            if (not trainer_saves and checkpoint_dir is not None
+                    and (t_idx + 1) % checkpoint_every == 0):
+                serialize.save_checkpoint(
+                    checkpoint_dir,
+                    GBDTPipeline(binner=binner, model=model), t_idx + 1)
+
+        try:
+            result = train_streaming(
+                self._config(n_trees, objective, n_classes), source, binner,
+                y, eval_set=ev, init_model=init_model, callback=cb,
+                verbose=verbose, plan=plan, recovery=recovery,
+                shutdown=shutdown, device=device)
+        except TrainingInterrupted as stop:
+            self._finish_interrupted(stop, binner, checkpoint_dir)
+            raise
+        self._model, self._binner, self._result = result.model, binner, result
+        if checkpoint_dir is not None:
             serialize.save_checkpoint(checkpoint_dir, self,
                                       result.model.n_rounds)
         return self

@@ -17,11 +17,12 @@ PyTorch baselines of ``repro``'s software strategies, ``"scatter"``,
 (:mod:`repro_torch.kernels.ops`).  Step ⑤'s batch inference also takes
 ``"scan"``, the one-tree-at-a-time baseline.
 
-``repro``'s Pallas grid knobs (``records_per_block``, ``fields_per_block``,
+``chunk_bytes`` and ``packed_codes`` size and lay out the out-of-core
+stream (:func:`repro_torch.core.gbdt.train_streaming`).  ``repro``'s Pallas
+grid knobs (``records_per_block``, ``fields_per_block``,
 ``trees_per_block``, ``interpret``) size TPU launches and have no meaning
-here; ``chunk_bytes``/``packed_codes`` (out-of-core) and ``mesh``/
-``data_axes`` (distributed) are not ported yet.  Saved ``repro`` configs
-name the Pallas strategies: :func:`lift_legacy_strategy` maps them onto
+here; ``mesh``/``data_axes`` (distributed) are not ported yet.  Saved
+``repro`` configs name the Pallas strategies: :func:`lift_legacy_strategy` maps them onto
 the CUDA kernels where a legacy setting is lifted into a plan.
 """
 from __future__ import annotations
@@ -85,6 +86,17 @@ class ExecutionPlan:
                          ``None`` resolves to ``False``: a derived sibling
                          reassociates the parent's sum, so the direct pass
                          stays the default
+    packed_codes:        stream bin codes 4-bit packed (two per byte).
+                         ``None`` = auto: pack whenever the binner's
+                         ``max_bins <= 16``; ``True`` forces packing
+                         (errors above 16 bins); ``False`` forces uint8.
+                         Sets the resident-bytes model of
+                         :meth:`chunk_rows`; results are bit-equal either
+                         way
+    chunk_bytes:         out-of-core budget of binned records resident on
+                         the device at once; when set, ``fit`` streams
+                         chunk-sized passes instead of materializing the
+                         matrix (None = in-memory)
     mesh:                exists to refuse multi-device plans
     """
 
@@ -93,9 +105,16 @@ class ExecutionPlan:
     traversal_strategy: str = "auto"
     host_offload_split: bool = False
     hist_subtraction: Optional[bool] = None
+    packed_codes: Optional[bool] = None
+    chunk_bytes: Optional[int] = None
     mesh: Optional[object] = None
 
+    DEFAULT_CHUNK_BYTES = 1 << 26          # 64 MiB of resident chunk state
+
     def __post_init__(self):
+        if self.chunk_bytes is not None and self.chunk_bytes <= 0:
+            raise ValueError("chunk_bytes must be positive (or None for "
+                             "in-memory training)")
         if self.mesh is not None:
             raise NotImplementedError(
                 "multi-device plans are not ported yet (ROADMAP Queue 1: "
@@ -130,8 +149,29 @@ class ExecutionPlan:
     def replace(self, **changes) -> "ExecutionPlan":
         return dataclasses.replace(self, **changes)
 
+    # -- out-of-core chunking ----------------------------------------------
+    def chunk_rows(self, n_fields: int, n_classes: int = 1) -> int:
+        """Rows per streamed chunk under the ``chunk_bytes`` budget, by
+        ``repro``'s resident-bytes model: the code row and its column-major
+        copy (2F bytes, F when ``packed_codes`` halves both) and the
+        per-class float32 g, h and int32 node id (12K bytes).  The raw
+        floats a chunk arrives in, and their float64 cast while it is
+        binned on the device, are not in the model."""
+        budget = self.chunk_bytes or self.DEFAULT_CHUNK_BYTES
+        code_bytes = (1 if self.packed_codes else 2) * max(n_fields, 1)
+        per_row = code_bytes + 12 * max(n_classes, 1)
+        return max(256, budget // per_row)
+
+    def without_chunking(self) -> "ExecutionPlan":
+        """This plan without ``chunk_bytes`` (the kernels' view of it)."""
+        if self.chunk_bytes is None:
+            return self
+        return dataclasses.replace(self, chunk_bytes=None)
+
     def describe(self) -> str:
         sub = "+sub" if self.hist_subtraction else ""
+        if self.packed_codes is not None:
+            sub += f", packed={self.packed_codes}"
         split = "host" if self.host_offload_split else "device"
         return (f"ExecutionPlan(hist={self.hist_strategy}{sub}, "
                 f"split={split}, partition={self.partition_strategy}, "

@@ -3,7 +3,10 @@
 The counterpart of :mod:`repro.core.binning`.  ``Binner.fit`` and
 ``Binner.transform_codes`` are the same host numpy code, so both packages
 produce bit-equal codes; ``transform_codes_device`` searches float32 edge
-tables with ``torch.searchsorted``.
+tables with ``torch.searchsorted`` (the serving path), and
+``transform_chunk`` bins a streamed chunk on its device against float64
+edge tables, bit-equal to ``transform_codes``.  :class:`StreamingBinner`
+fits the same tables from quantile sketches over a chunked source.
 
 Bin-code conventions (per field, ``n_bins = max_bins`` total):
   * numeric field:  codes 0..n_value_bins-1 from quantile edges,
@@ -33,6 +36,8 @@ from repro_torch.api.plan import resolve_device
 # Packing is lossless, so every consumer stays bit-equal to the uint8 path.
 # --------------------------------------------------------------------------
 PACK_MAX_BINS = 16      # nibble capacity: codes 0..15
+# rows of a streamed chunk that ``transform_chunk`` casts to float64 at once
+_BIN_BLOCK_BYTES = 1 << 25
 
 
 def pack_nibbles(codes: torch.Tensor) -> torch.Tensor:
@@ -291,6 +296,58 @@ class Binner:
         codes = torch.where(is_cat[None, :], cat, num)
         return torch.where(nan, self.max_bins - 1, codes).to(torch.uint8)
 
+    def _exact_tables(self, device: torch.device):
+        """float64 edges, categorical flags and value-bin counts on
+        ``device``, kept per fit and device (the lookup state of
+        :meth:`transform_chunk`)."""
+        cached = self.__dict__.get("_exact")
+        if cached is None or cached[0] is not self._edges \
+                or cached[1] != device:
+            tables = (torch.as_tensor(self._edges, dtype=torch.float64,
+                                      device=device).contiguous(),
+                      torch.as_tensor(self._is_cat, device=device),
+                      torch.as_tensor(self._n_value_bins, dtype=torch.float64,
+                                      device=device))
+            self._exact = cached = (self._edges, device, tables)
+        return cached[2]
+
+    def transform_chunk(self, X: torch.Tensor) -> torch.Tensor:
+        """(n, F) uint8 bin codes of the raw chunk ``X`` (a float tensor, in
+        the source's own dtype), computed on ``X``'s device and bit-equal to
+        :meth:`transform_codes`.
+
+        Values are cast exactly to float64 and searched in float64 edge
+        tables, as the host does; float32 tables (``transform_codes_device``)
+        would misplace a value that lies between an edge and its float32
+        rounding.  Categorical values truncate toward zero and clip to the
+        field's categories, with the host cast's rule for values no int64
+        holds (NaN, ±inf and |x| >= 2^63 become INT64_MIN, so category 0).
+        The float64 temporaries cover ``_BIN_BLOCK_BYTES`` of rows at a
+        time, so a chunk's footprint stays its raw floats and its codes.
+        """
+        self._require_fit()
+        n, F = X.shape
+        edges, is_cat, nvb = self._exact_tables(X.device)
+        out = torch.empty((n, F), dtype=torch.uint8, device=X.device)
+        rows = max(1, _BIN_BLOCK_BYTES // (8 * max(F, 1)))
+        for lo in range(0, n, rows):
+            x = X[lo:lo + rows].to(torch.float64)
+            nan = torch.isnan(x)
+            x = torch.where(nan, 0.0, x)
+            if edges.shape[1]:
+                num = torch.searchsorted(edges, x.T.contiguous(), right=True,
+                                         out_int32=True).T
+            else:
+                num = torch.zeros(x.shape, dtype=torch.int32,
+                                  device=x.device)
+            cat = torch.where(x < 2.0 ** 63, torch.trunc(x).clamp(min=0.0),
+                              0.0)
+            cat = torch.minimum(cat, nvb - 1.0).to(torch.int32)
+            codes = torch.where(is_cat, cat, num)
+            out[lo:lo + rows] = torch.where(nan, self.max_bins - 1,
+                                            codes).to(torch.uint8)
+        return out
+
     def transform(self, X: np.ndarray, packed: Optional[bool] = None,
                   device=None) -> BinnedDataset:
         """Binned dataset in the redundant dual layout on ``device`` (CUDA
@@ -308,6 +365,177 @@ class Binner:
                                                             device=device),
                              n_bins=self.max_bins, bin_edges=self._edges,
                              n_value_bins=self._n_value_bins)
+
+
+class _QuantileSketch:
+    """Bounded-memory weighted quantile summary (merge and compress), the
+    numpy code of ``repro``'s.
+
+    Values are buffered verbatim until ``capacity`` is exceeded; then the
+    summary is compressed to ``capacity`` support points evenly spaced by
+    cumulative weight.  While uncompressed the summary is exact:
+    ``quantiles`` reproduces ``np.quantile`` of the whole stream bit for
+    bit.
+    """
+
+    __slots__ = ("capacity", "values", "weights", "exact", "_buf")
+
+    def __init__(self, capacity: int):
+        if capacity < 8:
+            raise ValueError("sketch capacity must be >= 8")
+        self.capacity = capacity
+        self.values = np.empty((0,), np.float64)
+        self.weights = np.empty((0,), np.float64)
+        self.exact = True
+        self._buf: list = []
+
+    @property
+    def n_support(self) -> int:
+        return self.values.size + sum(b.size for b in self._buf)
+
+    def update(self, vals: np.ndarray) -> None:
+        if vals.size == 0:
+            return
+        self._buf.append(np.asarray(vals, np.float64))
+        if self.n_support > 2 * self.capacity:
+            self._compress()
+
+    def _flush(self) -> None:
+        if self._buf:
+            self.values = np.concatenate([self.values] + self._buf)
+            self.weights = np.concatenate(
+                [self.weights] + [np.ones((b.size,)) for b in self._buf])
+            self._buf = []
+
+    def _compress(self) -> None:
+        self._flush()
+        if self.values.size <= self.capacity:
+            return
+        order = np.argsort(self.values, kind="stable")
+        v, w = self.values[order], self.weights[order]
+        total = float(w.sum())
+        mid = np.cumsum(w) - 0.5 * w          # midpoint cumulative weight
+        pts = (np.arange(self.capacity) + 0.5) / self.capacity * total
+        self.values = np.interp(pts, mid, v)
+        self.weights = np.full((self.capacity,), total / self.capacity)
+        self.exact = False
+
+    def quantiles(self, qs: np.ndarray) -> np.ndarray:
+        """Quantile estimates; exact (``np.quantile``) when uncompressed."""
+        self._flush()
+        if self.values.size == 0:
+            return np.empty((0,), np.float64)
+        if self.exact:
+            return np.quantile(self.values, qs)
+        order = np.argsort(self.values, kind="stable")
+        v, w = self.values[order], self.weights[order]
+        total = float(w.sum())
+        mid = (np.cumsum(w) - 0.5 * w) / total
+        return np.interp(qs, mid, v)
+
+
+class StreamingBinner(Binner):
+    """Out-of-core binner: quantile sketches over a stream of chunks.
+
+    A drop-in for :class:`Binner` when ``X`` cannot be materialized: feed
+    chunks through ``partial_fit`` (or a whole
+    :class:`repro_torch.data.DataSource` through ``fit_source``), then
+    ``finalize`` computes the edge and category tables ``Binner.fit``
+    produces; every transform is inherited.  For streams no longer than
+    ``sketch_size`` the sketch never compresses and the edges are
+    bit-identical to ``Binner.fit`` on the concatenated stream; beyond it
+    they are approximate quantiles with bounded summary error.
+    """
+
+    def __init__(self, max_bins: int = 256,
+                 categorical_fields: Optional[Sequence[int]] = None,
+                 sketch_size: int = 32768):
+        super().__init__(max_bins, categorical_fields)
+        self.sketch_size = sketch_size
+        self._sketches: Optional[list] = None
+        self._cat_max: Optional[np.ndarray] = None
+        self._n_seen = 0
+
+    @property
+    def n_rows_seen(self) -> int:
+        return self._n_seen
+
+    def _reset(self) -> None:
+        """Start a fresh stream: ``fit``/``fit_source`` recompute, as
+        ``Binner.fit`` does, and do not accumulate."""
+        self._sketches, self._cat_max, self._n_seen = None, None, 0
+
+    def partial_fit(self, X_chunk: np.ndarray) -> "StreamingBinner":
+        X = np.asarray(X_chunk, dtype=np.float64)
+        if X.ndim != 2:
+            raise ValueError("partial_fit expects a 2-D (rows, fields) chunk")
+        n, F = X.shape
+        if self._sketches is None:
+            self._sketches = [None if f in self.categorical_fields
+                              else _QuantileSketch(self.sketch_size)
+                              for f in range(F)]
+            self._cat_max = np.full((F,), -1, np.int64)
+        elif len(self._sketches) != F:
+            raise ValueError(
+                f"chunk has {F} fields; earlier chunks had "
+                f"{len(self._sketches)}")
+        self._n_seen += n
+        for f in range(F):
+            col = X[:, f]
+            valid = col[~np.isnan(col)]
+            if self._sketches[f] is None:      # categorical: track max id
+                if valid.size:
+                    self._cat_max[f] = max(self._cat_max[f],
+                                           int(valid.max()))
+            else:
+                self._sketches[f].update(valid)
+        return self
+
+    def finalize(self) -> "StreamingBinner":
+        """Turn the accumulated sketches into ``Binner``'s tables."""
+        if self._sketches is None:
+            raise RuntimeError("finalize called before any partial_fit")
+        F = len(self._sketches)
+        n_value_bins = self.max_bins - 1
+        edges = np.full((F, n_value_bins - 1), np.inf, dtype=np.float64)
+        is_cat = np.zeros((F,), dtype=bool)
+        nvb = np.zeros((F,), dtype=np.int64)
+        qs = np.linspace(0.0, 1.0, n_value_bins + 1)[1:-1]
+        for f in range(F):
+            sk = self._sketches[f]
+            if sk is None:
+                is_cat[f] = True
+                ncat = int(self._cat_max[f]) + 1 if self._cat_max[f] >= 0 \
+                    else 1
+                if ncat > n_value_bins:
+                    raise ValueError(
+                        f"field {f}: {ncat} categories exceed {n_value_bins} "
+                        "value bins; raise max_bins or re-map categories")
+                nvb[f] = ncat
+                continue
+            q = sk.quantiles(qs)
+            if q.size == 0:
+                nvb[f] = 1
+                continue
+            e = np.unique(q)
+            edges[f, : e.size] = e
+            nvb[f] = e.size + 1
+        self._edges, self._is_cat, self._n_value_bins = edges, is_cat, nvb
+        return self
+
+    def fit(self, X: np.ndarray) -> "StreamingBinner":
+        """Sketch the whole matrix, then finalize; like ``Binner.fit``,
+        refitting recomputes from scratch."""
+        self._reset()
+        return self.partial_fit(X).finalize()
+
+    def fit_source(self, source, chunk_rows: int) -> "StreamingBinner":
+        """Sketch every chunk of a :class:`repro_torch.data.DataSource` (a
+        fresh fit; accumulate across calls with ``partial_fit``)."""
+        self._reset()
+        for X_chunk, _ in source.chunks(chunk_rows):
+            self.partial_fit(X_chunk)
+        return self.finalize()
 
 
 def _dual_layout(codes_np: np.ndarray, n_bins: int, packed: Optional[bool],

@@ -16,12 +16,18 @@ lossguide grower (``grow_policy="lossguide"``, ``max_leaves``), GOSS
 (:func:`goss_weights`), the divergence sentinels and graceful shutdown
 (``train(recovery=, shutdown=)``), and fused rounds (``fused_rounds``):
 on the card each boosting round is one CUDA graph, replayed round after
-round (:class:`_RoundStep`).  The out-of-core and distributed trainers are
-not ported yet (ROADMAP Queue 1 items 5 and 8).
+round (:class:`_RoundStep`).
+
+:func:`train_streaming` is the out-of-core trainer: the binned matrix never
+exists; each tree level re-streams raw chunks from a ``DataSource``, binned
+on the card as they arrive (:meth:`Binner.transform_chunk`), through the
+chunked grower (:func:`repro_torch.core.tree.fit_forest_chunked`).  The
+distributed trainer is not ported yet (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 import traceback
@@ -34,6 +40,7 @@ import torch
 from repro_torch.api.plan import ExecutionPlan, resolve_device, resolve_plan
 from repro_torch.core import losses as losses_mod
 from repro_torch.core import tree as tree_mod
+from repro_torch.core import binning as binning_mod
 from repro_torch.core.binning import BinnedDataset, PackedCodes
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import traversal as trav_k
@@ -41,7 +48,8 @@ from repro_torch.kernels.ref import TreeArrays
 from repro_torch.resilience import metrics as _metrics
 from repro_torch.resilience.errors import (NumericalDivergenceError,
                                            TrainingInterrupted)
-from repro_torch.resilience.recovery import RecoveryPolicy
+from repro_torch.resilience.recovery import RecoveryPolicy, classify
+from repro_torch.resilience.retry import RetryingSource
 from repro_torch.resilience.shutdown import GracefulShutdown
 
 
@@ -266,6 +274,15 @@ def _unstack_forests(trees: TreeArrays, n_rounds: int,
     """Invert ``_stack_forests``: (R*K, ...) -> R forests of (K, ...)."""
     resh = [a.reshape((n_rounds, n_classes) + a.shape[1:]) for a in trees]
     return [TreeArrays(*[a[r] for a in resh]) for r in range(n_rounds)]
+
+
+def _model_rounds(model: "GBDTModel", K: Optional[int]) -> List[TreeArrays]:
+    """A model's rounds as a trainer holds them: a (K, ...) forest a
+    round for K classes, else one tree a round."""
+    if K is not None:
+        return _unstack_forests(model.trees, model.n_rounds, K)
+    return [TreeArrays(*[a[i] for a in model.trees])
+            for i in range(model.n_trees)]
 
 
 @dataclasses.dataclass
@@ -500,10 +517,7 @@ def train(config: GBDTConfig, data: BinnedDataset, y,
     if init_model is not None:
         init_model = _warm_model(init_model, config, K, config.max_depth,
                                  device)
-        trees = (_unstack_forests(init_model.trees, init_model.n_rounds, K)
-                 if K is not None else
-                 [TreeArrays(*[a[i] for a in init_model.trees])
-                  for i in range(init_model.n_trees)])
+        trees = _model_rounds(init_model, K)
         base_margin = init_model.base_margin
         margins = _replay_margins(init_model, data, plan)
         if eval_set is not None:
@@ -1013,3 +1027,388 @@ def _predict_one_tree(tree: TreeArrays, data: BinnedDataset,
     forest = TreeArrays(*[a[None] for a in tree])
     out = _predict_forest(forest, data, plan, margins)
     return out if margins is not None else out[:, 0]
+
+
+# --------------------------------------------------------------------------
+# out-of-core training: chunk-streamed passes, binned on the device
+# --------------------------------------------------------------------------
+def binned_pass(source, binner, rows: int, packed: bool, device):
+    """One full pass over ``source``: ``(lo, hi, codes)`` for every chunk
+    of ``rows`` rows, its raw floats staged in pinned memory and uploaded
+    on the copy stream by a :class:`PrefetchIterator`, then binned
+    (``Binner.transform_chunk``) and, where ``packed``, 4-bit packed on
+    ``device``."""
+    from repro_torch.data.pipeline import PrefetchIterator
+
+    def raw():
+        for X_chunk, _ in source.chunks(rows):
+            X_chunk = np.asarray(X_chunk)
+            if X_chunk.shape[0] > rows:
+                raise ValueError(
+                    f"source yielded a {X_chunk.shape[0]}-row chunk "
+                    f"for a {rows}-row request")
+            yield X_chunk
+
+    lo = 0
+    with PrefetchIterator(raw(), device=device, depth=2) as batches:
+        for X in batches:
+            codes = binner.transform_chunk(X)
+            if packed:
+                codes = PackedCodes.pack(codes)
+            yield lo, lo + X.shape[0], codes
+            lo += X.shape[0]
+
+
+def _streamed_margins(model: GBDTModel, chunks, n: int, plan: ExecutionPlan,
+                      device: torch.device) -> torch.Tensor:
+    """Warm-start margins without the matrix: one chunked inference pass.
+    The ensemble kernel adds each record's leaves onto the base margin in
+    tree order (``ops.predict_ensemble(out=)``), the order in which the fit
+    added them round by round, so a checkpoint resume replays bit-exactly
+    and equals ``predict_margin`` on the same codes."""
+    K = model.n_classes
+    base = base_margin_tensor(model.base_margin, device).reshape(-1)
+    out = torch.empty((n, K), dtype=torch.float32, device=device)
+    for lo, hi, codes in chunks():
+        rows = codes.shape[0]
+        m = base.expand(rows, K).clone()
+        ops.predict_ensemble(model.trees, codes, missing_bin=model.missing_bin,
+                             depth=model.max_depth, plan=plan, n_classes=K,
+                             out=m if K > 1 else m.view(rows))
+        out[lo:hi] = m[:hi - lo]
+    return out if K > 1 else out.view(n)
+
+
+def train_streaming(config: GBDTConfig, source, binner, y, *,
+                    eval_set: Optional[Tuple[BinnedDataset, object]] = None,
+                    init_model: Optional[GBDTModel] = None,
+                    callback: Optional[Callable[[int, GBDTModel], None]] = None,
+                    verbose: bool = False,
+                    plan: Optional[ExecutionPlan] = None,
+                    chunk_rows: Optional[int] = None,
+                    recovery: Optional[RecoveryPolicy] = None,
+                    shutdown: Optional[GracefulShutdown] = None,
+                    device=None) -> TrainResult:
+    """Out-of-core twin of :func:`train` on ``device`` (CUDA by default):
+    the binned matrix is never materialized.  Each tree level re-streams
+    ``source`` in chunks of ``chunk_rows`` records; a worker thread stages
+    each raw chunk in pinned memory and uploads it on a copy stream
+    (:class:`repro_torch.data.PrefetchIterator`), the chunk is binned on the
+    device, bit-equal to ``binner.transform_codes`` (and 4-bit packed when
+    the plan packs), and the chunked grower accumulates its histogram and
+    routes its node ids.  Margins and labels live on the device; the
+    per-record g, h and node ids on the host (pinned).
+
+    source:      a :class:`repro_torch.data.DataSource` of raw float chunks;
+                 successive passes must yield identical chunks.
+    binner:      a fitted ``Binner``/``StreamingBinner``.
+    y:           (n,) labels, gathered from the source by the caller.
+    eval_set:    optional in-memory ``(BinnedDataset, y_val)`` pair; drives
+                 ``eval_loss`` and early stopping.
+    init_model:  continue a fit: its margins come from one streamed
+                 inference pass (:func:`_streamed_margins`).
+    chunk_rows:  records per chunk; defaults to the plan's ``chunk_bytes``
+                 budget (``ExecutionPlan.chunk_rows``), never more than n.
+    recovery:    a :class:`repro_torch.resilience.RecoveryPolicy` making
+                 rounds self-healing: a transient source failure replays
+                 the round (from the newest ``checkpoint_dir`` checkpoint
+                 when one exists, else from the in-memory state of the
+                 previous round), and a device OOM halves ``chunk_rows``
+                 (down to ``min_chunk_rows``, at most ``max_oom_halvings``
+                 times) and retries; the chunked sums do not depend on the
+                 chunk size.  A round commits its state only after its
+                 compute succeeded, and its random stream is keyed by
+                 ``(seed, round)``, so a replayed round reproduces the
+                 fault-free fit.  ``None`` fails fast.
+    shutdown:    a :class:`repro_torch.resilience.GracefulShutdown`: a
+                 delivered signal finishes the round in flight, commits it
+                 (with a final checkpoint when ``recovery.checkpoint_dir``
+                 is set) and raises :class:`TrainingInterrupted` carrying
+                 the partial result.
+
+    Data passes a round: ``max_depth + 1`` (one a level, the previous
+    level's partition applied in the same pass, and a final partition
+    pass).  Step ⑤ needs no pass: the margins update from the final leaf
+    slots.  GOSS, subsample and colsample are drawn as :func:`train` draws
+    them.  ``config.fused_rounds`` is ignored (a round is a host-driven
+    chunk pipeline); ``plan.hist_subtraction`` applies.  A
+    :class:`RetryingSource` is closed on every exit.
+    """
+    device = resolve_device(device)
+    plan = (ExecutionPlan.from_config(config) if plan is None
+            else resolve_plan(plan))
+    if config.grow_policy != "depthwise":
+        raise ValueError("streaming training supports only the depthwise "
+                         "grow_policy")
+    loss = losses_mod.get_loss(config.objective, config.n_classes)
+    K = loss.n_outputs
+    y = torch.as_tensor(np.asarray(y), dtype=torch.float32, device=device)
+    ev_data = ev_y = None
+    if eval_set is not None:
+        ev_data = eval_set[0].to(device)
+        ev_y = torch.as_tensor(np.asarray(eval_set[1]), dtype=torch.float32,
+                               device=device)
+    if K is not None:
+        _validate_multiclass_labels(K, y, ev_y)
+    n = int(y.shape[0])
+    F = int(source.n_fields)
+    depth = config.max_depth
+    # resolve the layout before sizing chunks: 4-bit packing halves the
+    # code bytes a row, so the same budget holds ~2x the records
+    if plan.packed_codes is None:
+        plan = plan.replace(
+            packed_codes=binner.max_bins <= binning_mod.PACK_MAX_BINS)
+    elif plan.packed_codes and binner.max_bins > binning_mod.PACK_MAX_BINS:
+        raise ValueError(
+            f"plan requests 4-bit packed codes but the binner has "
+            f"max_bins={binner.max_bins} > {binning_mod.PACK_MAX_BINS}")
+    packed = bool(plan.packed_codes)
+    kernel_plan = plan.without_chunking()
+    if chunk_rows is None:
+        chunk_rows = plan.chunk_rows(F, K or 1)
+    # never pad past the data: a small dataset under a large budget would
+    # otherwise stream mostly padding
+    chunk_state = {"rows": max(1, min(int(chunk_rows), n))}
+    missing_bin = binner.max_bins - 1
+    is_cat_field = torch.as_tensor(binner._is_cat, device=device)
+    n_chunks = [0]
+
+    def binned_chunks():
+        """One full pass (:func:`binned_pass`).  The chunk size is read
+        once, at the pass's start, so an OOM halving takes effect on the
+        retried round's first pass."""
+        hi = count = 0
+        with contextlib.closing(binned_pass(source, binner,
+                                            chunk_state["rows"], packed,
+                                            device)) as chunks:
+            for lo, hi, codes in chunks:
+                yield lo, hi, codes
+                count += 1
+        if hi != n:
+            raise ValueError(
+                f"source pass yielded {hi} rows but len(y) == {n}; "
+                "DataSource passes must be identical and label-complete")
+        n_chunks[0] = count
+
+    trees: List[TreeArrays] = []
+    history: Dict[str, List[float]] = {"train_loss": []}
+    if eval_set is not None:
+        history["eval_loss"] = []
+    step_times = {"binning_split": 0.0, "partition": 0.0, "traversal": 0.0,
+                  "other": 0.0}
+
+    eval_margins = None
+    if init_model is not None:
+        init_model = _warm_model(init_model, config, K, depth, device)
+        trees = _model_rounds(init_model, K)
+        base_margin = init_model.base_margin
+        margins = _streamed_margins(init_model, binned_chunks, n,
+                                    kernel_plan, device)
+        if eval_set is not None:
+            eval_margins = init_model.predict_margin(ev_data,
+                                                     plan=kernel_plan)
+    else:
+        base_margin = (loss.base_margin(y).cpu().numpy().astype(np.float32)
+                       if K is not None else float(loss.base_margin(y)))
+        base = base_margin_tensor(base_margin, device)
+        margins = base.expand((n,) + base.shape).clone()   # (n,) or (n, K)
+        if eval_set is not None:
+            eval_margins = base.expand((ev_y.shape[0],)
+                                       + base.shape).clone()
+    # the round's statistics cross to the host once, into pinned buffers
+    # that the grower's chunk uploads read
+    cuda = device.type == "cuda"
+    g_host = torch.empty((K or 1, n), dtype=torch.float32, pin_memory=cuda)
+    h_host = torch.empty((K or 1, n), dtype=torch.float32, pin_memory=cuda)
+    predict_round = _predict_forest if K is not None else _predict_one_tree
+
+    best_eval, best_round = np.inf, -1
+    start = len(trees)
+    end = start + config.n_trees
+    rstats = {"recoveries": 0, "oom_halvings": 0, "replayed_rounds": 0}
+    pending_restore = False
+
+    def model() -> GBDTModel:
+        return _as_model(trees, base_margin, config, missing_bin, F)
+
+    def save_round_checkpoint(rounds_done: int) -> None:
+        # lazy imports: repro_torch.api depends on this module
+        from repro_torch.api import serialize
+        from repro_torch.core.inference import GBDTPipeline
+        serialize.save_checkpoint(recovery.checkpoint_dir,
+                                  GBDTPipeline(binner=binner, model=model()),
+                                  rounds_done)
+
+    def restore_state():
+        """Trainer state from the newest valid checkpoint: trees from the
+        bundled model, margins from one streamed inference pass (no
+        per-record state is checkpointed)."""
+        from repro_torch.api import serialize
+        pipe, _step = serialize.load_checkpoint(recovery.checkpoint_dir,
+                                                device=device)
+        restored = _warm_model(pipe.model, config, K, depth, device)
+        rmargins = _streamed_margins(restored, binned_chunks, n,
+                                     kernel_plan, device)
+        rev = (restored.predict_margin(ev_data, plan=kernel_plan)
+               if eval_set is not None else None)
+        rtrees = _model_rounds(restored, K)
+        return rtrees, rmargins, rev, len(rtrees)
+
+    def stats() -> Dict:
+        return {"n_rows": n, "chunk_rows": int(chunk_state["rows"]),
+                "n_chunks": int(n_chunks[0]),
+                "passes_per_round": depth + 1, **rstats}
+
+    t_idx = t_done = start
+    try:
+        while t_idx < end:
+            try:
+                if pending_restore:
+                    trees, margins, eval_margins, t_idx = restore_state()
+                    rstats["replayed_rounds"] += max(0, t_done - t_idx)
+                    del history["train_loss"][t_idx - start:]
+                    if eval_set is not None:
+                        del history["eval_loss"][t_idx - start:]
+                        evs = history["eval_loss"]
+                        best_eval = min(evs) if evs else np.inf
+                        best_round = (start + int(np.argmin(evs))) if evs \
+                            else -1
+                    pending_restore = False
+
+                t0 = time.perf_counter()
+                g, h = loss.grad_hess(margins, y)
+                g, h, field_mask = _round_stats(
+                    config, _round_generator(config, t_idx, device), g, h,
+                    n, F, K)
+                g_host.copy_(g.T if K is not None else g[None],
+                             non_blocking=True)
+                h_host.copy_(h.T if K is not None else h[None],
+                             non_blocking=True)
+                forest, leaf_ids = tree_mod.fit_forest_chunked(
+                    binned_chunks, g_host, h_host, depth=depth,
+                    n_bins=binner.max_bins, missing_bin=missing_bin,
+                    is_cat_field=is_cat_field, field_mask=field_mask,
+                    lambda_=config.lambda_, gamma=config.gamma,
+                    min_child_weight=config.min_child_weight,
+                    plan=kernel_plan)
+                forest = forest._replace(
+                    leaf_value=forest.leaf_value * config.learning_rate)
+                _sync(device)
+                t1 = time.perf_counter()
+
+                # step ⑤ without a pass: the chunk-local node ids end as
+                # leaf slots, so the margins update by a leaf lookup
+                delta = torch.gather(forest.leaf_value, 1, leaf_ids.long())
+                tree = forest if K is not None else TreeArrays(
+                    *[a[0] for a in forest])
+                new_margins = margins + (delta.T if K is not None
+                                         else delta[0])
+                _sync(device)
+                t2 = time.perf_counter()
+
+                new_eval_margins, ev = None, None
+                if eval_set is not None:
+                    new_eval_margins = predict_round(
+                        tree, ev_data, kernel_plan, eval_margins.clone())
+                    ev = float(torch.mean(loss.value(new_eval_margins,
+                                                     ev_y)))
+            except Exception as exc:  # noqa: BLE001 — classified below
+                action = classify(exc) if recovery is not None else "fatal"
+                if action == "oom":
+                    rows = chunk_state["rows"]
+                    new_rows = max(recovery.min_chunk_rows, rows // 2)
+                    if (new_rows >= rows or rstats["oom_halvings"]
+                            >= recovery.max_oom_halvings):
+                        raise
+                    rstats["oom_halvings"] += 1
+                    _metrics.record("recoveries")
+                    chunk_state["rows"] = new_rows
+                    if cuda:
+                        torch.cuda.empty_cache()
+                    if verbose:
+                        print(f"[gbdt] device OOM at tree {t_idx}: "
+                              f"chunk_rows {rows} -> {new_rows}; "
+                              "retrying round")
+                    continue
+                if action == "transient":
+                    if rstats["recoveries"] >= recovery.max_recoveries:
+                        raise
+                    rstats["recoveries"] += 1
+                    _metrics.record("recoveries")
+                    if recovery.retry_delay_s:
+                        time.sleep(recovery.retry_delay_s)
+                    if recovery.checkpoint_dir is not None:
+                        from repro_torch.api import serialize
+                        pending_restore = serialize.has_checkpoint(
+                            recovery.checkpoint_dir)
+                    if verbose:
+                        how = ("restoring newest checkpoint"
+                               if pending_restore
+                               else "replaying round in memory")
+                        print(f"[gbdt] transient failure at tree {t_idx} "
+                              f"({type(exc).__name__}: {exc}); {how}")
+                    continue
+                raise
+
+            # ---- commit: the round succeeded, mutate state at once
+            step_times["binning_split"] += t1 - t0
+            step_times["traversal"] += t2 - t1
+            margins = new_margins
+            trees.append(tree)
+            train_loss = float(torch.mean(loss.value(margins, y)))
+            history["train_loss"].append(train_loss)
+            stop_early = False
+            if eval_set is not None:
+                eval_margins = new_eval_margins
+                history["eval_loss"].append(ev)
+                if ev < best_eval - 1e-12:
+                    best_eval, best_round = ev, t_idx
+                if (config.early_stopping_rounds is not None
+                        and t_idx - best_round
+                        >= config.early_stopping_rounds):
+                    if verbose:
+                        print(f"[gbdt] early stop at tree {t_idx} "
+                              f"(best {best_round}: {best_eval:.6f})")
+                    stop_early = True
+            step_times["other"] += time.perf_counter() - t2
+
+            if verbose and (t_idx % config.log_every == 0
+                            or t_idx == end - 1):
+                print(f"[gbdt] tree {t_idx:4d}  "
+                      f"train_loss={train_loss:.6f}  "
+                      f"({n_chunks[0]} chunks x {chunk_state['rows']} rows)")
+            t_done = t_idx + 1
+            if (recovery is not None and recovery.checkpoint_dir is not None
+                    and (t_done - start) % recovery.checkpoint_every == 0):
+                save_round_checkpoint(t_done)
+            if callback is not None:
+                callback(t_idx, model())
+            t_idx = t_done
+            if shutdown is not None and shutdown.requested:
+                # the round in flight is committed: persist the resumable
+                # state, then exit with a typed status
+                if (recovery is not None
+                        and recovery.checkpoint_dir is not None
+                        and (t_done - start) % recovery.checkpoint_every):
+                    save_round_checkpoint(t_done)
+                partial = TrainResult(
+                    model=model(), history=history, step_times=step_times,
+                    stats={**stats(), "interrupted": True}, margins=margins)
+                raise TrainingInterrupted(
+                    f"shutdown ({shutdown.signal_name}) after round "
+                    f"{t_done - 1}", rounds_done=len(trees),
+                    signal_name=shutdown.signal_name,
+                    checkpoint_dir=(recovery.checkpoint_dir
+                                    if recovery is not None else None),
+                    result=partial)
+            if stop_early:
+                break
+
+        return TrainResult(model=model(), history=history,
+                           step_times=step_times, stats=stats(),
+                           margins=margins)
+    finally:
+        # a fit never leaks the retry wrapper's watchdog thread or its
+        # open shard handles, however it exits
+        if isinstance(source, RetryingSource):
+            source.close()

@@ -17,12 +17,14 @@ The counterpart of :mod:`repro.core.tree`'s in-memory growers:
   * :func:`fit_tree_lossguide` — the vertex-by-vertex (best-first)
     grower: a gain heap on the host, one histogram of the smaller child a
     split on the device, its sibling ``parent − child``.
+  * :func:`fit_forest_chunked` — the out-of-core twin of
+    :func:`fit_forest`: the same levels over a stream of chunks, one pass a
+    level, each chunk's histogram accumulated into the level's and its node
+    ids kept chunk by chunk.
 
-Both return a fixed-shape ``TreeArrays`` (complete binary tree with
-pass-through nodes), with a leading (K, ...) axis from :func:`fit_forest`.
-
-The chunked grower is not ported yet (ROADMAP Queue 1 item 5:
-out-of-core).
+Each returns a fixed-shape ``TreeArrays`` (complete binary tree with
+pass-through nodes), with a leading (K, ...) axis from :func:`fit_forest`
+and :func:`fit_forest_chunked`.
 """
 from __future__ import annotations
 
@@ -300,6 +302,149 @@ def _subtract_level_hist(codes, g, h, node_ids, parent_hist, *,
         smalls.append(ops.build_histogram(ck, gk, hk, nk, n_nodes=n_nodes,
                                           n_bins=n_bins, plan=plan))
     return _combine_sibling_hist(parent_hist, torch.stack(smalls), is_small)
+
+
+# --------------------------------------------------------------------------
+# out-of-core grower: chunk-accumulated histograms, chunk-local node ids
+# --------------------------------------------------------------------------
+def _column_major(codes):
+    """A chunk's (F, rows) column-major copy, chunk-local: the paper's
+    redundant representation kept to one chunk's footprint; a packed chunk
+    gives a packed copy."""
+    if isinstance(codes, PackedCodes):
+        return PackedCodes.pack(codes.unpack().T)
+    return codes.T.contiguous()
+
+
+def _partition_chunk(codes, node_ids, feature, threshold, is_cat,
+                     default_left, *, missing_bin: int,
+                     plan: ExecutionPlan) -> torch.Tensor:
+    """Step ③ for one chunk: route its (K, rows) node ids through one
+    level's (K, NN) split tables, read from the chunk's column-major copy.
+    ``feature`` holds -1 where a node does not split, which is ``repro``'s
+    ``do_split`` mask."""
+    return ops.partition_level_cm(node_ids, _column_major(codes), feature,
+                                  threshold, is_cat, default_left,
+                                  missing_bin=missing_bin, plan=plan)
+
+
+def fit_forest_chunked(chunks, g, h, *, depth: int, n_bins: int,
+                       missing_bin: int, is_cat_field, field_mask,
+                       lambda_: float, gamma: float, min_child_weight: float,
+                       plan: Optional[ExecutionPlan] = None):
+    """Out-of-core twin of :func:`fit_forest`: the same math over chunked
+    scans.
+
+    ``chunks`` is a zero-argument callable returning a fresh iterator of
+    ``(lo, hi, codes)``: ``codes`` a (rows, F) uint8 chunk, or
+    ``PackedCodes`` of the same logical rows, on the grower's device, whose
+    first ``hi - lo`` rows are records ``lo:hi``;
+    the rest are padding, given zero statistics and node 0, so each adds
+    exactly +0.0.  One pass a level (the histogram, with the previous
+    level's partition applied to each chunk first) and one final partition
+    pass: ``depth + 1`` passes a tree.
+
+    g, h: (K, n) float32 per-class statistics on the host (numpy or CPU
+    tensors).  The per-record state stays there, as in ``repro``: on the
+    card g, h and the (K, n) int32 node ids live in pinned memory, each
+    chunk's slice is uploaded, and its routed node ids are written back,
+    by non-blocking copies on the current stream, so stream order keeps a
+    level's write-back ahead of the next level's upload and the host never
+    waits.  ``is_cat_field`` and ``field_mask`` lie on the grower's device.
+    With ``plan.hist_subtraction``, levels > 0 give the bigger child's
+    records zero statistics (the histogram stays class-batched) and derive
+    each sibling as ``parent − smaller``, the smaller child picked by the
+    hessian mass each decision routed left.
+
+    Returns ``(TreeArrays with (K, ...) axes, node_ids)``: ``node_ids`` the
+    (K, n) int32 final leaf slots on the device, from which the trainer
+    updates the margins without another pass.  The leaves settle over all
+    n records at once, as ``repro`` settles them.
+    """
+    plan = resolve_plan(plan).without_chunking()
+    device = is_cat_field.device
+    cuda = device.type == "cuda"
+    g = torch.as_tensor(g, dtype=torch.float32)
+    h = torch.as_tensor(h, dtype=torch.float32)
+    if cuda:
+        g = g if g.is_pinned() else g.pin_memory()
+        h = h if h.is_pinned() else h.pin_memory()
+    K, n = g.shape
+    F = int(is_cat_field.shape[0])
+    n_int, n_leaf = 2 ** depth - 1, 2 ** depth
+    i32 = dict(dtype=torch.int32, device=device)
+    state = (torch.full((K, n_int), -1, **i32),                # feature
+             torch.zeros((K, n_int), **i32),                   # threshold
+             torch.zeros((K, n_int), **i32),                   # is_cat
+             torch.zeros((K, n_int), **i32),                   # default_left
+             torch.zeros((K, n_leaf), dtype=torch.float32, device=device),
+             torch.zeros((K, n_leaf), dtype=torch.bool, device=device))
+    node_ids = torch.zeros((K, n), dtype=torch.int32, pin_memory=cuda)
+    find = (splits_mod.find_best_splits_host if plan.host_offload_split
+            else splits_mod.find_best_splits)
+    pending = None                # the previous level's split tables
+
+    def upload(a, lo, hi, rows):
+        """(K, rows) slice of a host array on the device, zero-padded (pad
+        rows carry zero statistics and node 0)."""
+        out = torch.empty((K, rows), dtype=a.dtype, device=device)
+        for k in range(K):      # contiguous rows: asynchronous copies
+            out[k, :hi - lo].copy_(a[k, lo:hi], non_blocking=True)
+        out[:, hi - lo:].zero_()
+        return out
+
+    def apply_pending(codes, lo, hi, rows):
+        nid = upload(node_ids, lo, hi, rows)
+        if pending is None:
+            return nid
+        nid = _partition_chunk(codes, nid, *pending, missing_bin=missing_bin,
+                               plan=plan)
+        for k in range(K):
+            node_ids[k, lo:hi].copy_(nid[k, :hi - lo], non_blocking=True)
+        return nid
+
+    use_sub = bool(plan.hist_subtraction)
+    prev_hist = None
+    smaller_is_left = None            # (K, nn) hessian-based, per level
+    for level in range(depth):
+        nn = 2 ** level
+        sub_level = use_sub and level > 0
+        is_small = _child_is_smaller(smaller_is_left) if sub_level else None
+        hist = torch.zeros((K, nn, F, n_bins, 2), dtype=torch.float32,
+                           device=device)
+        for lo, hi, codes in chunks():
+            rows = codes.shape[0]
+            nid = apply_pending(codes, lo, hi, rows)
+            gc, hc = upload(g, lo, hi, rows), upload(h, lo, hi, rows)
+            if sub_level:
+                w = torch.gather(is_small, 1, nid.long()).to(torch.float32)
+                gc, hc = gc * w, hc * w
+            hist = ops.accumulate_histogram(hist, codes, gc, hc, nid,
+                                            n_nodes=nn, n_bins=n_bins,
+                                            plan=plan)
+        if sub_level:
+            hist = _combine_sibling_hist(prev_hist, hist, is_small)
+        prev_hist = hist
+        state, best, do_split = _decide_level(
+            hist, level, depth, state, is_cat_field, field_mask, lambda_,
+            gamma, min_child_weight, find)
+        smaller_is_left = torch.where(do_split,
+                                      2.0 * best.left_h <= best.node_h,
+                                      False)
+        off = nn - 1
+        pending = tuple(table[:, off:off + nn] for table in state[:4])
+
+    for lo, hi, codes in chunks():        # final pass: the last partition
+        apply_pending(codes, lo, hi, codes.shape[0])
+
+    feature, threshold, is_cat, default_left, value_bottom, value_set = state
+    ids = node_ids.to(device, non_blocking=True)
+    value_bottom = _settle_bottom_leaves(
+        g.to(device, non_blocking=True), h.to(device, non_blocking=True),
+        ids, value_bottom, value_set, n_leaf, lambda_)
+    tree = TreeArrays(feature=feature, threshold=threshold, is_cat=is_cat,
+                      default_left=default_left, leaf_value=value_bottom)
+    return tree, ids
 
 
 # --------------------------------------------------------------------------

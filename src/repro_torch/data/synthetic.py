@@ -3,7 +3,8 @@
 A numpy-only copy of the generator in :mod:`repro.data.synthetic` (the port
 keeps its own copy and imports nothing of the JAX package): same field mix,
 missing values and a planted tree-structured target, so the same seed gives
-the same data in both packages.
+the same data in both packages; :class:`SyntheticSource` streams such data
+chunk by chunk, bit-equal under every chunking.
 """
 from __future__ import annotations
 
@@ -100,6 +101,81 @@ def make_tabular(n: int, n_numeric: int, n_categorical: int = 0,
         miss = rng.uniform(size=X.shape) < missing_rate
         X[miss] = np.nan
     return X, y, cat_ids
+
+
+class SyntheticSource:
+    """Deterministic larger-than-memory synthetic stream (DataSource).
+
+    A planted piecewise-constant target is drawn ONCE at construction;
+    feature rows are then (re)generated per fixed-size internal block from
+    counter-based RNG streams, so every pass — and every chunking — yields
+    bit-identical data without ever materializing the (n_rows, n_fields)
+    matrix.  It is a ``data=`` source that can exceed device memory at will.
+    """
+
+    _BLOCK = 4096        # internal generation granularity (chunk-invariant)
+
+    def __init__(self, n_rows: int, n_fields: int, task: str = "regression",
+                 noise: float = 0.1, missing_rate: float = 0.0,
+                 seed: int = 0):
+        if task not in ("regression", "binary"):
+            raise ValueError(f"unknown task {task!r}")
+        self.n_rows, self._n_fields = int(n_rows), int(n_fields)
+        self.task, self.noise, self.missing_rate = task, noise, missing_rate
+        self.seed = seed
+        rng = np.random.default_rng(seed)
+        k = min(n_fields, 6)
+        self._picks = rng.choice(n_fields, size=k, replace=False)
+        self._thr = rng.normal(size=k)
+        self._w_left = rng.normal(size=k)
+        self._w_right = rng.normal(size=k)
+
+    @property
+    def n_fields(self) -> int:
+        return self._n_fields
+
+    def _block(self, b: int) -> Tuple[np.ndarray, np.ndarray]:
+        lo = b * self._BLOCK
+        rows = min(self._BLOCK, self.n_rows - lo)
+        rng = np.random.default_rng([self.seed, 7919, b])
+        X = rng.normal(size=(rows, self._n_fields))
+        margin = np.zeros(rows)
+        for j, f in enumerate(self._picks):
+            margin += np.where(X[:, f] > self._thr[j], self._w_right[j],
+                               self._w_left[j])
+        margin += 0.5 * np.sin(2.0 * X[:, self._picks[0]]) * (
+            X[:, self._picks[-1]] > 0)
+        margin += self.noise * rng.normal(size=rows)
+        if self.task == "binary":
+            p = 1.0 / (1.0 + np.exp(-margin))
+            y = (rng.uniform(size=rows) < p).astype(np.float64)
+        else:
+            y = margin
+        if self.missing_rate > 0:
+            miss = rng.uniform(size=X.shape) < self.missing_rate
+            X[miss] = np.nan
+        return X, y
+
+    def chunks(self, rows: int):
+        """Yield (X, y) chunks of ``rows`` rows, assembled from the fixed
+        internal blocks so the stream is chunk-size invariant."""
+        n_blocks = -(-self.n_rows // self._BLOCK)
+        bx, by = [], []
+        have = 0
+        for b in range(n_blocks):
+            X, y = self._block(b)
+            bx.append(X)
+            by.append(y)
+            have += X.shape[0]
+            while have >= rows:
+                X_all = np.concatenate(bx) if len(bx) > 1 else bx[0]
+                y_all = np.concatenate(by) if len(by) > 1 else by[0]
+                yield X_all[:rows], y_all[:rows]
+                bx, by = [X_all[rows:]], [y_all[rows:]]
+                have -= rows
+        if have > 0:
+            yield (np.concatenate(bx) if len(bx) > 1 else bx[0],
+                   np.concatenate(by) if len(by) > 1 else by[0])
 
 
 def paper_dataset(name: str, scale: float = 1.0, seed: int = 0,

@@ -5,7 +5,11 @@ strategy from an :class:`~repro_torch.api.plan.ExecutionPlan`:
 ``"reference"`` calls the plain version, ``"cuda"`` (what ``"auto"``
 resolves to) calls the kernel's wrapper, which launches the kernel for CUDA
 tensors — or raises — and takes the plain version for CPU tensors.  There
-is no fallback from a kernel that fails.
+is no fallback from a kernel that fails: where ``repro`` demotes a failed
+Pallas launch to its jnp twin and counts the demotion, the port raises, so
+:func:`degradation_stats` is always empty.  It is kept, with
+:func:`reset_degradation_stats`, so that callers read the same keys from
+both packages.
 
 4-bit :class:`~repro_torch.core.binning.PackedCodes` go straight to the
 kernels, which read them in place (the nibble histogram, the nibble
@@ -38,7 +42,19 @@ from repro_torch.kernels.ref import TreeArrays
 
 __all__ = ["pack_codes", "unpack_codes", "build_histogram",
            "accumulate_histogram", "partition_level", "partition_level_cm",
-           "traverse_tree", "traverse_forest", "predict_ensemble"]
+           "traverse_tree", "traverse_forest", "predict_ensemble",
+           "degradation_stats", "reset_degradation_stats"]
+
+
+def degradation_stats() -> dict:
+    """``{"step:strategy->fallback": count}`` of the kernel demotions this
+    process took: always ``{}``, since no kernel falls back."""
+    return {}
+
+
+def reset_degradation_stats() -> dict:
+    """Zero the demotion counters and return their values before: ``{}``."""
+    return {}
 
 
 def pack_codes(codes) -> PackedCodes:

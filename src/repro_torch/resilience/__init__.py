@@ -1,15 +1,14 @@
 """``repro_torch.resilience`` — typed errors, fault injection, recovery.
 
-The part of :mod:`repro.resilience` that the in-memory trainer and the
-serving path need: the error taxonomy (the server fails futures with
-``QueueFullError``, ``DeadlineExceededError`` and ``DispatcherCrashError``;
-the trainer raises ``NumericalDivergenceError`` and
-``TrainingInterrupted``), the fault schedule the chaos tests inject
-through, the :class:`RecoveryPolicy` that arms the trainer's divergence
-sentinels, the preemption-safe :class:`GracefulShutdown` and the
-process-wide counters (``metrics``).  Retrying and faulty data sources
-belong to the out-of-core path and are not ported yet (ROADMAP Queue 1
-item 5).
+The counterpart of :mod:`repro.resilience`: the error taxonomy (the server
+fails futures with ``QueueFullError``, ``DeadlineExceededError`` and
+``DispatcherCrashError``; the trainers raise ``NumericalDivergenceError``
+and ``TrainingInterrupted``), the seeded fault schedule and the faulty
+data source the chaos tests inject through, the self-healing
+:class:`RetryingSource`, the :class:`RecoveryPolicy` that drives the
+trainers' divergence sentinels, round replay and OOM degradation, the
+preemption-safe :class:`GracefulShutdown` and the process-wide counters
+(``metrics``).
 """
 from repro_torch.resilience import metrics
 from repro_torch.resilience.errors import (ChunkTimeoutError,
@@ -23,8 +22,11 @@ from repro_torch.resilience.errors import (ChunkTimeoutError,
                                            TrainingInterrupted,
                                            TransientIOError, is_oom,
                                            is_transient)
-from repro_torch.resilience.faults import Fault, FaultInjector, FaultSchedule
+from repro_torch.resilience.faults import (Fault, FaultInjector,
+                                           FaultSchedule, FaultySource,
+                                           corrupt_file, seeded_schedule)
 from repro_torch.resilience.recovery import RecoveryPolicy, classify
+from repro_torch.resilience.retry import RetryingSource, RetryPolicy
 from repro_torch.resilience.shutdown import GracefulShutdown
 
 __all__ = [
@@ -32,6 +34,9 @@ __all__ = [
     "ShardCorruptionError", "DeviceOOMError", "NumericalDivergenceError",
     "TrainingInterrupted", "QueueFullError", "DeadlineExceededError",
     "DispatcherCrashError", "is_oom", "is_transient",
-    "Fault", "FaultSchedule", "FaultInjector",
-    "RecoveryPolicy", "classify", "GracefulShutdown", "metrics",
+    "Fault", "FaultSchedule", "FaultInjector", "FaultySource",
+    "seeded_schedule", "corrupt_file",
+    "RecoveryPolicy", "classify",
+    "RetryPolicy", "RetryingSource",
+    "GracefulShutdown", "metrics",
 ]

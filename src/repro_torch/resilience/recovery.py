@@ -6,9 +6,10 @@ policy a non-finite loss stays the caller's problem; with one the host
 loop raises :class:`NumericalDivergenceError` naming the round, and the
 fused trainer rolls back to the last finite round, backing the learning
 rate off when the same round diverges twice.  The checkpoint, transient
-and OOM fields drive the streaming and distributed trainers, which are not
-ported yet (ROADMAP Queue 1 items 5 and 8); they are kept so that a policy
-means the same in both packages.
+and OOM fields drive the streaming trainer (``core.gbdt.train_streaming``:
+a transient failure replays the round, from the newest checkpoint when
+one exists, and a device OOM halves the streamed chunk); the distributed
+trainer, not ported yet (ROADMAP Queue 1 item 8), reads them too.
 
 Action classification lives here (:func:`classify`) so the trainers'
 except-clauses stay dispatch tables, not policy decisions.

@@ -461,15 +461,19 @@ def test_fit_validates_inputs(case):
                                 dict(recovery=RecoveryPolicy()),
                                 dict(shutdown=GracefulShutdown())])
 def test_unported_fit_options_raise(kw):
-    """``data=`` and ``mesh=`` are not ported and raise naming their
-    ROADMAP item; ``recovery=`` and ``shutdown=`` are ported and fit."""
+    """``mesh=`` is not ported and raises naming its ROADMAP item;
+    ``data=`` is ported and, as ``repro``'s, refuses what is no data
+    source; ``recovery=`` and ``shutdown=`` are ported and fit."""
     X = np.random.default_rng(0).normal(size=(64, 2))
     y = X[:, 0].copy()
     est = est_mod.BoosterRegressor(n_trees=2, max_depth=2, device="cpu")
-    if "data" in kw or "mesh" in kw:
+    if "data" in kw:
+        with pytest.raises(TypeError, match="DataSource"):
+            est.fit(**kw)
+        return
+    if "mesh" in kw:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            est.fit(None if "data" in kw else X,
-                    None if "data" in kw else y, **kw)
+            est.fit(X, y, **kw)
         return
     est.fit(X, y, **kw)
     assert est.n_trees_ == 2 and not est.stats_.get("interrupted")

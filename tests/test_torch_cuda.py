@@ -12,6 +12,10 @@ kernel that reads 4-bit ``PackedCodes`` also against its uint8 twin.
 The training variants (histogram subtraction, the lossguide grower, the
 host split offload, GOSS, fused rounds as CUDA graphs) are held against
 their direct or host-loop counterparts on the card and against the CPU.
+The out-of-core path: a chunk binned on the card equals the host's codes,
+the pinned upload ring delivers every chunk intact, the chunked grower
+equals the in-memory one on exact-grid statistics, and a stream (with an
+OOM halving) holds the stream's contract against the CPU.
 """
 import dataclasses
 
@@ -1170,3 +1174,174 @@ def test_fused_rounds_with_host_offload_run_eagerly(cuda):
                       y, plan=plan)
     np.testing.assert_allclose(res.history["train_loss"],
                                host.history["train_loss"], rtol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# the out-of-core path: device binning, the pinned ring, the chunked grower
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_transform_chunk_on_card_bit_equal_to_host(cuda, dtype, monkeypatch):
+    """A streamed chunk binned on the card (float64 edge tables) equals
+    the host's ``transform_codes`` on every value: the edges' float32
+    roundings, the values just below the edges, NaN, ±inf, ±0.0 and
+    categorical values out of range."""
+    import warnings
+
+    rng = np.random.default_rng(0)
+    n = 200_000
+    X = rng.normal(size=(n, 5))
+    X[:, 4] = rng.integers(-3, 12, size=n) + rng.uniform(-0.9, 0.9, size=n)
+    b = binning.Binner(256, categorical_fields=[4]).fit(X)
+    e = b._edges[0][np.isfinite(b._edges[0])]
+    X[:254, 0] = e.astype(np.float32).astype(np.float64)[:254]
+    X[:e.size, 1] = np.nextafter(e, -np.inf)
+    X[254:262, 0] = [np.nan, np.inf, -np.inf, -0.0, 0.0, 1e300, -1e300,
+                     5e-324]
+    X[262:274, 4] = [np.nan, np.inf, -np.inf, -0.0, 1e19, -1e19, 9e18,
+                     -0.5, 3.99, 200, 2.0 ** 63, -2.0 ** 63]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        X = X.astype(dtype)
+        want = b.transform_codes(X)
+    got = b.transform_chunk(torch.from_numpy(X).to(cuda))
+    assert got.is_cuda and torch.equal(got.cpu(), torch.from_numpy(want))
+    monkeypatch.setattr(binning, "_BIN_BLOCK_BYTES", 4096)
+    small = b.transform_chunk(torch.from_numpy(X).to(cuda))
+    assert torch.equal(small, got)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_prefetch_ring_delivers_every_chunk(cuda, depth):
+    """Raw chunks staged in the pinned ring and uploaded on the copy stream
+    reach the consumer intact, with the consumer slower than the uploads
+    (a slot reused before its upload landed would corrupt a chunk), and
+    ``close`` mid-pass stops the worker and runs the generator's
+    ``finally``."""
+    from repro_torch.data.pipeline import PrefetchIterator
+
+    rng = np.random.default_rng(depth)
+    chunks = [rng.normal(size=(50_000 + 17 * i, 9)).astype(np.float32)
+              for i in range(12)]
+    sums = []
+    with PrefetchIterator(iter(chunks), device=cuda, depth=depth) as it:
+        for x in it:
+            torch.cuda._sleep(2_000_000)        # a slow consumer
+            sums.append(x.double().sum(dim=0))
+    for a, want in zip(sums, chunks):
+        np.testing.assert_array_equal(a.cpu().numpy(),
+                                      want.astype(np.float64).sum(axis=0))
+    assert len(sums) == len(chunks)
+    cleaned = []
+
+    def gen():
+        try:
+            yield from chunks
+        finally:
+            cleaned.append(True)
+
+    it = PrefetchIterator(gen(), device=cuda, depth=depth)
+    first = next(it)
+    assert torch.equal(first.cpu(), torch.from_numpy(chunks[0]))
+    it.close()
+    assert cleaned == [True] and not it._thread.is_alive()
+
+
+@pytest.mark.parametrize("K,packed", [(1, False), (7, False), (1, True)])
+def test_fit_forest_chunked_on_card_bit_equal_to_fit_forest(cuda, K,
+                                                           packed):
+    """On exact-grid statistics the chunked grower on the card grows the
+    in-memory grower's trees and routes every record to the same leaf;
+    the CPU's chunked grower agrees."""
+    rng = np.random.default_rng(60 + K)
+    n_bins = 16 if packed else 64
+    data, g, h, common = _grower_case(40_000, 20, n_bins, K, rng,
+                                      packed=packed)
+    codes = np.asarray(data.codes)
+    dev = data.to(cuda)
+    kw = dict(depth=5, **_on(common, cuda))
+    whole = tree_mod.fit_forest(dev.codes, dev.codes_cm, g.to(cuda),
+                                h.to(cuda), **kw)
+
+    def chunks(device):
+        def it():
+            for lo in range(0, 40_000, 9_000):
+                c = torch.from_numpy(codes[lo:lo + 9_000]).to(device)
+                yield lo, lo + c.shape[0], (PackedCodes.pack(c) if packed
+                                            else c)
+        return it
+
+    _build.reset_launch_counts()
+    card, ids = tree_mod.fit_forest_chunked(chunks(cuda), g, h, **kw)
+    counts = _build.launch_counts()
+    cpu, cpu_ids = tree_mod.fit_forest_chunked(chunks("cpu"), g, h, depth=5,
+                                               **common)
+    for a, b, c in zip(card, whole, cpu):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+    assert torch.equal(ids.cpu(), cpu_ids)
+    nib = "_nibble" if packed else ""
+    assert counts["histogram" + nib] == 5 * 5          # levels x chunks
+    assert counts["partition" + nib] == 5 * 5
+
+
+@pytest.mark.parametrize("objective,K", [("reg:squarederror", None),
+                                         ("multi:softmax", 3)])
+def test_stream_on_card_matches_cpu(cuda, objective, K):
+    """``train_streaming`` on the card against the CPU stream: round 0's
+    split fields exact, losses to rtol 1e-5; the streamed margins of a
+    warm start equal the direct predict bit for bit; the kernels launch
+    once a chunk a level."""
+    from repro_torch.data.pipeline import ArraySource
+
+    X, y, cats = make_tabular(6000, 8, 2, n_cats=3, task="multiclass"
+                              if K else "regression", n_classes=3,
+                              missing_rate=0.05, seed=9)
+    X = X.astype(np.float32)
+    b = binning.Binner(64, cats).fit(X)
+    cfg = gbdt.GBDTConfig(n_trees=3, max_depth=4, learning_rate=0.3,
+                          objective=objective, n_classes=K)
+    src = ArraySource(X, y)
+    cpu = gbdt.train_streaming(cfg, src, b, y, chunk_rows=1500,
+                               device="cpu")
+    _build.reset_launch_counts()
+    card = gbdt.train_streaming(cfg, src, b, y, chunk_rows=1500)
+    counts = _build.launch_counts()
+    assert counts["histogram"] == counts["partition"] == 3 * 4 * 4
+    k = K or 1
+    for field in ("feature", "is_cat"):
+        assert torch.equal(getattr(card.model.trees, field)[:k].cpu(),
+                           getattr(cpu.model.trees, field)[:k])
+    np.testing.assert_allclose(card.history["train_loss"],
+                               cpu.history["train_loss"], rtol=1e-5)
+    data = b.transform(X)
+    margins = card.model.predict_margin(data)
+    assert torch.equal(margins, card.margins)
+    warm = gbdt.train_streaming(dataclasses.replace(cfg, n_trees=1), src, b,
+                                y, chunk_rows=2000, init_model=card.model)
+    assert warm.model.n_rounds == 4
+    assert torch.equal(warm.model.predict_margin(data), warm.margins)
+
+
+def test_oom_halving_stream_on_card(cuda):
+    """A device OOM during a streamed round on the card halves the chunk
+    and replays the round; the fit holds the stream's contract against the
+    fault-free one (round 0 exact, losses to rtol 1e-5)."""
+    from repro_torch.data.pipeline import ArraySource
+    from repro_torch.resilience import (DeviceOOMError, FaultSchedule,
+                                        FaultySource, RecoveryPolicy)
+
+    X, y, _ = make_tabular(8000, 10, 0, task="binary", seed=4)
+    b = binning.Binner(64).fit(X)
+    cfg = gbdt.GBDTConfig(n_trees=3, max_depth=4,
+                          objective="binary:logistic")
+    clean = gbdt.train_streaming(cfg, ArraySource(X, y), b, y,
+                                 chunk_rows=2000)
+    sched = FaultSchedule().add("source", 9, exc=DeviceOOMError)
+    res = gbdt.train_streaming(cfg, FaultySource(ArraySource(X, y), sched),
+                               b, y, chunk_rows=2000,
+                               recovery=RecoveryPolicy(min_chunk_rows=256))
+    assert res.stats["oom_halvings"] == 1 and res.stats["chunk_rows"] == 1000
+    assert res.stats["n_chunks"] == 8
+    assert torch.equal(res.model.trees.feature[0],
+                       clean.model.trees.feature[0])
+    np.testing.assert_allclose(res.history["train_loss"],
+                               clean.history["train_loss"], rtol=1e-5)
