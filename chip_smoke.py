@@ -171,6 +171,38 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    ``chunk_rows`` halved and counted in ``stats``, the model within (b)'s
    contract of (b)'s.  The kernel rows gain ``stream_launches``, the
    histogram rows the streamed round and the pass breakdown.
+8. Distributed training and the launch drivers (log lines ``dist ...``),
+   last, on phase 3's Higgs-shaped and phase 3b's Covertype-shaped data,
+   on single-controller meshes that repeat the card (``[cuda:0] * D``;
+   where more cards are visible, also one over them).  Each part is a
+   gate: (a) on a D = 4 ``("data",)`` mesh, on exact-grid statistics,
+   ``distributed_histogram`` bit-equal to ``ops.build_histogram`` (one
+   launch a shard), ``distributed_fit_tree`` explicit and with
+   ``partition_bits`` (trees and final node ids) and ``pjit_fit_tree``
+   bit-equal to ``fit_forest``; the bf16 sum within bfloat16 rounding of
+   the float32 one; (b) ``train_distributed``, 8 rounds at D = 1 and
+   D = 4, against phase 3's host loop: histogram and partition once a
+   shard a level, no traversal (step ⑤ is a leaf lookup), round 0 under
+   phase 7's ``round0_contract``, the loss falling every round, losses
+   within rtol 1e-4; the Covertype K = 7 fit at D = 4 likewise; a 2-round
+   warm start replaying the D = 4 model (the ensemble at T = K once a
+   round); (c) a worker lost at round 3 of the D = 4 fit (``FaultInjector``):
+   the mesh shrinks to 3, the round-2 checkpoint is restored and round 2
+   replayed, within (b)'s contract of an uninterrupted D = 3 fit; one
+   injected ``DeviceOOMError`` doubles ``hist_slices``; (d)
+   ``sharded_predict`` over a (1, 4) ``("data", "model")`` mesh: the
+   ensemble launched once a shard, margins within rtol 1e-6 (atol 1e-6)
+   of ``predict_margin``, bit-equal on dyadic leaves; (e) the CLIs as
+   subprocesses: ``python -m repro_torch.launch.train`` on 1,000,000
+   Higgs-shaped records, one run given SIGTERM after its first
+   checkpoint (exit code 75) and finished by ``--resume``, within (b)'s
+   contract of an uninterrupted run, and ``python -m
+   repro_torch.launch.serve --mode gbdt`` (its zero-retrace and
+   zero-drop lines OK); (f) the steady round at D = 1 and D = 4 against
+   the host loop's, one level at NN = 32 split into the shards'
+   histograms, the sum, the split search and the partitions (CUDA
+   events), and the collective bytes ``collective_stats()`` counts.  Each
+   kernel row gains ``dist_launches`` (0 where phase 8 launches none).
 
 The last two lines of standard output are JSON: the kernel table, then
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -2879,6 +2911,482 @@ def streaming_path(paths: dict, dev, smi: str) -> dict:
     return out
 
 
+# phase 8, distributed training and the launch drivers
+DIST_SHARDS = 4                   # data shards of the one-card mesh
+DIST_FAULT_ROUND = 3              # (c): the round whose worker is lost
+CLI_RECORDS, CLI_TREES = 1_000_000, 30
+CLI_CKPT_EVERY = 2
+
+
+def dist_mesh(D: int, dev):
+    """A ``("data",)`` mesh of D shards, all on ``dev``."""
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh((D,), ("data",), devices=[dev] * D)
+
+
+def dist_exact(data, gen, dev) -> dict:
+    """(a): the explicit schedule on a D = 4 mesh on one card, on
+    exact-grid statistics: the distributed histogram bit-equal to
+    ``ops.build_histogram`` (one histogram launch a shard), the explicit
+    and the owner-evaluates (``partition_bits``) trees and final node ids
+    bit-equal to ``fit_forest``'s, ``pjit_fit_tree`` equal to the explicit
+    schedule; then on real statistics the bf16 sum within bfloat16 rounding
+    of the float32 one.  Returns its timings."""
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import _build, ops
+
+    mesh = dist_mesh(DIST_SHARDS, dev)
+    n, D, nn = data.n_records, DIST_SHARDS, 2 ** (DEPTH - 1)
+    codes, cm = ops.unpack_codes(data.codes), ops.unpack_codes(data.codes_cm)
+    g, h = exact_grid((1, n), gen, dev)
+    nid = torch.randint(0, nn, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    _build.reset_launch_counts()
+    hist = sharding.distributed_histogram(mesh, codes, g[0], h[0], nid,
+                                          n_nodes=nn, n_bins=N_BINS)
+    counts = _build.launch_counts()
+    whole = ops.build_histogram(codes, g[0], h[0], nid, n_nodes=nn,
+                                n_bins=N_BINS)
+    check(torch.equal(hist, whole), "dist (a): the D = 4 histogram equals "
+          "build_histogram bit for bit on exact-grid statistics")
+    check(counts["histogram"] == D, "dist (a): one histogram launch a shard")
+    ref, ids = level_ids(data.codes, data.codes_cm, g, h, data, None)
+    kw = grower_args(data, dev)
+    out = {}
+    trees = {}
+    for bits in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree, nids = sharding.distributed_fit_tree(
+            mesh, codes, cm, g[0], h[0], partition_bits=bits,
+            return_node_ids=True, **kw)
+        torch.cuda.synchronize()
+        name = "bits" if bits else "explicit"
+        out[f"{name}_tree_s"] = time.perf_counter() - t0
+        for field, a, b in zip(tree._fields, tree, ref):
+            check(torch.equal(a, b[0]), f"dist (a): the {name} schedule's "
+                  f"{field} equals fit_forest's")
+        check(torch.equal(nids, ids[-1][0]), f"dist (a): the {name} "
+              "schedule's final node ids equal fit_forest's")
+        trees[name] = tree
+    pj = sharding.pjit_fit_tree(
+        mesh, **{k: v for k, v in kw.items()
+                 if k not in ("is_cat_field", "field_mask")})(
+        codes, cm, g[0], h[0], kw["is_cat_field"], kw["field_mask"])
+    check(all(torch.equal(a, b) for a, b in zip(pj, trees["explicit"])),
+          "dist (a): pjit_fit_tree equals the explicit schedule")
+    gr = torch.randn((n,), generator=gen, device=dev)
+    hr = torch.rand((n,), generator=gen, device=dev)
+
+    def summed(gg, dtype=None):
+        return sharding.distributed_histogram(mesh, codes, gg, hr, nid,
+                                              n_nodes=nn, n_bins=N_BINS,
+                                              hist_dtype=dtype)
+
+    f32, bf, mag = summed(gr), summed(gr, torch.bfloat16), summed(gr.abs())
+    err = (bf - f32).abs()
+    # D parts rounded to bfloat16 (unit roundoff 2^-8), D - 1 sums rounded
+    check(bool(torch.all(err <= 2 * D * 2.0 ** -8 * mag)),
+          "dist (a): the bf16 sum lies within bfloat16 rounding of the "
+          "float32 sum")
+    rel = float((err / mag.clamp(min=1e-30)).max())
+    out["bf16_max_rel_err"] = rel
+    log(f"dist (a): D = {D} on {dev}: histogram (NN = {nn}) and the "
+        f"explicit, bits and pjit trees bit-equal to the one-device grower "
+        f"on exact-grid statistics (explicit tree {out['explicit_tree_s']:.3f}"
+        f" s, bits {out['bits_tree_s']:.3f} s); bf16 sum: largest error "
+        f"{rel:.3e} of the cell's sum of |parts| (bound {2 * D * 2 ** -8:.3e})")
+    return out
+
+
+def dist_fit(label: str, config, data, y, mesh, **kw):
+    """``train_distributed`` with a synced stamp a round.  Returns the
+    result, its launch counts, its collectives and round wall times."""
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.trainer import train_distributed
+    from repro_torch.kernels import _build
+
+    _build.reset_launch_counts()
+    sharding.reset_collective_stats()
+    torch.cuda.synchronize()
+    stamps = [time.perf_counter()]
+
+    def stamp(t, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    res = train_distributed(config, data, y, mesh=mesh, callback=stamp, **kw)
+    torch.cuda.synchronize()
+    counts, coll = _build.launch_counts(), sharding.collective_stats()
+    rounds = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    log(f"dist {label}: {len(rounds)} rounds on {res.stats['devices']}, "
+        f"stats {json.dumps(res.stats)}")
+    log(f"dist {label}: round wall ms "
+        + json.dumps([round(r, 3) for r in rounds]))
+    log(f"dist {label}: launches {json.dumps(counts)}; collectives "
+        f"{json.dumps(coll)}")
+    return res, counts, coll, rounds
+
+
+def dist_contract(what: str, res, ref, binner, config, data, y,
+                  rows: int) -> None:
+    """(b)'s contract: round 0 under :func:`round0_contract`, the loss
+    falling every round, every loss within rtol 1e-4 of ``ref``'s."""
+    loss, ref_loss = res.history["train_loss"], ref.history["train_loss"]
+    log(f"{what}: loss {loss}; reference {ref_loss}")
+    K = res.model.n_classes
+    a, b = res.model.trees, ref.model.trees
+    if torch.equal(a.feature[:K], b.feature[:K]):
+        d = (a.leaf_value[:K] - b.leaf_value[:K]).abs()
+        log(f"{what}: round 0's fields equal; largest leaf difference "
+            f"{float(d.max()):.3e}, relative "
+            f"{float((d / b.leaf_value[:K].abs().clamp(min=1e-30)).max()):.3e}")
+    check(all(b < a for a, b in zip(loss, loss[1:])),
+          f"{what}: the loss falls every round")
+    round0_contract(what, res.model, ref.model, binner,
+                    stream_ties(config, data, y, rows,
+                                data.codes_cm.device))
+    check(bool(np.allclose(loss, ref_loss, rtol=1e-4, atol=0)),
+          f"{what}: losses within rtol 1e-4 of the reference's")
+
+
+def dist_level(data, D: int, dev, smi: str) -> dict:
+    """(f): one level at NN = 32 of the sharded grower on real statistics,
+    its parts timed apart by CUDA events behind a sleep kernel (device
+    time): the shards' histograms, the sum on the first device, the split
+    search and the shards' partitions; the level's host wall time; and the
+    collective bytes ``collective_stats()`` counts for it."""
+    from repro_torch.core import tree as tree_mod
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+
+    mesh = dist_mesh(D, dev)
+    placed = sharding.shard_dataset(data, mesh)
+    nn, level = 2 ** (DEPTH - 1), DEPTH - 1
+    gen = torch.Generator(device=dev).manual_seed(8)
+    n_l = placed.n_pad // D
+    g = [torch.randn((1, n_l), generator=gen, device=dev) for _ in range(D)]
+    h = [torch.rand((1, n_l), generator=gen, device=dev) for _ in range(D)]
+    nid = [torch.randint(0, nn, (1, n_l), generator=gen, device=dev,
+                         dtype=torch.int32) for _ in range(D)]
+    kw = grower_args(data, dev)
+    n_int, n_leaf = 2 ** DEPTH - 1, 2 ** DEPTH
+
+    def state():
+        i32 = dict(dtype=torch.int32, device=dev)
+        return (torch.full((1, n_int), -1, **i32),
+                torch.zeros((1, n_int), **i32),
+                torch.zeros((1, n_int), **i32),
+                torch.zeros((1, n_int), **i32),
+                torch.zeros((1, n_leaf), device=dev),
+                torch.zeros((1, n_leaf), dtype=torch.bool, device=dev))
+
+    def one_level(ev=None):
+        mark = (lambda i: ev[i].record()) if ev else (lambda i: None)
+        mark(0)
+        parts = [ops.build_histogram(s.codes, gg, hh, ii, n_nodes=nn,
+                                     n_bins=N_BINS)
+                 for s, gg, hh, ii in zip(placed.shards, g, h, nid)]
+        mark(1)
+        hist = sharding.psum_parts(parts, dev)
+        mark(2)
+        st, _, _ = tree_mod._decide_level(
+            hist, level, DEPTH, state(), kw["is_cat_field"],
+            kw["field_mask"], 1.0, 0.0, 1.0)
+        mark(3)
+        tables = [t[:, nn - 1:2 * nn - 1] for t in st[:4]]
+        for s, ii in zip(placed.shards, nid):
+            ops.partition_level_cm(ii, s.codes_cm, *tables,
+                                   missing_bin=data.missing_bin)
+        mark(4)
+
+    one_level()
+    torch.cuda.synchronize()
+    spans = {k: [] for k in ("hist_ms", "reduce_ms", "split_ms",
+                             "partition_ms", "level_device_ms",
+                             "level_wall_ms")}
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        torch.cuda._sleep(HOLD_CYCLES)
+        one_level(ev)
+        ev[4].synchronize()
+        for k, (a, b) in zip(("hist_ms", "reduce_ms", "split_ms",
+                              "partition_ms", "level_device_ms"),
+                             ((0, 1), (1, 2), (2, 3), (3, 4), (0, 4))):
+            spans[k].append(ev[a].elapsed_time(ev[b]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_level()
+        torch.cuda.synchronize()
+        spans["level_wall_ms"].append((time.perf_counter() - t0) * 1e3)
+    out = {k: statistics.median(v) for k, v in spans.items()}
+    sharding.reset_collective_stats()
+    one_level()
+    out["collectives"] = sharding.collective_stats()
+    out["hist_bytes_a_shard"] = nn * data.n_fields * N_BINS * 2 * 4
+    log(f"dist (f) level NN = {nn} at D = {D} on {dev}: shards' histograms "
+        f"{out['hist_ms']:.3f} ms, sum {out['reduce_ms']:.3f} ms, split "
+        f"search {out['split_ms']:.3f} ms, partitions "
+        f"{out['partition_ms']:.3f} ms (device {out['level_device_ms']:.3f} "
+        f"ms, host wall {out['level_wall_ms']:.3f} ms); collectives "
+        f"{json.dumps(out['collectives']['all-reduce'])} (a shard's "
+        f"histogram {out['hist_bytes_a_shard']} B)  [{smi}]")
+    return out
+
+
+def dist_cli(seed: int, dev, smi: str) -> dict:
+    """(e): the CLIs as subprocesses on the card.  ``launch.train`` on
+    1,000,000 Higgs-shaped records (28 fields, 256 bins): an uninterrupted
+    run, and one given SIGTERM after its first checkpoint, which must exit
+    with code 75 and then finish with ``--resume`` within (b)'s contract
+    of the uninterrupted run; ``launch.serve --mode gbdt`` beside them,
+    whose zero-retrace and zero-drop lines must read OK."""
+    import os
+    import shutil
+    import signal
+    import types
+
+    from repro_torch.api import serialize
+    from repro_torch.core.gbdt import GBDTConfig
+    from repro_torch.data import paper_dataset
+    from repro_torch.distributed.fault import StepJournal
+
+    base = ROOT / "build" / "smoke_cli"
+    shutil.rmtree(base, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    train_cmd = [sys.executable, "-m", "repro_torch.launch.train",
+                 "--records", str(CLI_RECORDS), "--trees", str(CLI_TREES),
+                 "--depth", str(DEPTH), "--max-bins", str(N_BINS),
+                 "--ckpt-every", str(CLI_CKPT_EVERY), "--seed", str(seed)]
+
+    def start(cmd):
+        return subprocess.Popen(cmd, env=env, cwd=ROOT, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE)
+
+    def history(text):
+        line = [ln for ln in text.splitlines()
+                if ln.startswith("[train] history")][-1]
+        return json.loads(line.split(" ", 2)[2])["train_loss"]
+
+    t0 = time.perf_counter()
+    procs = {"full": start(train_cmd + ["--ckpt-dir", str(base / "full")]),
+             "cut": start(train_cmd + ["--ckpt-dir", str(base / "cut")]),
+             "serve": start([sys.executable, "-m",
+                             "repro_torch.launch.serve", "--mode", "gbdt",
+                             "--model-dir", str(base / "serve"),
+                             "--requests", "16"])}
+    outs = {}
+    try:
+        journal = StepJournal(str(base / "cut" / "journal.jsonl"))
+        deadline = time.monotonic() + 300
+        while (journal.last_step() is None
+               and procs["cut"].poll() is None
+               and time.monotonic() < deadline):
+            time.sleep(0.002)
+        procs["cut"].send_signal(signal.SIGTERM)
+        for name, p in procs.items():
+            outs[name] = p.communicate(timeout=300)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name, p in procs.items():
+        tail = "\n".join((outs[name][0] + outs[name][1]).splitlines()[-6:])
+        log(f"dist (e) {name}: exit {p.returncode}; last lines:\n{tail}")
+    check(procs["full"].returncode == 0, "dist (e): the uninterrupted CLI "
+          "run exits 0")
+    check(procs["cut"].returncode == 75, "dist (e): SIGTERM after the first "
+          "checkpoint exits with code 75")
+    check(procs["serve"].returncode == 0
+          and "(zero silent drops: OK)" in outs["serve"][0]
+          and "zero retraces across hot-swap: OK" in outs["serve"][0],
+          "dist (e): launch.serve --mode gbdt prints zero retraces and zero "
+          "silent drops as OK")
+    resumed = subprocess.run(train_cmd + ["--ckpt-dir", str(base / "cut"),
+                                          "--resume"], env=env, cwd=ROOT,
+                             capture_output=True, text=True, timeout=300)
+    log("dist (e) resume: exit "
+        f"{resumed.returncode}; last lines:\n"
+        + "\n".join((resumed.stdout + resumed.stderr).splitlines()[-4:]))
+    check(resumed.returncode == 0, "dist (e): --resume finishes the fit")
+    wall = time.perf_counter() - t0
+    cut = history(outs["cut"][0])
+    full = history(outs["full"][0])
+    joined = cut + history(resumed.stdout)
+    check(0 < len(cut) < CLI_TREES and len(joined) == CLI_TREES,
+          "dist (e): the interrupted run committed part of the fit")
+    est_cut, _ = serialize.load_checkpoint(str(base / "cut"), device=dev)
+    est_full, _ = serialize.load_checkpoint(str(base / "full"), device=dev)
+    X, y, _, _ = paper_dataset("higgs", n_override=CLI_RECORDS, seed=seed)
+    binner = est_full.binner_
+    data = binner.transform(X, device=dev)        # as the CLI bins it
+    config = GBDTConfig(n_trees=CLI_TREES, max_depth=DEPTH,
+                        learning_rate=0.1, objective="binary:logistic",
+                        seed=seed)
+    dist_contract("dist (e) CLI interrupted + resumed",
+                  types.SimpleNamespace(model=est_cut.model_,
+                                        history={"train_loss": joined}),
+                  types.SimpleNamespace(model=est_full.model_,
+                                        history={"train_loss": full}),
+                  binner, config, data, y, CLI_RECORDS)
+    log(f"dist (e): train CLI interrupted after {len(cut)} rounds, resumed "
+        f"to {CLI_TREES}; serve CLI OK; {wall:.1f} s  [{smi}]")
+    shutil.rmtree(base, ignore_errors=True)
+    return {"cli_interrupted_after": len(cut), "cli_s": wall}
+
+
+def distributed_path(paths: dict, dev, smi: str) -> dict:
+    """Phase 8: the distributed trainer and the launch drivers on the card,
+    on phase 3's Higgs-shaped and phase 3b's Covertype-shaped data.  Gates
+    (a)-(e), timings (f); returns the kernel rows' ``dist_*`` numbers."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.core.inference import pad_trees, sharded_predict
+    from repro_torch.distributed.trainer import DistributedConfig
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import cuda_devices, make_mesh
+    from repro_torch.resilience import (DeviceOOMError, FaultInjector,
+                                        RecoveryPolicy)
+
+    t_phase = time.perf_counter()
+    hg, cv = paths["higgs"], paths["cover"]
+    config, data, y = hg["config"], hg["data"], hg["y"]
+    n, D = data.n_records, DIST_SHARDS
+    gen = torch.Generator(device=dev).manual_seed(31)
+    out = {"exact": dist_exact(data, gen, dev)}
+
+    # (b) 8 rounds at D = 1 and D = 4 against the host loop of phase 3
+    fits = {}
+    for d in (1, D):
+        res, counts, coll, rounds = dist_fit(f"(b) Higgs D={d}", config,
+                                             data, y, dist_mesh(d, dev))
+        dist_contract(f"dist (b) Higgs D={d}", res, hg["res"], hg["binner"],
+                      config, data, y, -(-n // d))
+        check(counts["histogram"] == d * DEPTH * config.n_trees
+              and counts["partition"] == d * DEPTH * config.n_trees
+              and counts["traversal"] == 0,
+              f"dist (b) D={d}: histogram and partition launched once a "
+              "shard a level, step ⑤ a leaf lookup")
+        fits[d] = dict(res=res, counts=counts, coll=coll,
+                       steady_ms=statistics.median(rounds[1:]))
+    log(f"dist (b): steady round D=1 {fits[1]['steady_ms']:.3f} ms, D={D} "
+        f"{fits[D]['steady_ms']:.3f} ms, host loop {hg['steady_ms']:.3f} ms "
+        f"({fits[D]['steady_ms'] / fits[1]['steady_ms']:.2f}x D=1)  [{smi}]")
+    K = cv["config"].n_classes
+    mres, mcounts, _, mrounds = dist_fit(
+        f"(b) Covertype D={D}", cv["config"], cv["data"], cv["y"],
+        dist_mesh(D, dev))
+    dist_contract(f"dist (b) Covertype D={D}", mres, cv["res"],
+                  cv["binner"], cv["config"], cv["data"], cv["y"],
+                  -(-cv["data"].n_records // D))
+    check(mcounts["histogram"] == D * DEPTH * cv["config"].n_trees,
+          "dist (b) Covertype: histogram launched once a shard a level")
+    out["cover_steady_ms"] = statistics.median(mrounds[1:])
+    log(f"dist (b): Covertype K = {K} steady round D={D} "
+        f"{out['cover_steady_ms']:.3f} ms, host loop {cv['steady_ms']:.3f} "
+        f"ms  [{smi}]")
+    cards = cuda_devices()
+    if len(cards) > 1:
+        cres, _, _, crounds = dist_fit(
+            f"(b) Higgs on {len(cards)} cards", config, data, y,
+            make_mesh((len(cards),), ("data",), devices=cards))
+        dist_contract(f"dist (b) Higgs D={len(cards)} cards", cres,
+                      hg["res"], hg["binner"], config, data, y,
+                      -(-n // len(cards)))
+        out["cards_steady_ms"] = statistics.median(crounds[1:])
+    else:
+        log("dist (b): one visible card: no fit on distinct cards")
+    # a warm start of 2 rounds from the D = 4 model replays its margins
+    warm, wcounts, _, _ = dist_fit(
+        f"(b) Higgs D={D} warm start", dataclasses.replace(config,
+                                                           n_trees=2),
+        data, y, dist_mesh(D, dev), init_model=fits[D]["res"].model)
+    loss = fits[D]["res"].history["train_loss"] + warm.history["train_loss"]
+    check(warm.model.n_trees == config.n_trees + 2
+          and wcounts["traversal"] == config.n_trees
+          and all(b < a for a, b in zip(loss, loss[1:])),
+          "dist (b): the warm start replays each round once (the ensemble "
+          "at T = K) and the loss keeps falling")
+
+    # (c) a worker lost at round 3 of the D = 4 fit, and one device OOM
+    ck = ROOT / "build" / "smoke_dist"
+    shutil.rmtree(ck, ignore_errors=True)
+    t0 = time.perf_counter()
+    lost, _, _, _ = dist_fit(
+        f"(c) Higgs D={D}, a worker lost at round {DIST_FAULT_ROUND}",
+        config, data, y, dist_mesh(D, dev),
+        dist=DistributedConfig(checkpoint_dir=str(ck), checkpoint_every=2,
+                               fault_injector=FaultInjector(
+                                   (DIST_FAULT_ROUND,))))
+    st = lost.stats
+    check(st["remesh_events"] == [("shrink", DIST_FAULT_ROUND, D - 1)]
+          and st["restarts"] == 1 and st["n_shards"] == D - 1
+          and st["replayed_rounds"] == 1
+          and lost.model.n_trees == config.n_trees,
+          "dist (c): the mesh shrinks to 3 shards, restores the round-2 "
+          "checkpoint and replays; the fit does not restart")
+    ref3, _, _, _ = dist_fit("(c) Higgs D=3 uninterrupted", config, data, y,
+                             dist_mesh(D - 1, dev))
+    dist_contract("dist (c) after the shrink", lost, ref3, hg["binner"],
+                  config, data, y, -(-n // (D - 1)))
+    oom, _, _, _ = dist_fit(
+        f"(c) Higgs D={D}, one device OOM", config, data, y,
+        dist_mesh(D, dev),
+        dist=DistributedConfig(fault_injector=FaultInjector(
+            (2,), exc=DeviceOOMError)), recovery=RecoveryPolicy())
+    check(oom.stats["oom_halvings"] == 1 and oom.stats["hist_slices"] == 2,
+          "dist (c): the OOM doubles hist_slices, counted in stats")
+    dist_contract("dist (c) after the OOM", oom, fits[D]["res"],
+                  hg["binner"], config, data, y, -(-n // (2 * D)))
+    shutil.rmtree(ck, ignore_errors=True)
+    log(f"dist (c): {time.perf_counter() - t0:.3f} s")
+
+    # (d) sharded_predict on a (1, 4) ("data", "model") mesh
+    mesh14 = make_mesh((1, D), ("data", "model"), devices=[dev] * D)
+    model = hg["res"].model
+    padded = pad_trees(model, D)
+    _build.reset_launch_counts()
+    sp = sharded_predict(mesh14, padded, data.codes)
+    sp_counts = _build.launch_counts()
+    direct = model.predict_margin(data)
+    torch.testing.assert_close(sp, direct, rtol=1e-6, atol=1e-6)
+    check(sp_counts["ensemble"] == D, "dist (d): the ensemble launched once "
+          "a shard")
+    leaves = torch.randint(-64, 65, model.trees.leaf_value.shape,
+                           generator=gen, device=dev) / 64
+    dy = dataclasses.replace(model, base_margin=0.25, trees=(
+        model.trees._replace(leaf_value=leaves)))
+    check(torch.equal(sharded_predict(mesh14, pad_trees(dy, D), data.codes),
+                      dy.predict_margin(data)),
+          "dist (d): sharded_predict bit-equal to predict_margin on dyadic "
+          "leaves")
+    out["sharded_predict_ms"] = time_ms(
+        lambda: sharded_predict(mesh14, padded, data.codes))
+    out["predict_margin_ms"] = time_ms(lambda: model.predict_margin(data))
+    log(f"dist (d): sharded_predict over (1, {D}) margins within rtol 1e-6 "
+        f"(atol 1e-6) of predict_margin, bit-equal on dyadic leaves; "
+        f"{out['sharded_predict_ms']:.3f} ms against "
+        f"{out['predict_margin_ms']:.3f} ms  [{smi}]")
+
+    # (e) the CLIs, (f) one level's parts
+    out.update(dist_cli(1, dev, smi))
+    out["level_d1"] = dist_level(data, 1, dev, smi)
+    out["level_d4"] = dist_level(data, D, dev, smi)
+    out["higgs_d1_steady_ms"] = fits[1]["steady_ms"]
+    out["higgs_d4_steady_ms"] = fits[D]["steady_ms"]
+    out["host_loop_steady_ms"] = hg["steady_ms"]
+    out["round_collectives_d4"] = fits[D]["coll"]
+    out["counts"] = dict(
+        higgs=fits[D]["counts"], cover=mcounts, warm=wcounts,
+        predict=sp_counts)
+    torch.cuda.empty_cache()
+    log(f"distributed phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--records", type=int, default=10_000_000)
@@ -2966,6 +3474,8 @@ def main(argv=None) -> int:
                  ("iot", iot_raw, iot_config, iot_data, iot_y,
                   iot_steady_ms))}
     stream = streaming_path(paths, dev, smi)
+    # phase 8: the distributed trainer and the launch drivers
+    dist = distributed_path(paths, dev, smi)
     del paths, data, mc_data, iot_data
     torch.cuda.empty_cache()
     for row, key, counter in (
@@ -2984,6 +3494,26 @@ def main(argv=None) -> int:
                          stream_fit_peak_bytes=stream[key]["fit_peak_bytes"],
                          stream_pass=stream[key]["breakdown"])
 
+    dc = dist["counts"]
+    dist_launches = {"histogram": dc["higgs"]["histogram"],
+                     "partition": dc["higgs"]["partition"],
+                     "traversal": dc["warm"]["traversal"],
+                     "ensemble": dc["predict"]["ensemble"],
+                     "histogram_classes": dc["cover"]["histogram"],
+                     "partition_classes": dc["cover"]["partition"]}
+    for name, row in rows.items():
+        row["dist_launches"] = dist_launches.get(name, 0)
+    rows["histogram"].update(
+        dist_round_ms_d1=dist["higgs_d1_steady_ms"],
+        dist_round_ms_d4=dist["higgs_d4_steady_ms"],
+        dist_host_loop_round_ms=dist["host_loop_steady_ms"],
+        dist_level_d1=dist["level_d1"], dist_level_d4=dist["level_d4"],
+        dist_round_collectives_d4=dist["round_collectives_d4"],
+        dist_card=smi)
+    rows["histogram_classes"]["dist_round_ms_d4"] = dist["cover_steady_ms"]
+    rows["ensemble"].update(
+        dist_sharded_predict_ms=dist["sharded_predict_ms"],
+        dist_predict_margin_ms=dist["predict_margin_ms"])
     # (row, kernel counter, source, TPU kernel, launches of which path)
     meta = [
         ("histogram", "histogram", "histogram.cu",

@@ -14,9 +14,10 @@ The training variants reach ``train`` as they do in ``repro``:
 and ``fit(recovery=, shutdown=)``.  ``fit(data=...)`` (a ``DataSource``, an
 ``(X, y)`` tuple or an npz-shard directory), or arrays under
 ``ExecutionPlan(chunk_bytes=...)``, trains out-of-core through
-``core.gbdt.train_streaming``.  ``mesh=``, the one option of ``repro``'s
-estimator that the port does not have yet, raises ``NotImplementedError``
-naming its ROADMAP item (Queue 1 item 8).
+``core.gbdt.train_streaming``.  ``fit(mesh=...)`` (or a plan carrying a
+mesh) trains data-parallel through
+``distributed.trainer.train_distributed``, and ``predict`` under a plan
+with a mesh goes through ``core.inference.sharded_predict``.
 """
 from __future__ import annotations
 
@@ -33,7 +34,8 @@ from repro_torch.core.binning import Binner, StreamingBinner
 from repro_torch.core.gbdt import (GBDTConfig, GBDTModel, TrainResult,
                                    _predict_forest, base_margin_tensor,
                                    train, train_streaming)
-from repro_torch.core.inference import GBDTPipeline, feature_importance
+from repro_torch.core.inference import (GBDTPipeline, feature_importance,
+                                        pad_trees, sharded_predict)
 from repro_torch.kernels.ref import TreeArrays
 from repro_torch.resilience.errors import TrainingInterrupted
 from repro_torch.resilience.recovery import RecoveryPolicy
@@ -79,11 +81,6 @@ _PARAM_DEFAULTS: Dict[str, Any] = dict(
     log_every=10,
     early_stopping_rounds=None, max_bins=256, categorical_fields=None,
     sketch_size=32768, n_classes=None, seed=0, plan=None, device=None)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                               f"item {item})")
 
 
 class NotFittedError(RuntimeError):
@@ -195,7 +192,11 @@ class BoosterEstimator:
     def _resolve_plan(self, plan: Optional[ExecutionPlan]) -> ExecutionPlan:
         return resolve_plan(plan if plan is not None else self.plan)
 
-    def _device(self) -> torch.device:
+    def _device(self, mesh=None) -> torch.device:
+        """The estimator's device; unset, a mesh's first device, else
+        CUDA."""
+        if self.device is None and mesh is not None:
+            return mesh.devices.flat[0]
         return resolve_device(self.device)
 
     def _resolve_objective(self, y: np.ndarray
@@ -251,6 +252,14 @@ class BoosterEstimator:
                          at a time.  Arrays with a plan that sets
                          ``chunk_bytes`` stream through an ``ArraySource``.
         plan:            ExecutionPlan override for this fit.
+        mesh:            a data-parallel training mesh
+                         (:class:`repro_torch.launch.mesh.Mesh`): records
+                         shard over its data axes and the fit runs through
+                         ``train_distributed``; the same as
+                         ``plan.replace(mesh=mesh)``.  Not with ``data=``
+                         or ``plan.chunk_bytes`` (out-of-core).  Binning
+                         runs on the mesh's first device unless the
+                         estimator names a device.
         checkpoint_dir:  when set, resumes from the newest valid step
                          checkpoint and writes one every
                          ``checkpoint_every`` rounds (atomic, sha-verified).
@@ -271,10 +280,15 @@ class BoosterEstimator:
                          ``checkpoint_dir``, saves a resume checkpoint
                          before re-raising.
         """
-        if mesh is not None:
-            raise _not_ported("fit(mesh=...) (distributed training)",
-                              "8: distributed")
         plan = self._resolve_plan(plan)
+        if mesh is not None:
+            plan = plan.replace(mesh=mesh)
+        if plan.mesh is not None and (data is not None
+                                      or plan.chunk_bytes is not None):
+            raise ValueError(
+                "distributed training (mesh=) shards in-memory records and "
+                "cannot combine with the out-of-core streaming path "
+                "(data=/plan.chunk_bytes); drop one of the two")
         if data is None and plan.chunk_bytes is not None and X is not None:
             if y is None:
                 raise TypeError("fit needs (X, y) arrays or data=DataSource")
@@ -290,7 +304,12 @@ class BoosterEstimator:
                 checkpoint_dir=checkpoint_dir,
                 checkpoint_every=checkpoint_every, callback=callback,
                 verbose=verbose, recovery=recovery, shutdown=shutdown)
-        device = self._device()
+        if (recovery is not None and recovery.checkpoint_dir is None
+                and checkpoint_dir is not None):
+            recovery = dataclasses.replace(
+                recovery, checkpoint_dir=checkpoint_dir,
+                checkpoint_every=checkpoint_every)
+        device = self._device(plan.mesh)
         if X is None or y is None:
             raise TypeError("fit needs (X, y) arrays or data=DataSource")
         X = np.asarray(X, dtype=np.float64)
@@ -541,10 +560,18 @@ class BoosterEstimator:
                        ) -> torch.Tensor:
         """Raw ensemble margins for raw (unbinned) ``X``, through the
         serving engine: binned on the device, predicted through the
-        shape-bucketed graph cache (:mod:`repro_torch.core.inference`)."""
-        self._check_fitted()
-        return self.to_pipeline().predict_margin(
-            X, plan=self._resolve_plan(plan))
+        shape-bucketed graph cache (:mod:`repro_torch.core.inference`).
+        A plan carrying a mesh runs ``sharded_predict`` on it instead."""
+        model = self._check_fitted()
+        plan = self._resolve_plan(plan)
+        if plan.mesh is not None:
+            # paper §III-D: trees shard over "model" (zero-padded to divide
+            # it, in multiples of K), records over the data axes
+            padded = pad_trees(model, plan.mesh.shape.get("model", 1)
+                               * max(model.n_classes, 1))
+            return sharded_predict(plan.mesh, padded, self._bin(X).codes,
+                                   plan=plan)
+        return self.to_pipeline().predict_margin(X, plan=plan)
 
     def predict(self, X, *, plan: Optional[ExecutionPlan] = None
                 ) -> torch.Tensor:

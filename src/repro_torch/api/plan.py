@@ -21,16 +21,20 @@ PyTorch baselines of ``repro``'s software strategies, ``"scatter"``,
 stream (:func:`repro_torch.core.gbdt.train_streaming`).  ``repro``'s Pallas
 grid knobs (``records_per_block``, ``fields_per_block``,
 ``trees_per_block``, ``interpret``) size TPU launches and have no meaning
-here; ``mesh``/``data_axes`` (distributed) are not ported yet.  Saved
+here.  ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`) routes training
+through the data-parallel trainer and batch inference through
+``sharded_predict``.  Saved
 ``repro`` configs name the Pallas strategies: :func:`lift_legacy_strategy` maps them onto
 the CUDA kernels where a legacy setting is lifted into a plan.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.launch.mesh import Mesh
 
 STRATEGIES = ("cuda", "reference")
 PLAIN_HIST_STRATEGIES = ("scatter", "scatter_private", "sort", "onehot")
@@ -97,7 +101,15 @@ class ExecutionPlan:
                          the device at once; when set, ``fit`` streams
                          chunk-sized passes instead of materializing the
                          matrix (None = in-memory)
-    mesh:                exists to refuse multi-device plans
+    mesh:                optional :class:`repro_torch.launch.mesh.Mesh`;
+                         when set, ``train``/``fit`` route through the
+                         data-parallel trainer (paper §III-B: per-shard
+                         histograms, one sum a level) and the estimator's
+                         batch inference shards trees over ``"model"`` and
+                         records over the data axes (paper §III-D)
+    data_axes:           mesh axes carrying records in distributed
+                         training; ``None`` resolves to every axis but
+                         ``"model"``.  Only meaningful with ``mesh``
     """
 
     hist_strategy: str = "auto"
@@ -108,6 +120,7 @@ class ExecutionPlan:
     packed_codes: Optional[bool] = None
     chunk_bytes: Optional[int] = None
     mesh: Optional[object] = None
+    data_axes: Optional[Tuple[str, ...]] = None
 
     DEFAULT_CHUNK_BYTES = 1 << 26          # 64 MiB of resident chunk state
 
@@ -115,10 +128,22 @@ class ExecutionPlan:
         if self.chunk_bytes is not None and self.chunk_bytes <= 0:
             raise ValueError("chunk_bytes must be positive (or None for "
                              "in-memory training)")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "multi-device plans are not ported yet (ROADMAP Queue 1: "
-                "Distributed)")
+        if self.mesh is not None and not isinstance(self.mesh, Mesh):
+            raise TypeError(f"mesh must be a repro_torch.launch.mesh.Mesh, "
+                            f"not {type(self.mesh).__name__}")
+        if self.data_axes is not None:
+            # a tuple keeps plans hashable
+            object.__setattr__(self, "data_axes",
+                               tuple(str(a) for a in self.data_axes))
+            if self.mesh is None:
+                raise ValueError("data_axes only applies together with a "
+                                 "mesh (the distributed-training record "
+                                 "axes)")
+            missing = set(self.data_axes) - set(self.mesh.axis_names)
+            if missing:
+                raise ValueError(
+                    f"data_axes {sorted(missing)} not present on the mesh "
+                    f"(axes: {self.mesh.axis_names})")
         for name, allowed in (("hist_strategy", HIST_STRATEGIES),
                               ("partition_strategy", STRATEGIES),
                               ("traversal_strategy", TRAVERSAL_STRATEGIES)):
@@ -173,9 +198,11 @@ class ExecutionPlan:
         if self.packed_codes is not None:
             sub += f", packed={self.packed_codes}"
         split = "host" if self.host_offload_split else "device"
+        where = ("single-device" if self.mesh is None
+                 else f"mesh={dict(self.mesh.shape)}")
         return (f"ExecutionPlan(hist={self.hist_strategy}{sub}, "
                 f"split={split}, partition={self.partition_strategy}, "
-                f"traversal={self.traversal_strategy}, single-device)")
+                f"traversal={self.traversal_strategy}, {where})")
 
 
 def resolve_plan(plan: Optional[ExecutionPlan] = None,

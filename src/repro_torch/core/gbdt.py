@@ -21,8 +21,9 @@ round (:class:`_RoundStep`).
 :func:`train_streaming` is the out-of-core trainer: the binned matrix never
 exists; each tree level re-streams raw chunks from a ``DataSource``, binned
 on the card as they arrive (:meth:`Binner.transform_chunk`), through the
-chunked grower (:func:`repro_torch.core.tree.fit_forest_chunked`).  The
-distributed trainer is not ported yet (ROADMAP Queue 1 item 8).
+chunked grower (:func:`repro_torch.core.tree.fit_forest_chunked`).  A
+plan with a ``mesh`` routes :func:`train` through the data-parallel
+trainer (:func:`repro_torch.distributed.trainer.train_distributed`).
 """
 from __future__ import annotations
 
@@ -474,7 +475,8 @@ def train(config: GBDTConfig, data: BinnedDataset, y,
     there if it lies elsewhere).  ``eval_set`` is ``(BinnedDataset,
     labels)`` and drives early stopping.  ``plan`` selects the kernels of
     every step; when omitted it is lifted from the config's legacy
-    per-step fields.
+    per-step fields; a plan with a ``mesh`` runs the fit on the mesh's
+    devices through :func:`repro_torch.distributed.trainer.train_distributed`.
 
     ``init_model`` continues a fit (warm start, checkpoint resume): its
     trees and base margin seed the ensemble, its margins are replayed
@@ -493,9 +495,18 @@ def train(config: GBDTConfig, data: BinnedDataset, y,
     preemption-safe: a requested shutdown finishes the round in flight and
     raises :class:`TrainingInterrupted` carrying the partial result.
     """
-    device = resolve_device(device)
     plan = (ExecutionPlan.from_config(config) if plan is None
             else resolve_plan(plan))
+    if plan.mesh is not None:
+        # a training mesh routes the fit through the data-parallel trainer
+        # (records sharded over the mesh's data axes, one histogram sum a
+        # level); the mesh's devices replace ``device``
+        from repro_torch.distributed.trainer import train_distributed
+        return train_distributed(config, data, y, eval_set=eval_set,
+                                 init_model=init_model, callback=callback,
+                                 verbose=verbose, plan=plan,
+                                 recovery=recovery, shutdown=shutdown)
+    device = resolve_device(device)
     loss = losses_mod.get_loss(config.objective, config.n_classes)
     K = loss.n_outputs                 # None for scalar objectives
     data = data.to(device)

@@ -1,7 +1,6 @@
 """Batch inference (paper §III-D) and the serving engine.
 
-The counterpart of :mod:`repro.core.inference`, without ``sharded_predict``
-(ROADMAP Queue 1 item 8).
+The counterpart of :mod:`repro.core.inference`.
 
 * ``predict_margin_cached`` — the compile-once predict engine.  A
   :class:`PredictCache` holds one step per (plan, depth, K, missing bin);
@@ -22,6 +21,12 @@ The counterpart of :mod:`repro.core.inference`, without ``sharded_predict``
   shape cache does.  Padding never changes a result: padded rows are
   dropped, and padded trees (feature -1, leaves 0) add exactly 0.0 to a
   sum taken in tree order, so cached margins equal the direct ones.
+* ``sharded_predict`` — "the case of too many trees ... can be addressed
+  by distributing the trees to multiple Booster chips (in a simple
+  round-robin manner)": trees shard over a mesh's ``"model"`` axis and
+  records over its data axes; each shard walks its resident trees over
+  its record block (one ensemble launch) and one sum over ``"model"``
+  combines the margins.
 * ``feature_importance`` — split / gain / cover importances from the tree
   arrays.
 * ``GBDTPipeline`` — binner + model: raw float (NaN = missing) matrices
@@ -340,6 +345,61 @@ def pad_trees(model: GBDTModel, multiple: int) -> GBDTModel:
         threshold=pad0(t.threshold), is_cat=pad0(t.is_cat),
         default_left=pad0(t.default_left), leaf_value=pad0(t.leaf_value))
     return dataclasses.replace(model, trees=padded)
+
+
+def sharded_predict(mesh, model: GBDTModel, codes, *,
+                    plan: Optional[ExecutionPlan] = None) -> torch.Tensor:
+    """Tree-parallel x record-parallel ensemble inference on ``mesh``.
+
+    Needs ``n_trees % mesh.shape["model"] == 0`` and, for a multi-class
+    model, a tree count a shard that is a multiple of K, so that tree t
+    still feeds class t % K inside a shard (:func:`pad_trees` first).
+    Records are padded to divide the data shards (the padding is sliced
+    off).  Each (data, model) shard launches ``ops.predict_ensemble`` once
+    over its records and its contiguous block of trees; the shards' sums
+    are added over ``"model"`` in rank order, and the base margin last.
+    Returns (n,), or (n, K) for K classes, on the mesh's first device.
+    ``plan`` selects the walk (its own ``mesh`` is ignored: this is the
+    mesh dispatch).
+    """
+    from repro_torch.distributed.sharding import (on_device, pad_edge,
+                                                  psum, shard_grid)
+
+    grid = shard_grid(mesh)
+    D, M = grid.shape
+    T, K = model.n_trees, model.n_classes
+    if T % M:
+        raise ValueError(f"{T} trees do not divide the model axis ({M}); "
+                         "use pad_trees() first")
+    if K > 1 and (T // M) % K:
+        raise ValueError(
+            f"{T} trees over {M} shards leave {T // M} trees a shard, not a "
+            f"multiple of n_classes={K}; use pad_trees(model, {M * K}) so "
+            "that class routing survives sharding")
+    plan = resolve_plan(plan).replace(mesh=None, data_axes=None)
+    codes = codes.codes if isinstance(codes, BinnedDataset) else codes
+    n = codes.shape[0]
+    n_l = -(-n // D)
+    if isinstance(codes, PackedCodes):
+        codes = PackedCodes(pad_edge(codes.data, n_l * D, 0), codes.n)
+    else:
+        codes = pad_edge(codes, n_l * D, 0)
+    t_l = T // M
+    parts = [[None] * M for _ in range(D)]
+    for d in range(D):
+        for m in range(M):
+            dev = grid[d, m]
+            trees = TreeArrays(*[a[m * t_l:(m + 1) * t_l].to(dev)
+                                 for a in model.trees])
+            with on_device(dev):
+                parts[d][m] = ops.predict_ensemble(
+                    trees, codes[d * n_l:(d + 1) * n_l].to(dev),
+                    missing_bin=model.missing_bin, depth=model.max_depth,
+                    plan=plan, n_classes=K)
+    summed = psum(mesh, parts, "model")          # paper §III-D's combine
+    owner = grid[0, 0]
+    out = torch.cat([summed[d][0].to(owner) for d in range(D)])[:n]
+    return out + base_margin_tensor(model.base_margin, owner)
 
 
 def feature_importance(model: GBDTModel, kind: str = "gain") -> np.ndarray:

@@ -191,16 +191,45 @@ def _decide_level(hist, level, depth, state, is_cat_field, field_mask,
     return state, best, do_split
 
 
+LEAF_SUM_BLOCK = 4096      # records a block-private leaf accumulator sums
+
+
+def _bottom_sums(g, h, node_ids, n_leaf: int) -> torch.Tensor:
+    """(2, K·n_leaf) G and H sums of the bottom slots of (K, n) statistics
+    and leaf slots.
+
+    On the CPU one float32 segment sum a class, record by record, as
+    ``repro``'s ``segment_sum`` adds on the host (the parity tests hold the
+    two bit for bit).  On the card each block of ``LEAF_SUM_BLOCK`` records
+    adds into float64 accumulators of its own and the blocks' rows are then
+    summed, returned in float64: float32 atomics into one slot run
+    record by record and lose about n·2^-24 of a sum whose terms share a
+    sign (a round-0 leaf's), which is 1e-3 of a leaf at 10 M records,
+    while this holds to float64 rounding in any order of the adds, and
+    spreads them over many addresses.  Reads nothing back, so a CUDA graph
+    can capture it."""
+    K, n = g.shape
+    S = K * n_leaf
+    dev = g.device
+    slot = node_ids.long() + torch.arange(K, device=dev)[:, None] * n_leaf
+    stats = torch.stack([g, h]).reshape(2, -1)
+    if dev.type == "cpu":
+        zeros = torch.zeros((2, S), dtype=torch.float32)
+        return zeros.index_add(1, slot.reshape(-1), stats.to(torch.float32))
+    block = torch.arange(n, device=dev) // LEAF_SUM_BLOCK
+    n_blocks = -(-n // LEAF_SUM_BLOCK)
+    acc = torch.zeros((2, n_blocks * S), dtype=torch.float64, device=dev)
+    acc.index_add_(1, (block * S + slot).reshape(-1),
+                   stats.to(torch.float64))
+    return acc.view(2, n_blocks, S).sum(1)
+
+
 def _settle_bottom_leaves(g, h, node_ids, value_bottom, value_set, n_leaf,
                           lambda_):
     """Leaf weights for every bottom slot not settled by an earlier level;
-    g, h, node_ids (K, n), one segment sum per class."""
+    g, h, node_ids (K, n), the slots' sums by :func:`_bottom_sums`."""
     K = g.shape[0]
-    slot = (node_ids.long()
-            + torch.arange(K, device=g.device)[:, None] * n_leaf).reshape(-1)
-    zeros = torch.zeros((K * n_leaf,), dtype=torch.float32, device=g.device)
-    Gb = zeros.index_add(0, slot, g.reshape(-1).to(torch.float32))
-    Hb = zeros.index_add(0, slot, h.reshape(-1).to(torch.float32))
+    Gb, Hb = _bottom_sums(g, h, node_ids, n_leaf).to(torch.float32)
     wb = splits_mod.leaf_weight(Gb, Hb, lambda_).reshape(K, n_leaf)
     return torch.where(value_set, value_bottom, wb)
 

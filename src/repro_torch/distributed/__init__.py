@@ -1,3 +1,7 @@
-"""``repro_torch.distributed`` — so far only the named-payload checkpoint
-layer (:mod:`repro_torch.distributed.checkpoint`); the data-parallel
-trainer waits for ROADMAP Queue 1 item 8."""
+"""``repro_torch.distributed`` — the data-parallel trainer and its parts:
+the checkpoint layer (:mod:`~repro_torch.distributed.checkpoint`: named
+and positional payloads), the mesh collectives and the explicit sharded
+schedule (:mod:`~repro_torch.distributed.sharding`), elastic re-meshing
+(:mod:`~repro_torch.distributed.elastic`), the step journal
+(:mod:`~repro_torch.distributed.fault`) and
+:func:`~repro_torch.distributed.trainer.train_distributed`."""

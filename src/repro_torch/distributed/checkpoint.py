@@ -11,8 +11,14 @@ package reads what the other wrote.  Layout per step:
     and skips a torn or corrupt step, falling back to the next-newest;
   * ``keep_last`` bounds disk usage.
 
-The positional pytree ``save``/``restore`` of ``repro`` are not ported
-(ROADMAP Queue 1 item 8).
+Two payload kinds share the layout: named payloads (:func:`save_named`,
+:func:`restore_named`), which restore self-describing, and positional
+ones (:func:`save`, :func:`restore`), whose leaves are stored as
+``leaf_00000``, ``leaf_00001``, ... in the order ``jax.tree_util`` flattens
+a nested state (dict keys sorted, lists, tuples and named tuples in
+order, ``None`` holding no leaf), so that a ``like`` state of either
+package restores what the other wrote.  A restored state lands on any
+device, or on the devices of a changed mesh: the elastic path.
 """
 from __future__ import annotations
 
@@ -23,9 +29,10 @@ import os
 import re
 import shutil
 import warnings
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 
@@ -57,6 +64,91 @@ def write_payload_dir(path: str, arrays: Dict[str, np.ndarray],
         shutil.rmtree(path)
     os.rename(tmp, path)  # atomic commit
     return path
+
+
+def _leaves(state: Any) -> List[Any]:
+    """The leaves of a nested state in ``jax.tree_util``'s order."""
+    if state is None:
+        return []
+    if isinstance(state, dict):
+        return [x for k in sorted(state) for x in _leaves(state[k])]
+    if isinstance(state, (list, tuple)):
+        return [x for v in state for x in _leaves(v)]
+    return [state]
+
+
+def _rebuild(like: Any, leaves) -> Any:
+    """``like``'s structure with its leaves taken from the iterator
+    ``leaves`` (numpy arrays), each converted to its ``like`` leaf's kind:
+    a tensor on that tensor's device, a Python scalar or string, or an
+    array."""
+    if like is None:
+        return None
+    if isinstance(like, dict):
+        return {k: _rebuild(like[k], leaves) for k in sorted(like)}
+    if isinstance(like, (list, tuple)):
+        kids = [_rebuild(v, leaves) for v in like]
+        return type(like)(*kids) if hasattr(like, "_fields") \
+            else type(like)(kids)
+    arr = next(leaves)
+    if isinstance(like, torch.Tensor):
+        return torch.as_tensor(arr, device=like.device)
+    if isinstance(like, (bool, int, float, str)):
+        return type(like)(arr.item())
+    return arr
+
+
+def save(directory: str, state: Any, step: int, *,
+         keep_last: int = 3, extra_meta: Optional[Dict] = None) -> str:
+    """Two-phase atomic write of a nested state's leaves, positionally
+    (``leaf_<i>``, ``repro``'s format); returns the step's path."""
+    arrays = {f"leaf_{i:05d}": (x.detach().cpu().numpy()
+                                if isinstance(x, torch.Tensor)
+                                else np.asarray(x))
+              for i, x in enumerate(_leaves(state))}
+    os.makedirs(directory, exist_ok=True)
+    final = write_payload_dir(
+        os.path.join(directory, f"step_{step}"), arrays,
+        {"step": step, "n_leaves": len(arrays), "meta": extra_meta or {}})
+    _gc(directory, keep_last)
+    return final
+
+
+def restore(directory: str, like: Any, *, step: Optional[int] = None,
+            device=None) -> Tuple[Any, int, Dict]:
+    """Restore the newest valid positional checkpoint (or an explicit
+    ``step``) into ``like``'s structure: ``(state, step, meta)``.  Tensor
+    leaves land on ``like``'s devices, or on ``device`` (one device, or a
+    structure like ``like``'s: a changed mesh's devices)."""
+    steps = list_steps(directory)
+    if step is not None:
+        steps = [s for s in steps if s == step]
+    n_like = len(_leaves(like))
+    for s in reversed(steps):
+        path = os.path.join(directory, f"step_{s}")
+        manifest = _validate(path)
+        if manifest is None:
+            continue  # corrupt or partial: fall back to an older step
+        if manifest["n_leaves"] != n_like:
+            raise ValueError(f"checkpoint step_{s} under {directory!r} "
+                             f"holds {manifest['n_leaves']} leaves; the "
+                             f"like state has {n_like}")
+        try:
+            with np.load(os.path.join(path, "arrays.npz")) as z:
+                arrays = [z[f"leaf_{i:05d}"]
+                          for i in range(manifest["n_leaves"])]
+        except Exception as e:  # noqa: BLE001 — torn step, use next-newest
+            warnings.warn(
+                f"checkpoint step_{s} under {directory!r} passed sha "
+                f"validation but failed to load ({type(e).__name__}: {e}); "
+                "falling back to the next-newest step", RuntimeWarning)
+            continue
+        state = _rebuild(like, iter(arrays))
+        if device is not None:
+            from repro_torch.distributed.elastic import reshard_tree
+            state = reshard_tree(state, device)
+        return state, s, manifest["meta"]
+    raise FileNotFoundError(f"no valid checkpoint under {directory!r}")
 
 
 def save_named(directory: str, arrays: Dict[str, np.ndarray], step: int, *,

@@ -9,7 +9,9 @@ rate off when the same round diverges twice.  The checkpoint, transient
 and OOM fields drive the streaming trainer (``core.gbdt.train_streaming``:
 a transient failure replays the round, from the newest checkpoint when
 one exists, and a device OOM halves the streamed chunk); the distributed
-trainer, not ported yet (ROADMAP Queue 1 item 8), reads them too.
+trainer (``distributed.trainer.train_distributed``) reads them too: a
+preemption re-meshes and restores, another transient failure retries the
+round, and a device OOM doubles its histogram slices.
 
 Action classification lives here (:func:`classify`) so the trainers'
 except-clauses stay dispatch tables, not policy decisions.

@@ -461,9 +461,10 @@ def test_fit_validates_inputs(case):
                                 dict(recovery=RecoveryPolicy()),
                                 dict(shutdown=GracefulShutdown())])
 def test_unported_fit_options_raise(kw):
-    """``mesh=`` is not ported and raises naming its ROADMAP item;
-    ``data=`` is ported and, as ``repro``'s, refuses what is no data
-    source; ``recovery=`` and ``shutdown=`` are ported and fit."""
+    """``mesh=`` is ported and refuses what is no ``Mesh``
+    (``tests/test_torch_distributed.py`` fits on one); ``data=`` is ported
+    and, as ``repro``'s, refuses what is no data source; ``recovery=`` and
+    ``shutdown=`` are ported and fit."""
     X = np.random.default_rng(0).normal(size=(64, 2))
     y = X[:, 0].copy()
     est = est_mod.BoosterRegressor(n_trees=2, max_depth=2, device="cpu")
@@ -472,7 +473,7 @@ def test_unported_fit_options_raise(kw):
             est.fit(**kw)
         return
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(TypeError, match="Mesh"):
             est.fit(X, y, **kw)
         return
     est.fit(X, y, **kw)

@@ -1345,3 +1345,115 @@ def test_oom_halving_stream_on_card(cuda):
                        clean.model.trees.feature[0])
     np.testing.assert_allclose(res.history["train_loss"],
                                clean.history["train_loss"], rtol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# the distributed path on one card (a mesh that repeats cuda:0)
+# --------------------------------------------------------------------------
+def _exact_grid(n, seed, device):
+    rng = np.random.default_rng(seed)
+    g = (rng.integers(-64, 65, n) / 64).astype(np.float32)
+    h = (rng.integers(1, 65, n) / 64).astype(np.float32)
+    return (torch.from_numpy(g).to(device), torch.from_numpy(h).to(device))
+
+
+@pytest.mark.parametrize("D", [1, 4])
+def test_distributed_schedule_on_card_bit_equal(cuda, D):
+    """On a ("data",) mesh of D shards of the card, on exact-grid
+    statistics: the histogram equals ``build_histogram`` with one launch a
+    shard; the explicit and owner-evaluates trees and final node ids and
+    ``pjit_fit_tree`` equal ``fit_forest`` bit for bit."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.kernels import ops
+
+    mesh = make_mesh((D,), ("data",), devices=[cuda] * D)
+    rng = np.random.default_rng(D)
+    n, F, NB = 40_000, 9, 64
+    codes = torch.from_numpy(_codes(n, F, NB, rng)).to(cuda)
+    g, h = _exact_grid(n, D, cuda)
+    nid = torch.from_numpy(rng.integers(0, 8, n).astype(np.int32)).to(cuda)
+    _build.reset_launch_counts()
+    hist = sharding.distributed_histogram(mesh, codes, g, h, nid, n_nodes=8,
+                                          n_bins=NB)
+    assert _build.launch_counts()["histogram"] == D
+    assert torch.equal(hist, ops.build_histogram(codes, g, h, nid,
+                                                 n_nodes=8, n_bins=NB))
+    kw = dict(depth=5, n_bins=NB, missing_bin=NB - 1,
+              is_cat_field=torch.zeros(F, dtype=torch.bool, device=cuda),
+              field_mask=torch.ones(F, dtype=torch.bool, device=cuda),
+              lambda_=1.0, gamma=0.0, min_child_weight=1.0)
+    cm = codes.T.contiguous()
+    want = tree_mod.fit_forest(codes, cm, g[None], h[None], **kw)
+    for bits in (False, True):
+        tree, ids = sharding.distributed_fit_tree(
+            mesh, codes, cm, g, h, partition_bits=bits,
+            return_node_ids=True, **kw)
+        assert all(torch.equal(a, b[0]) for a, b in zip(tree, want))
+        leaf = ref.traverse_forest_ref(want, codes, NB - 1)[:, 0]
+        slot = torch.gather(want.leaf_value[0], 0, ids.long())
+        assert torch.equal(slot, leaf)
+    pj = sharding.pjit_fit_tree(mesh, **{k: v for k, v in kw.items()
+                                         if k not in ("is_cat_field",
+                                                      "field_mask")})
+    assert all(torch.equal(a, b[0]) for a, b in zip(
+        pj(codes, cm, g, h, kw["is_cat_field"], kw["field_mask"]), want))
+
+
+@pytest.mark.parametrize("objective,K", [("binary:logistic", None),
+                                         ("multi:softmax", 3)])
+def test_train_distributed_on_card_matches_host_loop(cuda, objective, K):
+    """``train_distributed`` at D = 1 and D = 4 on the card against the
+    host loop: histogram and partition launched once a shard a level, no
+    traversal (step ⑤ is a leaf lookup), round 0's split fields exact and
+    losses within rtol 1e-4."""
+    from repro_torch.distributed.trainer import train_distributed
+    from repro_torch.launch.mesh import make_mesh
+
+    X, y, cats = make_tabular(30_000, 8, 2, n_cats=3, task="multiclass"
+                              if K else "binary", n_classes=3, seed=12)
+    data = binning.Binner(64, cats).fit(X).transform(X)
+    cfg = gbdt.GBDTConfig(n_trees=4, max_depth=4, objective=objective,
+                          n_classes=K)
+    host = gbdt.train(cfg, data, y)
+    for D in (1, 4):
+        _build.reset_launch_counts()
+        res = train_distributed(cfg, data, y, mesh=make_mesh(
+            (D,), ("data",), devices=[cuda] * D))
+        counts = _build.launch_counts()
+        assert counts["histogram"] == counts["partition"] == D * 4 * 4
+        assert counts["traversal"] == 0
+        k = K or 1
+        assert torch.equal(res.model.trees.feature[:k],
+                           host.model.trees.feature[:k])
+        np.testing.assert_allclose(res.history["train_loss"],
+                                   host.history["train_loss"], rtol=1e-4)
+        assert torch.equal(res.model.predict_margin(data), res.margins)
+
+
+def test_sharded_predict_on_card(cuda):
+    """``sharded_predict`` on a (1, 4) ("data", "model") mesh of the card:
+    one ensemble launch a shard, margins within rtol 1e-6 of
+    ``predict_margin``, bit-equal on dyadic leaves."""
+    import dataclasses as dc
+
+    from repro_torch.core.inference import pad_trees, sharded_predict
+    from repro_torch.launch.mesh import make_mesh
+
+    X, y, _ = make_tabular(20_000, 10, 0, task="binary", seed=3)
+    data = binning.Binner(64).fit(X).transform(X)
+    model = gbdt.train(gbdt.GBDTConfig(n_trees=6, max_depth=5,
+                                       objective="binary:logistic"),
+                       data, y).model
+    mesh = make_mesh((1, 4), ("data", "model"), devices=[cuda] * 4)
+    _build.reset_launch_counts()
+    out = sharded_predict(mesh, pad_trees(model, 4), data.codes)
+    assert _build.launch_counts()["ensemble"] == 4
+    torch.testing.assert_close(out, model.predict_margin(data), rtol=1e-6,
+                               atol=1e-6)
+    leaves = torch.from_numpy(np.random.default_rng(1).integers(
+        -64, 65, model.trees.leaf_value.shape).astype(np.float32) / 64)
+    dy = dc.replace(model, base_margin=0.25, trees=model.trees._replace(
+        leaf_value=leaves.to(cuda)))
+    assert torch.equal(sharded_predict(mesh, pad_trees(dy, 4), data.codes),
+                       dy.predict_margin(data))

@@ -204,13 +204,14 @@ def test_unported_options_raise(kw):
 
 
 def test_unported_entry_options_raise():
-    """Warm start and the cached predict mode are ported; what the entry
-    points still lack raises, and an unknown mode is refused."""
+    """Warm start, the cached predict mode and mesh plans are ported; a
+    plan's mesh that is no ``Mesh`` is refused, and so is an unknown
+    mode."""
     codes, is_cat, y = _fixture(200, 3, 0, "regression", 1, 8)
     _, data = _both(codes, is_cat, 8)
     model = gbdt.train(gbdt.GBDTConfig(n_trees=1, max_depth=2), data, y,
                        device="cpu").model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="Mesh"):
         gbdt.train(gbdt.GBDTConfig(n_trees=1, max_depth=2), data, y,
                    plan=ExecutionPlan(mesh=object()), device="cpu")
     cont = gbdt.train(gbdt.GBDTConfig(n_trees=1, max_depth=2), data, y,

@@ -51,7 +51,13 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.resilience.shutdown, repro_torch.resilience.metrics, "
             "repro_torch.core.tree, repro_torch.core.splits, "
             "repro_torch.data.pipeline, repro_torch.data.synthetic, "
-            "repro_torch.resilience.retry, repro_torch.resilience.faults; "
+            "repro_torch.resilience.retry, repro_torch.resilience.faults, "
+            "repro_torch.launch.mesh, repro_torch.launch.roofline, "
+            "repro_torch.launch.train, repro_torch.launch.serve, "
+            "repro_torch.distributed.sharding, "
+            "repro_torch.distributed.elastic, "
+            "repro_torch.distributed.fault, "
+            "repro_torch.distributed.trainer; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -440,7 +440,7 @@ def test_plan_resolution_and_refusals():
         .traversal_strategy == "reference"
     with pytest.raises(ValueError):
         ExecutionPlan(hist_strategy="pallas_grouped")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         ExecutionPlan(mesh=object())
     # class-batched statistics and multi-class ensembles are ported
     hist = ops.build_histogram(torch.zeros((8, 2), dtype=torch.uint8),
