@@ -203,6 +203,31 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    histograms, the sum, the split search and the partitions (CUDA
    events), and the collective bytes ``collective_stats()`` counts.  Each
    kernel row gains ``dist_launches`` (0 where phase 8 launches none).
+9. The LM substrate's serving path (log lines ``lm ...``, last), with
+   TF32 off; it launches none of the kernels above (``repro`` computes
+   this path in jnp, without Pallas).  Each part is a gate: (a) each of
+   the ten smoke configs on the card against the CPU from the same
+   parameters: ``prefill``'s logits and 8 greedy ``decode_step``s within
+   1e-4 of the largest |logit|, the greedy tokens identical; (b) at full
+   width, minicpm-2b (40 layers, float32 weights, B 4 x 512, 32 steps),
+   mamba2-370m (48 layers, likewise) and mixtral-8x22b cut to 2 layers
+   (bfloat16 weights, B 2 x 4,160 past its 4,096 window, 16 steps):
+   ``decode_step``'s logits at steps 0 and last against
+   ``forward_train``'s at the same positions, within 5e-3 of the largest
+   |logit| in a float32-compute witness of the same weights; computing in
+   bfloat16, the decode's distance from the witness's forward pass within
+   1.5 x the bf16 forward pass's (both printed, with the bf16 decode
+   against the bf16 forward); (c) ``python -m
+   repro_torch.launch.serve --mode lm --arch qwen3-14b --prompt-len 16
+   --gen 8`` as a subprocess exits 0; (d) for each (b) run the prefill's
+   time and tokens/s (CUDA events, after a warm-up that casts the
+   weights), the median decode step (CUDA events, steps after the
+   first), peak memory, the decode step's byte bound (the weight bytes it
+   reads / 3.35 TB/s; for MoE also counting only the experts the step's
+   tokens route to) and the prefill's FLOP bound (2 x active params x
+   tokens / 989 TFLOP/s), and one decode step under ``torch.profiler``:
+   its kernels, device time and the host's share of the median step;
+   printed as ``lm summary {...}``.
 
 The last two lines of standard output are JSON: the kernel table, then
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -3387,6 +3412,347 @@ def distributed_path(paths: dict, dev, smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 9, the LM substrate's serving path
+# --------------------------------------------------------------------------
+BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
+LM_SMOKE_STEPS = 8
+# the bf16 decode's distance from the float32 forward over the bf16
+# forward's: measured 0.88-1.13 (PERF.md); a wrong slot, position or
+# mask reads 0.3 of the largest |logit|, several times the forward's
+BF16_DRIFT = 1.5
+# (arch, layers kept or None for all, batch, prompt, decode steps)
+LM_FULL = (("minicpm-2b", None, 4, 512, 32),
+           ("mamba2-370m", None, 4, 512, 32),
+           ("mixtral-8x22b", 2, 2, 4160, 16))
+
+
+def lm_extended(cfg, batch: dict, tokens) -> dict:
+    """``batch`` with the decoded ``tokens`` (B, n) after its prompt."""
+    full = dict(batch, tokens=torch.cat([batch["tokens"], tokens], dim=1))
+    if cfg.mrope:
+        b, s = full["tokens"].shape
+        full["positions"] = torch.arange(s, device=tokens.device)[
+            None, None].expand(3, b, s)
+    return full
+
+
+def lm_decode(cfg, model, batch: dict, steps: int, cache_dtype,
+              tokens=None):
+    """``prefill``, then ``steps`` decode steps fed the greedy tokens (or
+    ``tokens`` (B, steps) where given).  Returns (prefill logits, each
+    step's logits, the tokens fed, each step's time in ms on the card or
+    None on the CPU)."""
+    from repro_torch.models import lm
+
+    s = batch["tokens"].shape[1]
+    cuda = batch["tokens"].is_cuda
+    logits, cache = lm.prefill(cfg, model, batch, cache_dtype=cache_dtype,
+                               max_len=s + steps)
+    pre, outs, fed, step_ms = logits, [], [], []
+    for i in range(steps):
+        tok = (logits.argmax(-1)[:, None] if tokens is None
+               else tokens[:, i:i + 1])
+        fed.append(tok)
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        logits, cache = lm.decode_step(cfg, model, cache, tok, s + i)
+        if cuda:
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+        outs.append(logits)
+    return pre, outs, torch.cat(fed, dim=1), (step_ms if cuda else None)
+
+
+def lm_rel(got, want) -> float:
+    """Largest |got - want| over the largest |want|."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def lm_smoke_parity(seed: int, dev, smi: str) -> dict:
+    """(a): the ten smoke configs on the card against the CPU."""
+    from repro_torch.configs import ARCH_IDS, get_smoke
+    from repro_torch.launch.serve import lm_batch
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    worst, least_gap = 0.0, float("inf")
+    for arch in ARCH_IDS:
+        cfg = get_smoke(arch)
+        cpu = lm.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+        card = lm.init_params(cfg, torch.Generator().manual_seed(seed), dev)
+        s = cfg.sliding_window + 8 if cfg.sliding_window else 16
+        batch = lm_batch(cfg, 2, s, seed, "cpu")
+        pre, outs, toks, _ = lm_decode(cfg, cpu, batch, LM_SMOKE_STEPS,
+                                       torch.float32)
+        gpre, gouts, _, _ = lm_decode(
+            cfg, card, {k: v.to(dev) for k, v in batch.items()},
+            LM_SMOKE_STEPS, torch.float32, tokens=toks.to(dev))
+        errs = []
+        for i, (want, got) in enumerate(zip([pre] + outs, [gpre] + gouts)):
+            errs.append(lm_rel(got, want))
+            top2 = want.topk(2, dim=-1).values
+            least_gap = min(least_gap, float(
+                (top2[:, 0] - top2[:, 1]).min() / want.abs().max()))
+            check(torch.equal(got.argmax(-1).cpu(), want.argmax(-1)),
+                  f"lm (a) {arch}: the card's greedy token equals the "
+                  f"CPU's at step {i}")
+        check(max(errs) <= 1e-4, f"lm (a) {arch}: card within 1e-4 of the "
+              f"CPU's largest |logit| (got {max(errs):.3e})")
+        worst = max(worst, max(errs))
+        log(f"lm (a) {arch}: prefill + {LM_SMOKE_STEPS} steps, largest "
+            f"error {max(errs):.3e} of the largest |logit|, tokens equal")
+    wall = time.perf_counter() - t0
+    log(f"lm (a): ten smoke configs, card against CPU within {worst:.3e} "
+        f"(bound 1e-4), greedy tokens identical (least top-2 gap "
+        f"{least_gap:.3e}); {wall:.1f} s  [{smi}]")
+    return {"smoke_worst_rel_err": worst, "smoke_least_gap": least_gap}
+
+
+def lm_weight_bytes(model, cdt, routed=None) -> int:
+    """Bytes of the weights one decode step reads in ``cdt``: every
+    block's (cast) weights, the final norm and the cast embedding table
+    for the logits.  The capacity dispatch runs every expert; with
+    ``routed`` (the distinct experts the step's tokens pick, one count a
+    MoE layer in layer order) only those experts' weights count."""
+    blocks, _, embed = model.casts(cdt)
+
+    def leaves(d):
+        for v in d.values():
+            yield from (leaves(v) if isinstance(v, dict) else (v,))
+
+    def size(t):
+        return t.numel() * t.element_size()
+    n = sum(size(t) for b in blocks for t in leaves(b))
+    if routed is not None:
+        moes = [b["ffn"] for b in blocks if "router" in b.get("ffn", {})]
+        check(len(moes) == len(routed), "lm (d): one routing count a MoE "
+              "layer")
+        for f, used in zip(moes, routed):
+            e = f["router"].shape[1]
+            n -= (e - used) * sum(size(f[w]) for w in
+                                  ("w_in", "w_gate", "w_out")) // e
+    return n + size(embed) + size(model.final_norm)
+
+
+def lm_step_profile(cfg, model, batch: dict, step_ms: float) -> dict:
+    """One decode step of ``cfg`` under ``torch.profiler``, after a warm
+    step that records the distinct experts its tokens route to in each
+    MoE layer.  Returns the step's device time (the union of its device
+    events), its kernel launches, the four kernels that take most device
+    time, and the host's share of ``step_ms`` (the unprofiled median
+    step, CUDA events): 1 - device time / ``step_ms``."""
+    from repro_torch.models import lm
+
+    s = batch["tokens"].shape[1]
+    logits, cache = lm.prefill(cfg, model, batch,
+                               max_len=s + 2 + PROFILE_ATTEMPTS)
+    tok = logits.argmax(-1)[:, None]
+    routed, real = [], lm.moe_ffn
+
+    def spy(p, x, *, top_k, **kw):
+        probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                              @ p["router"].float(), dim=-1)
+        routed.append(torch.topk(probs, top_k, dim=-1).indices.unique()
+                      .numel())
+        return real(p, x, top_k=top_k, **kw)
+    lm.moe_ffn = spy
+    try:
+        lm.decode_step(cfg, model, cache, tok, s)
+    finally:
+        lm.moe_ffn = real
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(PROFILE_ATTEMPTS):
+        with torch.profiler.profile(activities=acts) as prof:
+            lm.decode_step(cfg, model, cache, tok, s + 1 + attempt)
+            torch.cuda.synchronize()
+        dev_events = [e for e in prof.events()
+                      if "CUDA" in str(getattr(e, "device_type", ""))]
+        if dev_events:
+            break
+        log(f"torch.profiler saw no device event of a decode step "
+            f"(profile {attempt + 1} of {PROFILE_ATTEMPTS})")
+    check(bool(dev_events), "lm (d): torch.profiler saw the decode "
+          "step's device events")
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in dev_events)
+    busy_us, reach = 0.0, -float("inf")
+    for a, b in spans:                  # the union of the device events
+        busy_us += max(0.0, b - max(a, reach))
+        reach = max(reach, b)
+    by_name: dict = {}
+    for e in dev_events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    device_ms = busy_us / 1e3
+    return {"routed_experts": routed, "device_ms": device_ms,
+            "device_events": len(dev_events),
+            "kernels": sum(1 for e in dev_events
+                           if "memcpy" not in e.name.lower()
+                           and "memset" not in e.name.lower()),
+            "host_share": 1.0 - device_ms / step_ms,
+            "top_kernels_ms": [(n[:60], t / 1e3) for n, t in top]}
+
+
+def lm_full_width(arch: str, n_layers, B: int, S: int, steps: int,
+                  seed: int, dev, smi: str) -> dict:
+    """(b) and (d) for one configuration at full width."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import lm_batch
+    from repro_torch.models import lm
+
+    cfg = get_arch(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    label = f"{arch}" + (f" cut to {n_layers} layers" if n_layers else "")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = lm.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = lm_batch(cfg, B, S, seed, dev)
+    out = {"config": label, "params": lm.param_count(cfg),
+           "active_params": lm.active_param_count(cfg), "batch": B,
+           "prompt": S, "steps": steps, "init_s": init_s}
+
+    # bfloat16 compute, as configured: the warm-up prefill casts the weights
+    check(cfg.compute_dtype == "bfloat16", f"lm (b) {label} computes in "
+          "bfloat16 as configured")
+    cdt = torch.bfloat16
+    prefill_ms = time_ms(lambda: lm.prefill(cfg, model, batch,
+                                            max_len=S + steps), reps=3)
+    _, outs, toks, step_ms = lm_decode(cfg, model, batch, steps, cdt)
+    fwd = lm.forward_train(cfg, model, lm_extended(cfg, batch, toks))
+    dec_bf16 = [outs[0].float(), outs[-1].float()]
+    fwd_bf16 = [fwd[:, S].float(), fwd[:, -1].float()]
+    del fwd, outs
+    out["peak_bytes_bf16"] = torch.cuda.max_memory_allocated()
+    weight_bytes = lm_weight_bytes(model, cdt)
+    flops = 2 * out["active_params"] * B * S
+    out.update(
+        prefill_ms=prefill_ms, prefill_tok_s=B * S / prefill_ms * 1e3,
+        decode_step_ms=statistics.median(step_ms[1:]),
+        decode_first_step_ms=step_ms[0], decode_weight_bytes=weight_bytes,
+        decode_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+        prefill_flops=flops,
+        prefill_bound_ms=flops / BF16_FLOPS_PER_S * 1e3)
+    prof = lm_step_profile(cfg, model, batch, out["decode_step_ms"])
+    out["decode_profile"] = prof
+    if cfg.n_experts:
+        routed_bytes = lm_weight_bytes(model, cdt, prof["routed_experts"])
+        out.update(decode_routed_weight_bytes=routed_bytes,
+                   decode_routed_bound_ms=routed_bytes / HBM_BYTES_PER_S
+                   * 1e3)
+
+    # the float32-compute witness of the same weights, fed the same tokens
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    _, outs, _, _ = lm_decode(cfg32, model, batch, steps, torch.float32,
+                              tokens=toks)
+    fwd = lm.forward_train(cfg32, model, lm_extended(cfg32, batch, toks))
+    ref = [fwd[:, S], fwd[:, -1]]
+    ratios32 = [lm_rel(outs[0], ref[0]), lm_rel(outs[-1], ref[1])]
+    out["peak_bytes_f32_witness"] = torch.cuda.max_memory_allocated()
+    # bf16: decode against the bf16 forward pass, and both against the
+    # float32 forward pass (the bf16 forward's distance is bf16's own
+    # rounding at this depth)
+    ratios = [lm_rel(d, f) for d, f in zip(dec_bf16, fwd_bf16)]
+    fwd_err = [lm_rel(f, r) for f, r in zip(fwd_bf16, ref)]
+    dec_err = [lm_rel(d, r) for d, r in zip(dec_bf16, ref)]
+    del fwd, outs, ref
+    model.drop_casts()
+    out.update(decode_f32_ratios=ratios32, decode_bf16_ratios=ratios,
+               bf16_forward_vs_f32=fwd_err, bf16_decode_vs_f32=dec_err)
+    check(max(ratios32) < 5e-3, f"lm (b) {label}: float32 decode within "
+          f"5e-3 of the forward pass at steps 0 and last (got {ratios32})")
+    check(all(d <= BF16_DRIFT * f for d, f in zip(dec_err, fwd_err)),
+          f"lm (b) {label}: bf16 decode within {BF16_DRIFT} x the bf16 "
+          f"forward pass's distance from the float32 forward (decode "
+          f"{dec_err}, forward {fwd_err})")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"lm (b) {label}: {out['params']:,} params ({out['active_params']:,}"
+        f" active), {cfg.param_dtype} weights; decode vs forward at steps "
+        f"0 and {steps - 1}: float32 {ratios32[0]:.3e}, {ratios32[1]:.3e} "
+        f"(bound 5e-3); bf16 {ratios[0]:.3e}, {ratios[1]:.3e} (not gated); "
+        f"against the float32 forward: bf16 decode "
+        f"{dec_err[0]:.3e}, {dec_err[1]:.3e}, bf16 forward {fwd_err[0]:.3e}"
+        f", {fwd_err[1]:.3e} (bound: decode <= {BF16_DRIFT} x forward)  "
+        f"[{smi}]")
+    log(f"lm (d) {label}: prefill {B}x{S} {prefill_ms:.3f} ms "
+        f"({out['prefill_tok_s']:.0f} tok/s; FLOP bound "
+        f"{out['prefill_bound_ms']:.3f} ms = 2 x active params x tokens / "
+        f"989 TFLOP/s); decode step median {out['decode_step_ms']:.3f} ms "
+        f"(first {step_ms[0]:.3f}; byte bound {out['decode_bound_ms']:.3f} "
+        f"ms = {weight_bytes:,} weight bytes / 3.35 TB/s); peak memory "
+        f"{out['peak_bytes_bf16'] / 2**30:.2f} GiB bf16, "
+        f"{out['peak_bytes_f32_witness'] / 2**30:.2f} GiB float32 witness; "
+        f"{out['wall_s']:.1f} s  [{smi}]")
+    if cfg.n_experts:
+        log(f"lm (d) {label}: the step's tokens route to "
+            f"{prof['routed_experts']} distinct experts a layer: byte bound "
+            f"{out['decode_routed_bound_ms']:.3f} ms = "
+            f"{out['decode_routed_weight_bytes']:,} bytes of the routed "
+            f"experts' and the other weights / 3.35 TB/s  [{smi}]")
+    log(f"lm (d) {label}: one decode step profiled: {prof['kernels']} "
+        f"kernels, {prof['device_events']} device events, device time "
+        f"{prof['device_ms']:.3f} ms of the {out['decode_step_ms']:.3f} ms "
+        f"median step, host share {prof['host_share']:.3f}; most device "
+        f"time: {prof['top_kernels_ms']}  [{smi}]")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_cli(smi: str) -> dict:
+    """(c): ``launch.serve --mode lm`` as a subprocess on the card."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          "--mode", "lm", "--arch", "qwen3-14b",
+                          "--prompt-len", "16", "--gen", "8"],
+                         env=env, cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    wall = time.perf_counter() - t0
+    log(f"lm (c) serve --mode lm: exit {res.returncode}; last lines:\n"
+        + "\n".join((res.stdout + res.stderr).splitlines()[-4:]))
+    check(res.returncode == 0 and "[serve] prefill 4x16" in res.stdout
+          and "[serve] decoded 7 steps x 4 seqs (greedy)" in res.stdout
+          and "on cuda" in res.stdout,
+          "lm (c): launch.serve --mode lm exits 0 with its prefill and "
+          "decode lines, on the card")
+    log(f"lm (c): {wall:.1f} s  [{smi}]")
+    return {"cli_s": wall}
+
+
+def lm_path(seed: int, dev, smi: str) -> dict:
+    """Phase 9, with TF32 off for the parity gates."""
+    t_phase = time.perf_counter()
+    mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    flags = (mm.allow_tf32, cudnn.allow_tf32)
+    mm.allow_tf32 = cudnn.allow_tf32 = False
+    try:
+        out = lm_smoke_parity(seed, dev, smi)
+        out["full"] = [lm_full_width(arch, n, B, S, steps, seed, dev, smi)
+                       for arch, n, B, S, steps in LM_FULL]
+        out.update(lm_cli(smi))
+    finally:
+        mm.allow_tf32, cudnn.allow_tf32 = flags
+    out["card"] = smi
+    log("lm summary " + json.dumps(out))
+    log(f"lm phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--records", type=int, default=10_000_000)
@@ -3476,8 +3842,10 @@ def main(argv=None) -> int:
     stream = streaming_path(paths, dev, smi)
     # phase 8: the distributed trainer and the launch drivers
     dist = distributed_path(paths, dev, smi)
-    del paths, data, mc_data, iot_data
+    del paths, data, mc_data, iot_data, higgs_raw, mc_raw, iot_raw
     torch.cuda.empty_cache()
+    # phase 9: the LM substrate's serving path (no kernel of the table)
+    lm_path(args.seed, dev, smi)
     for row, key, counter in (
             ("histogram", "higgs", "histogram"),
             ("partition", "higgs", "partition"),

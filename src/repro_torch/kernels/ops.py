@@ -25,6 +25,9 @@ sum: the GPU privatization of paper §II-D), ``"sort"`` (sort by key, then
 a segment sum per field) and ``"onehot"`` (blocked one-hot contraction).
 Each takes a class axis by a loop over the classes, as ``repro`` vmaps.
 Batch inference also takes ``"scan"``, the one-tree-at-a-time baseline.
+
+:func:`onehot_matmul` is ``repro``'s generic one-hot contraction (a jnp
+product there, not a Pallas kernel), as plain PyTorch.
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ from repro_torch.kernels.ref import TreeArrays
 __all__ = ["pack_codes", "unpack_codes", "build_histogram",
            "accumulate_histogram", "partition_level", "partition_level_cm",
            "traverse_tree", "traverse_forest", "predict_ensemble",
-           "degradation_stats", "reset_degradation_stats"]
+           "onehot_matmul", "degradation_stats", "reset_degradation_stats"]
 
 
 def degradation_stats() -> dict:
@@ -249,3 +252,17 @@ def predict_ensemble(trees: TreeArrays, codes, *, missing_bin: int,
     return _trav_k.predict_ensemble_cuda(trees, codes,
                                          missing_bin=missing_bin,
                                          n_classes=n_classes, out=out)
+
+
+def onehot_matmul(idx: torch.Tensor, values: torch.Tensor,
+                  width: int) -> torch.Tensor:
+    """out[j] = sum_{i : idx[i] == j} values[i] as a dense one-hot product
+    accumulated in float32.
+
+    idx: (n,) int; values: (n, ...) -> (width, ...) float32.  An index
+    outside [0, width) selects no row, as ``jax.nn.one_hot`` gives it a
+    zero row."""
+    oh = idx[:, None] == torch.arange(width, device=idx.device)
+    flat = values.reshape(values.shape[0], -1)
+    out = oh.float().T @ flat.float()
+    return out.reshape((width,) + tuple(values.shape[1:]))

@@ -11,9 +11,18 @@ flush bucket the request mix can reach, then drives a mixed multi-model
 load of ragged request sizes through :meth:`Server.submit`, republishing
 tenant 0 at a new version half way through.  A warm server must show zero
 predict-cache captures after warm-up and zero silent drops across the
-swap; the driver prints both verdicts (``OK`` or not).  ``--mode lm``
-belongs to the LM substrate, which is not ported (ROADMAP Queue 1 item
-10).
+swap; the driver prints both verdicts (``OK`` or not).
+
+``--mode lm --arch <id>`` serves the architecture's smoke config of the LM
+substrate (:mod:`repro_torch.models.lm`) from random weights (seed 0):
+one prefill of ``--batch`` random prompts of ``--prompt-len`` tokens
+(:func:`lm_batch`), then ``--gen - 1`` single-token decode steps against
+the (ring-buffered where a sliding window bounds them) KV/SSM caches,
+greedy or, with ``--no-greedy``, sampled at ``--temperature`` from an
+explicit generator on the device, seeded with ``--seed``.
+
+    python -m repro_torch.launch.serve --mode lm --arch mixtral-8x22b \
+        --batch 4 --prompt-len 32 --gen 32 [--device cpu]
 """
 from __future__ import annotations
 
@@ -167,7 +176,85 @@ def run_gbdt(args) -> bool:
     return no_retrace and no_drop
 
 
+def lm_batch(cfg, batch: int, prompt_len: int, seed: int, device) -> dict:
+    """Random prompts for ``cfg`` on ``device``, drawn from numpy's
+    generator at ``seed``: tokens (B, S) int64 below ``cfg.vocab``, with
+    the frontends' stub inputs where the family has them: M-RoPE
+    positions (3, B, S), four patch embeddings (B, 4, d) for a VLM, the
+    audio frames (B, frontend_len, d) for an encoder-decoder."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    B, S = batch, prompt_len
+    out = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))}
+    if cfg.mrope:
+        out["positions"] = torch.arange(S)[None, None].expand(3, B, S)
+    if cfg.family == "vlm":
+        out["patch_embeds"] = torch.from_numpy(
+            rng.normal(size=(B, 4, cfg.d_model)).astype(np.float32))
+    if cfg.family == "encdec":
+        out["audio_embeds"] = torch.from_numpy(rng.normal(
+            size=(B, cfg.frontend_len, cfg.d_model)).astype(np.float32))
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def run_lm(args) -> None:
+    """Prefill, then ``--gen - 1`` decode steps; prints the prefill and
+    decode lines of ``repro``'s driver."""
+    import torch
+
+    from repro_torch.api.plan import resolve_device
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import lm
+
+    dev = resolve_device(args.device)
+    cfg = get_smoke(args.arch)
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    B, S = args.batch, args.prompt_len
+    batch = lm_batch(cfg, B, S, 0, dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(cfg, params, batch, max_len=S + args.gen,
+                               cache_dtype=torch.float32)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    print(f"[serve] prefill {B}x{S}: {t_prefill*1e3:.1f} ms "
+          f"({B*S/t_prefill:.0f} tok/s)")
+
+    gen = torch.Generator(dev).manual_seed(args.seed)
+
+    def pick(logits):
+        """Greedy argmax, or temperature sampling with --no-greedy."""
+        if args.greedy:
+            return logits.argmax(-1)[:, None]
+        probs = torch.softmax(logits / max(args.temperature, 1e-6), -1)
+        return torch.multinomial(probs, 1, generator=gen)
+
+    tok = pick(logits)
+    out_tokens = [tok]
+    t0 = time.perf_counter()
+    for i in range(args.gen - 1):
+        logits, cache = lm.decode_step(cfg, params, cache, tok, S + i)
+        tok = pick(logits)
+        out_tokens.append(tok)
+    sync()
+    t_dec = time.perf_counter() - t0
+    generated = torch.cat(out_tokens, dim=1).cpu().numpy()
+    mode = ("greedy" if args.greedy
+            else f"sampled@T={args.temperature:g}")
+    print(f"[serve] decoded {args.gen - 1} steps x {B} seqs ({mode}): "
+          f"{t_dec*1e3:.1f} ms ({B*(args.gen-1)/max(t_dec, 1e-9):.0f} "
+          f"tok/s) on {args.device}")
+    print(f"[serve] first sequence: {generated[0][:16].tolist()} ...")
+
+
 def main(argv=None) -> None:
+    from repro_torch.configs import ARCH_IDS
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--mode", default="gbdt", choices=["gbdt", "lm"])
     ap.add_argument("--device", default="cuda",
@@ -188,14 +275,26 @@ def main(argv=None) -> None:
                     help="per-request deadline slack (queue-wait budget)")
     ap.add_argument("--log-every-s", type=float, default=None,
                     help="daemon stats log-line cadence (default: silent)")
-    ap.add_argument("--batch", type=int, default=4096,
-                    help="records of the largest request")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="records of the largest request (gbdt, default "
+                         "4096) or sequences (lm, default 4)")
+    # lm serving
+    ap.add_argument("--arch", default="qwen3-14b", choices=ARCH_IDS)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--greedy", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="argmax decoding; --no-greedy samples at "
+                         "--temperature")
+    ap.add_argument("--temperature", type=float, default=1.0)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the sampling generator's seed")
     args = ap.parse_args(argv)
+    if args.batch is None:
+        args.batch = 4096 if args.mode == "gbdt" else 4
     if args.mode == "lm":
-        raise NotImplementedError(
-            "--mode lm needs the LM substrate, which is not ported "
-            "(ROADMAP Queue 1 item 10)")
-    if not run_gbdt(args):
+        run_lm(args)
+    elif not run_gbdt(args):
         raise SystemExit(1)
 
 

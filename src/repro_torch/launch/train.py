@@ -15,8 +15,8 @@ shards and trains out-of-core from them through a ``RetryingSource``.
 SIGTERM or SIGINT finish the round in flight, commit a checkpoint and
 exit with code 75 (EX_TEMPFAIL); ``--resume`` then grows the remaining
 trees, the same ensemble as an uninterrupted run.  The last line of a
-run's output is its loss history as JSON.  ``--mode lm`` belongs to the
-LM substrate, which is not ported (ROADMAP Queue 1 item 10).
+run's output is its loss history as JSON.  ``--mode lm`` is LM training,
+which is not ported (ROADMAP Queue 1 item 10b).
 """
 from __future__ import annotations
 
@@ -145,8 +145,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.mode == "lm":
         raise NotImplementedError(
-            "--mode lm needs the LM substrate, which is not ported "
-            "(ROADMAP Queue 1 item 10)")
+            "--mode lm needs LM training, which is not ported "
+            "(ROADMAP Queue 1 item 10b)")
     run_gbdt(args)
 
 

@@ -1,0 +1,562 @@
+"""Unified LM substrate covering all ten assigned architectures: the
+serving half of :mod:`repro.models.lm` (parameters, the forward pass,
+caches, prefill and decode), as plain PyTorch.
+
+One parameter schema and one forward pass handle the dense, MoE, SSM,
+hybrid, encoder-decoder and VLM families, driven by ``ArchConfig``.  The
+weights live in an :class:`LM` module: one :class:`Block` per layer, in
+layer order, over :class:`Attention`, :class:`MLP`, :class:`MoE` and
+:class:`Mamba2Mixer` modules whose parameter names and layouts are
+``repro``'s (a projection is ``(d_in, d_out)``).  ``repro`` stacks the
+blocks of each position of the layer pattern on a group axis and scans
+over the groups; here a Python loop walks the layers, and
+:func:`params_from_jax` carries ``repro``'s stacked pytree across.
+``repro``'s function names stay as thin functions over the module
+(``init_params``, ``forward_train``, ``prefill``, ``decode_step``, ...),
+which take the config first and the module as ``params``.
+
+Three execution modes share the block code: train (the forward pass, no
+cache), prefill (fills the KV/SSM caches) and decode (one token against
+the caches, updated in place).  Block weights are cast to the compute
+dtype once, at their first use in that dtype, and kept (``repro`` casts
+at every use, which gives the same bits); the SSM decay scalars and the
+router stay float32.  ``.to()`` or :meth:`LM.drop_casts` drops the copies.
+
+Training (``loss_fn``, the optimiser, remat) and the sharding rules
+(``partition_specs``, ``param_shardings``, ``cache_specs``) are not
+ported here.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.api.plan import resolve_device
+from repro_torch.configs.registry import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models.mamba import mamba2_mixer
+from repro_torch.models.moe import moe_ffn
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_KEEP_F32 = ("A_log", "D", "dt_bias", "router")
+
+
+def _dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def mrope_sections(cfg: ArchConfig) -> Tuple[int, int, int]:
+    d2 = cfg.head_dim // 2
+    hw = int(round(d2 * 3 / 8))
+    return (d2 - 2 * hw, hw, hw)       # (16, 24, 24) at head_dim=128
+
+
+# ==========================================================================
+# parameters
+# ==========================================================================
+class _Params(nn.Module):
+    """A module of named parameters, each with its initializer: ``("normal",
+    scale)`` (``scale`` times a float32 standard normal, cast to the
+    parameter's dtype, as ``repro``'s ``_init``) or ``("fill", value)``."""
+
+    def __init__(self, device):
+        super().__init__()
+        self._device = device
+        self._inits: Dict[str, tuple] = {}
+
+    def _add(self, name: str, shape, dtype, init) -> None:
+        self.register_parameter(name, nn.Parameter(
+            torch.empty(shape, dtype=dtype, device=self._device)))
+        self._inits[name] = init
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for name, (kind, value) in self._inits.items():
+            p = getattr(self, name)
+            if kind == "fill":
+                p.fill_(value)
+            else:
+                p.copy_(value * torch.randn(p.shape, generator=generator,
+                                            device=generator.device))
+
+
+class Attention(_Params):
+    def __init__(self, cfg: ArchConfig, dt, device, *, cross: bool = False):
+        super().__init__(device)
+        d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        normal = ("normal", 0.02)
+        self._add("wq", (d, h * hd), dt, normal)
+        self._add("wk", (d, kv * hd), dt, normal)
+        self._add("wv", (d, kv * hd), dt, normal)
+        self._add("wo", (h * hd, d), dt, normal)
+        if cfg.attn_bias:
+            self._add("bq", (h * hd,), dt, ("fill", 0.0))
+            self._add("bk", (kv * hd,), dt, ("fill", 0.0))
+            self._add("bv", (kv * hd,), dt, ("fill", 0.0))
+        if cfg.qk_norm and not cross:
+            self._add("q_norm", (hd,), dt, ("fill", 1.0))
+            self._add("k_norm", (hd,), dt, ("fill", 1.0))
+
+
+class MLP(_Params):
+    def __init__(self, cfg: ArchConfig, dt, device):
+        super().__init__(device)
+        d, f = cfg.d_model, cfg.d_ff
+        self._add("w_in", (d, f), dt, ("normal", 0.02))
+        self._add("w_out", (f, d), dt, ("normal", 0.02))
+        if cfg.act == "silu":
+            self._add("w_gate", (d, f), dt, ("normal", 0.02))
+
+
+class MoE(_Params):
+    def __init__(self, cfg: ArchConfig, dt, device):
+        super().__init__(device)
+        d, e = cfg.d_model, cfg.n_experts
+        f = cfg.moe_d_ff or cfg.d_ff
+        normal = ("normal", 0.02)
+        self._add("router", (d, e), torch.float32, normal)
+        self._add("w_in", (e, d, f), dt, normal)
+        self._add("w_gate", (e, d, f), dt, normal)
+        self._add("w_out", (e, f, d), dt, normal)
+        if cfg.shared_expert:
+            self._add("shared_w_in", (d, cfg.d_ff), dt, normal)
+            self._add("shared_w_gate", (d, cfg.d_ff), dt, normal)
+            self._add("shared_w_out", (cfg.d_ff, d), dt, normal)
+
+
+class Mamba2Mixer(_Params):
+    def __init__(self, cfg: ArchConfig, dt, device):
+        super().__init__(device)
+        d, di = cfg.d_model, cfg.d_inner
+        h, n, k = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_conv
+        f32 = torch.float32
+        self._add("in_proj", (d, 2 * di + 2 * n + h), dt, ("normal", 0.02))
+        self._add("conv_w", (k, di + 2 * n), dt, ("normal", 0.1))
+        self._add("A_log", (h,), f32, ("fill", 0.0))
+        self._add("D", (h,), f32, ("fill", 1.0))
+        self._add("dt_bias", (h,), f32, ("fill", -2.0))
+        self._add("gate_norm", (di,), dt, ("fill", 1.0))
+        self._add("out_proj", (di, d), dt, ("normal", 0.02))
+
+
+class Block(_Params):
+    """One layer: ``ln1`` + mixer (attention or Mamba-2), the decoder's
+    cross-attention (``lnx`` + ``xattn``) in encoder-decoder models, then
+    ``ln2`` + feed-forward (MLP or MoE) unless the stack is mixer-only."""
+
+    def __init__(self, cfg: ArchConfig, kind: Tuple[str, str], dt, device,
+                 *, decoder_cross: bool):
+        super().__init__(device)
+        mixer, ffn = kind
+        d = cfg.d_model
+        self._add("ln1", (d,), dt, ("fill", 1.0))
+        self.mixer = (Attention(cfg, dt, device) if mixer == "attn"
+                      else Mamba2Mixer(cfg, dt, device))
+        if decoder_cross and mixer == "attn":
+            self._add("lnx", (d,), dt, ("fill", 1.0))
+            self.xattn = Attention(cfg, dt, device, cross=True)
+        if ffn != "none":
+            self._add("ln2", (d,), dt, ("fill", 1.0))
+            self.ffn = (MLP(cfg, dt, device) if ffn == "mlp"
+                        else MoE(cfg, dt, device))
+
+
+class LM(_Params):
+    """The weights of one architecture: ``embed`` (vocab_padded, d),
+    ``final_norm``, ``blocks`` in layer order and, for encoder-decoder
+    models, ``enc_blocks`` and ``enc_norm``."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__(device)
+        dt = _dtype(cfg.param_dtype)
+        self._add("embed", (cfg.vocab_padded, cfg.d_model), dt,
+                  ("normal", 0.02))
+        self._add("final_norm", (cfg.d_model,), dt, ("fill", 1.0))
+        self.blocks = nn.ModuleList(
+            Block(cfg, kind, dt, device,
+                  decoder_cross=cfg.family == "encdec")
+            for kind in cfg.layer_kinds())
+        if cfg.family == "encdec":
+            self.enc_blocks = nn.ModuleList(
+                Block(cfg, ("attn", "mlp"), dt, device, decoder_cross=False)
+                for _ in range(cfg.encoder_layers))
+            self._add("enc_norm", (cfg.d_model,), dt, ("fill", 1.0))
+        self._casts: Dict[torch.dtype, tuple] = {}
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.drop_casts()
+        for m in self.modules():
+            if isinstance(m, _Params):
+                _Params.reset_parameters(m, generator)
+
+    def casts(self, cdt: torch.dtype):
+        """(decoder block weights, encoder block weights, embedding table)
+        in ``cdt``, cast at the first call for ``cdt`` and kept."""
+        if cdt not in self._casts:
+            enc = getattr(self, "enc_blocks", [])
+            self._casts[cdt] = ([_cast_block(b, cdt) for b in self.blocks],
+                                [_cast_block(b, cdt) for b in enc],
+                                self.embed.to(cdt))
+        return self._casts[cdt]
+
+    def drop_casts(self) -> None:
+        self._casts.clear()
+
+    def _apply(self, fn, *args, **kwargs):
+        self.drop_casts()
+        return super()._apply(fn, *args, **kwargs)
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                device=None) -> LM:
+    """Random weights for ``cfg`` on ``device`` (CUDA unless named; raises
+    without a card): built on ``meta``, given storage on the device, then
+    drawn from ``generator`` in module order, on the generator's own
+    device and copied over (a CPU generator gives the card and the CPU
+    the same weights)."""
+    model = LM(cfg, device="meta").to_empty(device=resolve_device(device))
+    model.reset_parameters(generator)
+    return model
+
+
+def param_count(cfg: ArchConfig) -> int:
+    """Parameters of ``cfg``, counted on ``meta`` (nothing is allocated)."""
+    return sum(p.numel() for p in LM(cfg, device="meta").parameters())
+
+
+def active_param_count(cfg: ArchConfig) -> int:
+    """MoE-aware active parameters (top_k / n_experts of expert weights),
+    by ``repro``'s rule: a ``w_*`` weight of a MoE config whose leaf in
+    ``repro``'s stacked pytree (group axis included) has rank >= 3 is
+    scaled, which takes in a dense MLP's weights of an interleaved MoE
+    stack too."""
+    total = 0
+    for name, p in LM(cfg, device="meta").named_parameters():
+        n = p.numel()
+        stacked = name.startswith(("blocks.", "enc_blocks."))
+        if (cfg.n_experts and p.dim() + stacked >= 3
+                and name.rsplit(".", 1)[-1].startswith("w_")):
+            n = n * cfg.top_k // cfg.n_experts
+        total += n
+    return total
+
+
+def _to_tensor(a) -> torch.Tensor:
+    a = np.array(a)                          # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":           # ml_dtypes' bfloat16
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+@torch.no_grad()
+def params_from_jax(cfg: ArchConfig, tree, device=None) -> LM:
+    """The port's :class:`LM` holding ``repro``'s parameters.
+
+    ``tree`` is ``repro.models.lm.init_params``' pytree with numpy leaves:
+    ``blocks[j]`` stacks the blocks of pattern position j on a leading
+    group axis, so layer i is ``blocks[i % period][..][i // period]``, and
+    encoder layer i is ``enc_blocks[0][..][i]``.  The module lies on
+    ``device``: CUDA unless named, and without a card this raises."""
+    model = LM(cfg, device="meta").to_empty(device=resolve_device(device))
+    period = cfg.scan_period()
+
+    def put(p, leaf, idx=None):
+        leaf = np.asarray(leaf) if idx is None else np.asarray(leaf)[idx]
+        if tuple(leaf.shape) != tuple(p.shape):
+            raise ValueError(f"shape {leaf.shape} for a parameter of "
+                             f"{tuple(p.shape)}")
+        p.copy_(_to_tensor(leaf))
+
+    def walk(tree_, name):
+        for part in name.split("."):
+            tree_ = tree_[part]
+        return tree_
+
+    own = list(model._parameters)
+    stacks = [("blocks", model.blocks, lambda i: (i % period, i // period))]
+    if cfg.family == "encdec":
+        stacks.append(("enc_blocks", model.enc_blocks, lambda i: (0, i)))
+    if set(tree) != set(own) | {key for key, _, _ in stacks}:
+        raise ValueError(f"pytree keys {sorted(tree)} do not match {cfg.name}")
+    for name in own:
+        put(getattr(model, name), tree[name])
+    for key, blocks, where in stacks:
+        for i, block in enumerate(blocks):
+            j, g = where(i)
+            named = list(block.named_parameters())
+            if len(named) != len(list(_leaves(tree[key][j]))):
+                raise ValueError(f"{key}[{j}] holds other leaves than "
+                                 f"layer {i} of {cfg.name}")
+            for name, p in named:
+                put(p, walk(tree[key][j], name), g)
+    return model
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# ==========================================================================
+# forward
+# ==========================================================================
+def _rope(cfg: ArchConfig, positions, mrope_pos=None):
+    if not cfg.rope:
+        return None
+    if cfg.mrope:
+        return L.mrope_cos_sin(mrope_pos, mrope_sections(cfg), cfg.head_dim,
+                               cfg.rope_theta)
+    return L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def _cast_block(block: _Params, cdt: torch.dtype) -> Dict[str, Any]:
+    """A block's weights in the compute dtype, its children's as nested
+    dicts; SSM decay scalars and the router stay float32.
+    (:meth:`LM.casts` keeps these per dtype.)"""
+    out: Dict[str, Any] = {
+        n: (p if n in _KEEP_F32 or not p.is_floating_point() else p.to(cdt))
+        for n, p in block._parameters.items()}
+    for n, m in block.named_children():
+        out[n] = _cast_block(m, cdt)
+    return out
+
+
+def _apply_block(cfg: ArchConfig, kind, bp, x, cos_sin, mode, cache=None,
+                 pos=None, enc=None, causal: bool = True):
+    """One layer on ``x``; ``bp`` is the block's weights in the compute
+    dtype.  Returns (x, the layer's new cache, the MoE aux loss)."""
+    mixer, ffn = kind
+    new_cache: Dict[str, Any] = {}
+    h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+    akw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+               head_dim=cfg.head_dim, qk_norm=cfg.qk_norm,
+               norm_eps=cfg.norm_eps)
+    if mixer == "attn":
+        if mode == "train":
+            out = L.attn_train(bp["mixer"], h, causal=causal,
+                               cos_sin=cos_sin,
+                               sliding_window=cfg.sliding_window,
+                               attn_chunk=cfg.attn_chunk, **akw)
+        elif mode == "prefill":
+            out, new_cache["self"] = L.attn_prefill(
+                bp["mixer"], h, cache["self"], cos_sin=cos_sin,
+                sliding_window=cfg.sliding_window,
+                attn_chunk=cfg.attn_chunk, **akw)
+        else:
+            out, new_cache["self"] = L.attn_decode(
+                bp["mixer"], h, cache["self"], pos, cos_sin=cos_sin, **akw)
+        x = x + out.to(x.dtype)
+        if "xattn" in bp:
+            hx = L.rms_norm(x, bp["lnx"], cfg.norm_eps)
+            if mode == "decode":
+                out = L.xattn_decode(bp["xattn"], hx, cache["cross"],
+                                     n_heads=cfg.n_heads,
+                                     n_kv_heads=cfg.n_kv_heads,
+                                     head_dim=cfg.head_dim)
+                new_cache["cross"] = cache["cross"]
+            else:
+                out = L.attn_train(bp["xattn"], hx, causal=False,
+                                   cos_sin=None, x_kv=enc, **akw)
+                if mode == "prefill":
+                    new_cache["cross"] = L.xattn_make_cache(
+                        bp["xattn"], enc, n_kv_heads=cfg.n_kv_heads,
+                        head_dim=cfg.head_dim,
+                        dtype=cache["cross"]["k"].dtype)
+            x = x + out.to(x.dtype)
+    else:  # mamba
+        mkw = dict(n_heads=cfg.ssm_heads, head_dim=cfg.ssm_head_dim,
+                   ssm_state=cfg.ssm_state, chunk=cfg.ssm_chunk,
+                   norm_eps=cfg.norm_eps)
+        if mode == "train":
+            out, _ = mamba2_mixer(bp["mixer"], h, **mkw)
+        elif mode == "prefill":
+            out, new_cache = mamba2_mixer(bp["mixer"], h, return_cache=True,
+                                          **mkw)
+        else:
+            out, new_cache = mamba2_mixer(bp["mixer"], h, cache=cache, **mkw)
+        x = x + out.to(x.dtype)
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ffn != "none":
+        h2 = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+        if ffn == "mlp":
+            out = L.mlp(bp["ffn"], h2, act=cfg.act)
+        elif cfg.moe_aux_weight and mode == "train":
+            out, aux = moe_ffn(bp["ffn"], h2, n_experts=cfg.n_experts,
+                               top_k=cfg.top_k, act=cfg.act,
+                               capacity_factor=cfg.moe_capacity_factor,
+                               return_aux=True)
+        else:
+            out = moe_ffn(bp["ffn"], h2, n_experts=cfg.n_experts,
+                          top_k=cfg.top_k, act=cfg.act,
+                          capacity_factor=cfg.moe_capacity_factor)
+        x = x + out.to(x.dtype)
+    return x, new_cache, aux
+
+
+def _run_stack(cfg: ArchConfig, blocks: List[Dict], x, *, kinds, mode,
+               cos_sin=None, caches=None, pos=None, enc=None,
+               causal: bool = True):
+    """The layers in order (``repro`` scans over layer groups).  Returns
+    (x, the new caches or None, the summed MoE aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_caches = []
+    for i, bp in enumerate(blocks):
+        x, nc, a = _apply_block(cfg, kinds[i], bp, x, cos_sin, mode,
+                                cache=None if caches is None else caches[i],
+                                pos=pos, enc=enc, causal=causal)
+        new_caches.append(nc)
+        aux = aux + a
+    return x, (new_caches if caches is not None else None), aux
+
+
+def _encode(cfg: ArchConfig, params: LM, audio_embeds):
+    cdt = _dtype(cfg.compute_dtype)
+    _, enc_blocks, _ = params.casts(cdt)
+    enc = audio_embeds.to(cdt)
+    enc = enc + L.sinusoidal_positions(enc.shape[1], cfg.d_model,
+                                       device=enc.device).to(cdt)[None]
+    enc, _, _ = _run_stack(cfg, enc_blocks, enc,
+                           kinds=[("attn", "mlp")] * len(enc_blocks),
+                           mode="train", causal=False)
+    return L.rms_norm(enc, params.enc_norm, cfg.norm_eps)
+
+
+def _embed_tokens(cfg: ArchConfig, params: LM, tokens, batch):
+    """Take, then cast: the same bits as ``repro``'s cast-then-take, one
+    vocab-th of the reading."""
+    cdt = _dtype(cfg.compute_dtype)
+    x = params.embed[tokens].to(cdt)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"]
+        x[:, :pe.shape[1]] = pe.to(cdt)
+    return x
+
+
+def _logits(cfg: ArchConfig, params: LM, x):
+    _, _, embed = params.casts(_dtype(cfg.compute_dtype))
+    return x @ embed.T
+
+
+@torch.no_grad()
+def forward_hidden(cfg: ArchConfig, params: LM, batch):
+    """Forward pass up to the final norm.
+
+    Returns ((B, S, d) hidden states, moe aux loss scalar)."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    blocks, _, _ = params.casts(_dtype(cfg.compute_dtype))
+    x = _embed_tokens(cfg, params, tokens, batch)
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    cos_sin = _rope(cfg, positions, batch.get("positions"))
+    enc = (_encode(cfg, params, batch["audio_embeds"])
+           if cfg.family == "encdec" else None)
+    x, _, aux = _run_stack(cfg, blocks, x, kinds=cfg.layer_kinds(),
+                           mode="train", cos_sin=cos_sin, enc=enc)
+    return L.rms_norm(x, params.final_norm, cfg.norm_eps), aux
+
+
+@torch.no_grad()
+def forward_train(cfg: ArchConfig, params: LM, batch):
+    """batch: tokens (B,S), optional positions (3,B,S) for M-RoPE,
+    patch_embeds (B,P,d) for VLM, audio_embeds (B,F,d) for encdec.
+    Returns logits (B, S, vocab_padded) in compute dtype."""
+    x, _ = forward_hidden(cfg, params, batch)
+    return _logits(cfg, params, x)
+
+
+# ==========================================================================
+# serving (prefill + decode)
+# ==========================================================================
+def cache_len(cfg: ArchConfig, max_len: int) -> int:
+    return min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> List[Dict]:
+    """Zeroed caches, one dict a layer: attention {"self": {"k","v"}
+    (B, W, KV, D)} (+ "cross" (B, F, KV, D) in encoder-decoder models),
+    Mamba-2 {"conv": (B, K-1, di+2N), "ssm": (B, H, P, N) float32}, on
+    ``device`` (CUDA unless named)."""
+    device = resolve_device(device)
+    w = cache_len(cfg, max_len)
+    caches = []
+    for mixer, _ in cfg.layer_kinds():
+        if mixer == "attn":
+            kv = (batch, w, cfg.n_kv_heads, cfg.head_dim)
+            c = {"self": {"k": torch.zeros(kv, dtype=dtype, device=device),
+                          "v": torch.zeros(kv, dtype=dtype, device=device)}}
+            if cfg.family == "encdec":
+                xs = (batch, cfg.frontend_len, cfg.n_kv_heads, cfg.head_dim)
+                c["cross"] = {
+                    "k": torch.zeros(xs, dtype=dtype, device=device),
+                    "v": torch.zeros(xs, dtype=dtype, device=device)}
+        else:
+            c = {"conv": torch.zeros((batch, cfg.ssm_conv - 1,
+                                      cfg.d_inner + 2 * cfg.ssm_state),
+                                     dtype=dtype, device=device),
+                 "ssm": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                                     cfg.ssm_state), dtype=torch.float32,
+                                    device=device)}
+        caches.append(c)
+    return caches
+
+
+@torch.no_grad()
+def prefill(cfg: ArchConfig, params: LM, batch, *,
+            cache_dtype=torch.bfloat16, max_len: Optional[int] = None):
+    """Full-prefix forward + cache fill.  Returns (last logits (B,
+    vocab_padded) float32, caches).
+
+    ``max_len`` sizes the cache (prefix + generation headroom); without a
+    sliding window the ring must never wrap, so callers decoding beyond the
+    prefix must pass prefix + max_new_tokens here."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    blocks, _, _ = params.casts(_dtype(cfg.compute_dtype))
+    x = _embed_tokens(cfg, params, tokens, batch)
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    cos_sin = _rope(cfg, positions, batch.get("positions"))
+    enc = (_encode(cfg, params, batch["audio_embeds"])
+           if cfg.family == "encdec" else None)
+    caches = init_cache(cfg, b, max_len or s, cache_dtype, device=x.device)
+    x, caches, _ = _run_stack(cfg, blocks, x, kinds=cfg.layer_kinds(),
+                              mode="prefill", cos_sin=cos_sin,
+                              caches=caches, enc=enc)
+    x = L.rms_norm(x[:, -1:], params.final_norm, cfg.norm_eps)
+    return _logits(cfg, params, x)[:, 0].float(), caches
+
+
+@torch.no_grad()
+def decode_step(cfg: ArchConfig, params: LM, caches, token, pos,
+                mrope_pos=None):
+    """One decode step.  token (B,1) int; pos the token's absolute
+    position, an int or a 0-d integer tensor on the model's device.  The
+    position stays on the device (the ring slot and the validity mask are
+    computed there), so the host never reads it back and a step can be
+    replayed with ``pos`` updated in place.  Updates ``caches`` in place;
+    returns (logits (B, vocab_padded) float32, caches)."""
+    b = token.shape[0]
+    blocks, _, _ = params.casts(_dtype(cfg.compute_dtype))
+    x = params.embed[token].to(_dtype(cfg.compute_dtype))
+    if not torch.is_tensor(pos):       # a fill on the device, no copy
+        pos = torch.full((), pos, dtype=torch.long, device=x.device)
+    positions = pos.expand(b, 1)
+    if cfg.mrope and mrope_pos is None:
+        mrope_pos = pos.expand(3, b, 1)
+    cos_sin = _rope(cfg, positions, mrope_pos)
+    x, caches, _ = _run_stack(cfg, blocks, x, kinds=cfg.layer_kinds(),
+                              mode="decode", cos_sin=cos_sin, caches=caches,
+                              pos=pos)
+    x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
+    return _logits(cfg, params, x)[:, 0].float(), caches

@@ -57,7 +57,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.distributed.sharding, "
             "repro_torch.distributed.elastic, "
             "repro_torch.distributed.fault, "
-            "repro_torch.distributed.trainer; "
+            "repro_torch.distributed.trainer, repro_torch.configs, "
+            "repro_torch.models, repro_torch.models.lm, "
+            "repro_torch.models.layers, repro_torch.models.moe, "
+            "repro_torch.models.mamba; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -117,9 +117,39 @@ def test_train_cli_more_shards_than_cuda_devices_refused(tmp_path):
 
 
 @pytest.mark.parametrize("cli", [train, serve], ids=["train", "serve"])
-def test_lm_mode_names_its_roadmap_item(cli):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        cli.main(["--mode", "lm"])
+def test_lm_mode_names_its_roadmap_item(cli, capsys):
+    """``train --mode lm`` refuses, naming ROADMAP Queue 1 item 10b (LM
+    training); ``serve --mode lm`` (item 10a, ported) serves the default
+    arch and prints its prefill and decode lines."""
+    if cli is train:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10b"):
+            cli.main(["--mode", "lm"])
+        return
+    cli.main(["--mode", "lm", "--device", "cpu", "--prompt-len", "16",
+              "--gen", "8"])
+    out = capsys.readouterr().out
+    assert "[serve] prefill 4x16: " in out
+    assert "[serve] decoded 7 steps x 4 seqs (greedy): " in out
+
+
+@pytest.mark.parametrize("arch,extra", [
+    ("qwen3-14b", []), ("mixtral-8x22b", []), ("whisper-large-v3", []),
+    ("mamba2-370m", ["--no-greedy", "--temperature", "0.7"])])
+def test_serve_cli_lm_prints_prefill_and_decode(arch, extra, capsys):
+    """``--mode lm`` on the CPU: one prefill of the smoke config, then
+    ``--gen - 1`` decode steps (mixtral's 40-token prompt passes its
+    32-token window), with ``repro``'s driver's lines."""
+    prompt = "40" if arch == "mixtral-8x22b" else "16"
+    serve.main(["--mode", "lm", "--device", "cpu", "--arch", arch,
+                "--batch", "2", "--prompt-len", prompt, "--gen", "8",
+                *extra])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith(f"[serve] prefill 2x{prompt}: ")
+    mode = "sampled@T=0.7" if extra else "greedy"
+    assert out[1].startswith(f"[serve] decoded 7 steps x 2 seqs ({mode}): ")
+    assert out[1].endswith("on cpu")
+    first = out[2].split(": ", 1)[1].removesuffix(" ...")
+    assert len(json.loads(first)) == 8
 
 
 def test_serve_cli_gbdt_zero_retraces_and_drops(tmp_path, capsys):
