@@ -228,6 +228,36 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    tokens / 989 TFLOP/s), and one decode step under ``torch.profiler``:
    its kernels, device time and the host's share of the median step;
    printed as ``lm summary {...}``.
+10. LM training (log lines ``lm train ...``, last), with TF32 off; no
+   kernel of the table either (``repro`` trains with ``jax.grad``,
+   ``jax.checkpoint`` and a jnp AdamW).  Each part is a gate: (a) each
+   of the ten smoke configs (float32) on the card against the CPU from
+   the same parameters and batch: ``loss_fn`` within rtol 1e-5, each
+   gradient leaf within 1e-4 of its largest |g| (leaves that are zero in
+   exact arithmetic below 1e-7 of the largest |g|), three
+   ``make_train_step`` losses within rtol 1e-4, and on the card remat
+   off and "dots" within 1e-6 of "full"; (b) minicpm-2b as configured
+   (40 layers, float32 weights, bf16 compute, remat "full", WSD), B 4 x
+   512 from ``token_batches``: step 0 against a float32-compute witness
+   of the same weights and batch (loss within 1e-2 relative, gradient
+   cosine >= 0.99), then 10 steps on the batch (base lr 3e-4, warmup 2):
+   every loss and gradient norm finite, the last loss below step 0's;
+   the median step (CUDA events), loss and backward alone, AdamW alone,
+   one step under ``torch.profiler`` (device time, host share), peak
+   memory, beside the FLOP bound (6 x active params x tokens / 989
+   TFLOP/s, and 8 x with remat's repeated forward) and AdamW's byte
+   bound (p, g, m, v read, p, m, v written, / 3.35 TB/s); (c) on the
+   same weights, loss and backward at B 1 x 512 under remat off, "full"
+   and "dots" (time, peak memory, gradients within 1e-4 of remat
+   off's), and ``loss_fn_blocked`` (8 chunks) against ``loss_fn`` in the
+   float32 witness at B 4 x 512 (loss within 1e-5, peak memory below
+   ``loss_fn``'s); (d) as (b) without the witness: mamba2-370m as
+   configured (48 SSD layers, cosine) at B 4 x 512, and mixtral-8x22b at
+   full width cut to 1 layer (bf16 weights, float32 moments) at B 1 x
+   4,160 past its 4,096 window; (e) ``python -m repro_torch.launch.train
+   --mode lm --arch qwen3-14b --trees 3`` as a subprocess exits 0 on the
+   card with its step-0 loss line; printed as ``lm train summary
+   {...}``.
 
 The last two lines of standard output are JSON: the kernel table, then
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -3519,7 +3549,7 @@ def lm_weight_bytes(model, cdt, routed=None) -> int:
     for the logits.  The capacity dispatch runs every expert; with
     ``routed`` (the distinct experts the step's tokens pick, one count a
     MoE layer in layer order) only those experts' weights count."""
-    blocks, _, embed = model.casts(cdt)
+    blocks, embed = model.casts(cdt)
 
     def leaves(d):
         for v in d.values():
@@ -3539,6 +3569,41 @@ def lm_weight_bytes(model, cdt, routed=None) -> int:
     return n + size(embed) + size(model.final_norm)
 
 
+def device_busy(fn) -> dict:
+    """``fn`` once under ``torch.profiler``: the union of its device
+    events (ms), their count, its kernels, and the four that take most
+    device time (retaken up to PROFILE_ATTEMPTS times when a profile
+    comes back without device events)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    for attempt in range(PROFILE_ATTEMPTS):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if "CUDA" in str(getattr(e, "device_type", ""))]
+        if events:
+            break
+        log(f"torch.profiler saw no device event (profile {attempt + 1} of "
+            f"{PROFILE_ATTEMPTS})")
+    check(bool(events), "torch.profiler saw device events")
+    busy_us, reach = 0.0, -float("inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in events):
+        busy_us += max(0.0, b - max(a, reach))
+        reach = max(reach, b)
+    by_name: dict = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return {"device_ms": busy_us / 1e3, "device_events": len(events),
+            "kernels": sum(1 for e in events
+                           if "memcpy" not in e.name.lower()
+                           and "memset" not in e.name.lower()),
+            "top_kernels_ms": [(n[:60], t / 1e3) for n, t in top]}
+
+
 def lm_step_profile(cfg, model, batch: dict, step_ms: float) -> dict:
     """One decode step of ``cfg`` under ``torch.profiler``, after a warm
     step that records the distinct experts its tokens route to in each
@@ -3549,8 +3614,7 @@ def lm_step_profile(cfg, model, batch: dict, step_ms: float) -> dict:
     from repro_torch.models import lm
 
     s = batch["tokens"].shape[1]
-    logits, cache = lm.prefill(cfg, model, batch,
-                               max_len=s + 2 + PROFILE_ATTEMPTS)
+    logits, cache = lm.prefill(cfg, model, batch, max_len=s + 2)
     tok = logits.argmax(-1)[:, None]
     routed, real = [], lm.moe_ffn
 
@@ -3565,39 +3629,9 @@ def lm_step_profile(cfg, model, batch: dict, step_ms: float) -> dict:
         lm.decode_step(cfg, model, cache, tok, s)
     finally:
         lm.moe_ffn = real
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    for attempt in range(PROFILE_ATTEMPTS):
-        with torch.profiler.profile(activities=acts) as prof:
-            lm.decode_step(cfg, model, cache, tok, s + 1 + attempt)
-            torch.cuda.synchronize()
-        dev_events = [e for e in prof.events()
-                      if "CUDA" in str(getattr(e, "device_type", ""))]
-        if dev_events:
-            break
-        log(f"torch.profiler saw no device event of a decode step "
-            f"(profile {attempt + 1} of {PROFILE_ATTEMPTS})")
-    check(bool(dev_events), "lm (d): torch.profiler saw the decode "
-          "step's device events")
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in dev_events)
-    busy_us, reach = 0.0, -float("inf")
-    for a, b in spans:                  # the union of the device events
-        busy_us += max(0.0, b - max(a, reach))
-        reach = max(reach, b)
-    by_name: dict = {}
-    for e in dev_events:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-    device_ms = busy_us / 1e3
-    return {"routed_experts": routed, "device_ms": device_ms,
-            "device_events": len(dev_events),
-            "kernels": sum(1 for e in dev_events
-                           if "memcpy" not in e.name.lower()
-                           and "memset" not in e.name.lower()),
-            "host_share": 1.0 - device_ms / step_ms,
-            "top_kernels_ms": [(n[:60], t / 1e3) for n, t in top]}
+    prof = device_busy(lambda: lm.decode_step(cfg, model, cache, tok, s + 1))
+    return dict(prof, routed_experts=routed,
+                host_share=1.0 - prof["device_ms"] / step_ms)
 
 
 def lm_full_width(arch: str, n_layers, B: int, S: int, steps: int,
@@ -3657,6 +3691,7 @@ def lm_full_width(arch: str, n_layers, B: int, S: int, steps: int,
     torch.cuda.reset_peak_memory_stats()
     _, outs, _, _ = lm_decode(cfg32, model, batch, steps, torch.float32,
                               tokens=toks)
+    model.drop_casts()            # the forward pass casts a layer at a time
     fwd = lm.forward_train(cfg32, model, lm_extended(cfg32, batch, toks))
     ref = [fwd[:, S], fwd[:, -1]]
     ratios32 = [lm_rel(outs[0], ref[0]), lm_rel(outs[-1], ref[1])]
@@ -3753,6 +3788,389 @@ def lm_path(seed: int, dev, smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 10, LM training
+# --------------------------------------------------------------------------
+LM_TRAIN_STEPS = 10               # (b), (d): steps on one fixed batch
+LM_TRAIN_LR = 3e-4                # their AdamW base rate (warmup 2)
+LM_SMOKE_TRAIN_STEPS = 3          # (a): steps held card against CPU
+LM_BLOCKS = 8                     # (c): vocab chunks of the blocked loss
+# (arch, layers kept or None for all, batch, sequence, f32 witness and
+# the remat and blocked-loss study of (c))
+LM_TRAIN_FULL = (("minicpm-2b", None, 4, 512, True),
+                 ("mamba2-370m", None, 4, 512, False),
+                 ("mixtral-8x22b", 1, 1, 4160, False))
+
+
+def lm_zero_leaf(cfg, name: str) -> bool:
+    """A leaf whose gradient is zero in exact arithmetic (rounding noise
+    of no scale of its own in both runs): a key bias that no RoPE
+    rotates (the softmax cancels a shift of a query's logits), or the
+    router at top_k 1 without the aux loss (the renormalized weight is
+    1).  Held below 1e-7 of the model's largest |g| instead."""
+    leaf = name.rsplit(".", 1)[-1]
+    unrotated = (not cfg.rope or ".xattn." in name
+                 or name.startswith("enc_blocks"))
+    return (leaf == "bk" and unrotated) or (
+        leaf == "router" and cfg.top_k == 1 and not cfg.moe_aux_weight)
+
+
+def lm_grads(cfg, model, batch, loss=None):
+    """The loss ``loss`` (default ``lm.loss_fn``) and its gradients at the
+    module's weights, timed (CUDA events) with its memory read: (the loss
+    as a 0-d tensor, {name: gradient}, {ms, the memory the forward pass
+    holds for the backward pass, the peak, the peak over what was
+    allocated before}).  Leaves no ``.grad`` behind."""
+    from repro_torch.models import lm
+
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = (loss or lm.loss_fn)(cfg, model, batch)
+    held = torch.cuda.memory_allocated() - base
+    out.backward()
+    end.record()
+    end.synchronize()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    peak = torch.cuda.max_memory_allocated()
+    return out.detach(), grads, {
+        "ms": start.elapsed_time(end), "forward_held_bytes": held,
+        "peak_bytes": peak, "peak_over_base_bytes": peak - base}
+
+
+def lm_grad_err(cfg, got: dict, want: dict) -> float:
+    """The largest leaf error over the leaf's largest |g| (leaves of
+    ``lm_zero_leaf`` checked below 1e-7 of the model's largest |g|)."""
+    top = max(float(w.abs().max()) for w in want.values())
+    worst = 0.0
+    for name, w in want.items():
+        g = got[name].to(w.device).float()
+        w = w.float()
+        if lm_zero_leaf(cfg, name):
+            check(float(g.abs().max()) < 1e-7 * top
+                  and float(w.abs().max()) < 1e-7 * top,
+                  f"lm train: {name} is rounding noise in both runs")
+            continue
+        worst = max(worst, float((g - w).abs().max() / w.abs().max()))
+    return worst
+
+
+def lm_train_smoke(seed: int, dev, smi: str) -> dict:
+    """(a): the ten smoke configs on the card against the CPU, and the
+    three remat policies on the card."""
+    import dataclasses
+
+    from repro_torch.configs import ARCH_IDS, get_smoke
+    from repro_torch.data.pipeline import token_batches
+    from repro_torch.launch.train import lm_train_batch
+    from repro_torch.models import lm, optim
+
+    t0 = time.perf_counter()
+    worst = {"loss": 0.0, "grad": 0.0, "steps": 0.0, "remat": 0.0}
+    for arch in ARCH_IDS:
+        cfg = get_smoke(arch)
+        runs = [(d, lm.init_params(cfg, torch.Generator().manual_seed(seed),
+                                   d)) for d in ("cpu", dev)]
+        arrays = next(token_batches(np.random.default_rng(seed), cfg.vocab,
+                                    2, 16, 1))
+        batches = [lm_train_batch(cfg, arrays, d) for d, _ in runs]
+        (l_cpu, g_cpu, _), (l_dev, g_dev, _) = (
+            lm_grads(cfg, model, b) for (_, model), b in zip(runs, batches))
+        loss_err = abs(float(l_dev) - float(l_cpu)) / abs(float(l_cpu))
+        grad_err = lm_grad_err(cfg, g_dev, g_cpu)
+        check(loss_err <= 1e-5, f"lm train (a) {arch}: card loss within "
+              f"rtol 1e-5 of the CPU's (got {loss_err:.3e})")
+        check(grad_err <= 1e-4, f"lm train (a) {arch}: card gradients "
+              f"within 1e-4 of each leaf's largest |g| (got {grad_err:.3e})")
+        remat_err = 0.0
+        for over in ({"remat": False}, {"remat_policy": "dots"}):
+            l_p, g_p, _ = lm_grads(dataclasses.replace(cfg, **over),
+                                   runs[1][1], batches[1])
+            remat_err = max(remat_err,
+                            abs(float(l_p) - float(l_dev))
+                            / abs(float(l_dev)),
+                            lm_grad_err(cfg, g_p, g_dev))
+        check(remat_err <= 1e-6, f"lm train (a) {arch}: remat off and "
+              f"\"dots\" within 1e-6 of \"full\" (got {remat_err:.3e})")
+        losses = []
+        for d, model in runs:
+            step = lm.make_train_step(cfg, base_lr=1e-3, warmup=2,
+                                      total_steps=LM_SMOKE_TRAIN_STEPS)
+            opt = optim.adamw_init(model)
+            out = []
+            for arr in token_batches(np.random.default_rng(seed + 1),
+                                     cfg.vocab, 2, 16, LM_SMOKE_TRAIN_STEPS):
+                model, opt, m = step(model, opt, lm_train_batch(cfg, arr, d))
+                out.append(float(m["loss"]))
+            losses.append(out)
+        step_err = max(abs(a - b) / abs(b) for a, b in zip(*losses[::-1]))
+        check(step_err <= 1e-4, f"lm train (a) {arch}: "
+              f"{LM_SMOKE_TRAIN_STEPS} train-step losses on the card within "
+              f"rtol 1e-4 of the CPU's (got {step_err:.3e})")
+        for key, v in (("loss", loss_err), ("grad", grad_err),
+                       ("steps", step_err), ("remat", remat_err)):
+            worst[key] = max(worst[key], v)
+        log(f"lm train (a) {arch}: loss {float(l_dev):.6f} (card vs CPU "
+            f"{loss_err:.2e}), gradients {grad_err:.2e}, remat "
+            f"{remat_err:.2e}, {LM_SMOKE_TRAIN_STEPS} steps {step_err:.2e}")
+    wall = time.perf_counter() - t0
+    log(f"lm train (a): ten smoke configs, card against CPU: loss "
+        f"{worst['loss']:.3e} (bound 1e-5), gradients {worst['grad']:.3e} "
+        f"(1e-4), train steps {worst['steps']:.3e} (1e-4); remat policies "
+        f"{worst['remat']:.3e} (1e-6); {wall:.1f} s  [{smi}]")
+    return {f"smoke_{k}_err": v for k, v in worst.items()}
+
+
+def lm_remat_study(cfg, model, batch, smi: str) -> dict:
+    """(c), first half: loss and gradients at B 1 under remat off, "full"
+    and "dots" (each run twice, the second measured): time, the memory
+    the forward pass holds, the peak, and the gradients against remat
+    off's."""
+    import dataclasses
+
+    out, ref = {}, None
+    for policy, over in (("off", {"remat": False}), ("full", {}),
+                         ("dots", {"remat_policy": "dots"})):
+        c = dataclasses.replace(cfg, **over)
+        lm_grads(c, model, batch)
+        loss, grads, row = lm_grads(c, model, batch)
+        row["loss"] = float(loss)
+        if ref is None:
+            ref = grads
+        else:
+            row["grad_err"] = lm_grad_err(cfg, grads, ref)
+            check(row["grad_err"] <= 1e-4, f"lm train (c) remat {policy}: "
+                  f"gradients within 1e-4 of remat off's (got "
+                  f"{row['grad_err']:.3e})")
+        del grads
+        out[policy] = row
+        log(f"lm train (c) {cfg.name} B {batch['tokens'].shape[0]} x "
+            f"{batch['tokens'].shape[1]} remat {policy}: loss and backward "
+            f"{row['ms']:.3f} ms, the forward holds "
+            f"{row['forward_held_bytes'] / 2**30:.3f} GiB, peak "
+            f"{row['peak_bytes'] / 2**30:.2f} GiB "
+            f"({row['peak_over_base_bytes'] / 2**30:.2f} over what was "
+            f"allocated before), gradients against remat off "
+            f"{row.get('grad_err', 0.0):.3e}  [{smi}]")
+    return out
+
+
+def lm_blocked_study(cfg, model, batch, smi: str) -> dict:
+    """(c), second half: ``loss_fn_blocked`` against ``loss_fn`` in the
+    float32 witness; loss and backward, measured as in the remat study."""
+    import dataclasses
+    import functools
+
+    from repro_torch.models import lm
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    out = {}
+    for name, fn in (("plain", lm.loss_fn),
+                     ("blocked", functools.partial(lm.loss_fn_blocked,
+                                                   n_blocks=LM_BLOCKS))):
+        loss, grads, row = lm_grads(cfg32, model, batch, loss=fn)
+        del grads
+        out[name] = dict(row, loss=float(loss))
+    plain, blocked = out["plain"], out["blocked"]
+    rel = abs(blocked["loss"] - plain["loss"]) / abs(plain["loss"])
+    out["loss_rel"] = rel
+    b, s = batch["tokens"].shape
+    log(f"lm train (c) {cfg.name} B {b} x {s}, float32 witness: blocked "
+        f"loss ({LM_BLOCKS} chunks of {cfg.vocab_padded // LM_BLOCKS:,}) "
+        f"{blocked['loss']:.6f} against {plain['loss']:.6f} (rel "
+        f"{rel:.2e}, bound 1e-5); loss and backward {blocked['ms']:.3f} ms "
+        f"against {plain['ms']:.3f}; the forward holds "
+        f"{blocked['forward_held_bytes'] / 2**30:.3f} GiB against "
+        f"{plain['forward_held_bytes'] / 2**30:.3f}; peak "
+        f"{blocked['peak_bytes'] / 2**30:.2f} GiB against "
+        f"{plain['peak_bytes'] / 2**30:.2f}  [{smi}]")
+    check(rel <= 1e-5, "lm train (c): the blocked loss within 1e-5 of "
+          "loss_fn's in the float32 witness")
+    check(blocked["peak_bytes"] < plain["peak_bytes"],
+          "lm train (c): the blocked loss's peak below loss_fn's")
+    return out
+
+
+def lm_train_full(arch: str, n_layers, B: int, S: int, study: bool,
+                  seed: int, dev, smi: str) -> dict:
+    """(b) (with the float32 witness and (c) where ``study``) and (d) for
+    one configuration at full width."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import token_batches
+    from repro_torch.launch.train import lm_train_batch
+    from repro_torch.models import lm, optim
+
+    cfg = get_arch(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    label = f"{arch}" + (f" cut to {n_layers} layer" if n_layers else "")
+    t0 = time.perf_counter()
+    model = lm.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    arrays = next(token_batches(np.random.default_rng(seed), cfg.vocab, B,
+                                S, 1))
+    batch = lm_train_batch(cfg, arrays, dev)
+    params, active = lm.param_count(cfg), lm.active_param_count(cfg)
+    out = {"config": label, "params": params, "active_params": active,
+           "batch": B, "seq": S, "steps": LM_TRAIN_STEPS,
+           "schedule": cfg.lr_schedule, "param_dtype": cfg.param_dtype,
+           "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+           "remat_policy": cfg.remat_policy}
+    check(cfg.compute_dtype == "bfloat16" and cfg.remat
+          and cfg.remat_policy == "full", f"lm train {label}: bf16 compute "
+          "and remat \"full\", as configured")
+    if study:
+        # step 0 against the float32-compute witness of the same weights
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        l32, g32, _ = lm_grads(cfg32, model, batch)
+        l16, g16, _ = lm_grads(cfg, model, batch)
+        dot = n32 = n16 = 0.0
+        for name, a in g32.items():
+            a, b = a.double(), g16[name].double()
+            dot += float((a * b).sum())
+            n32 += float((a * a).sum())
+            n16 += float((b * b).sum())
+        del g32, g16
+        cos = dot / (n32 * n16) ** 0.5
+        loss_rel = abs(float(l16) - float(l32)) / abs(float(l32))
+        out.update(witness_loss_f32=float(l32), witness_loss_bf16=float(l16),
+                   witness_loss_rel=loss_rel, witness_grad_cosine=cos)
+        log(f"lm train (b) {label}: step 0 bf16 against the float32 "
+            f"witness: loss {float(l16):.6f} vs {float(l32):.6f} (rel "
+            f"{loss_rel:.3e}, bound 1e-2), gradient cosine {cos:.6f} "
+            f"(bound 0.99)  [{smi}]")
+        check(loss_rel <= 1e-2, f"lm train (b) {label}: bf16 loss within "
+              "1e-2 of the float32 witness's")
+        check(cos >= 0.99, f"lm train (b) {label}: gradient cosine >= 0.99 "
+              "against the float32 witness")
+
+    step = lm.make_train_step(cfg, base_lr=LM_TRAIN_LR, warmup=2,
+                              total_steps=LM_TRAIN_STEPS)
+    opt = optim.adamw_init(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, metrics = [], []
+    for _ in range(LM_TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        model, opt, m = step(model, opt, batch)
+        end.record()
+        events.append((start, end))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["gnorm"]) for m in metrics]
+    lrs = [float(m["lr"]) for m in metrics]
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"lm train {label}: every loss and gradient norm finite")
+    check(losses[-1] < losses[0], f"lm train {label}: the loss falls "
+          f"({losses[0]:.4f} -> {losses[-1]:.4f})")
+    if study:
+        check(abs(losses[0] - out["witness_loss_bf16"])
+              <= 1e-6 * abs(losses[0]), f"lm train (b) {label}: the first "
+              "step's loss is the bf16 loss of the same weights")
+    # the step's parts, apart: loss and backward, then the update
+    lm_grads(cfg, model, batch)
+    fwd_bwd_ms = lm_grads(cfg, model, batch)[2]["ms"]
+    model.zero_grad(set_to_none=True)
+    lm.loss_fn(cfg, model, batch).backward()
+    opt_ms = time_ms(lambda: optim.adamw_update(model, opt, lr=0.0), reps=3)
+    prof = device_busy(lambda: step(model, opt, batch))
+    median = statistics.median(step_ms[1:])
+    tokens = B * S
+    flops = 6 * active * tokens
+    # AdamW reads p, g, m, v and writes p, m, v once (g in p's dtype)
+    adamw_bytes = sum(p.numel() * (3 * p.element_size() + 16)
+                      for p in model.parameters())
+    out.update(
+        losses=losses, gnorms=gnorms, lrs=lrs, step_ms=step_ms,
+        step_median_ms=median, peak_bytes=peak, fwd_bwd_ms=fwd_bwd_ms,
+        adamw_ms=opt_ms, tokens_per_s=tokens / median * 1e3,
+        flop_bound_ms=flops / BF16_FLOPS_PER_S * 1e3,
+        flop_bound_remat_ms=flops * 8 / 6 / BF16_FLOPS_PER_S * 1e3,
+        adamw_bytes=adamw_bytes,
+        adamw_bound_ms=adamw_bytes / HBM_BYTES_PER_S * 1e3,
+        step_profile=dict(prof, host_share=1.0 - prof["device_ms"] / median))
+    log(f"lm train {'(b)' if study else '(d)'} {label}: {params:,} params "
+        f"({active:,} active), {cfg.param_dtype} weights, bf16 compute, "
+        f"remat full, {cfg.lr_schedule}; B {B} x {S}, {LM_TRAIN_STEPS} steps "
+        f"at base lr {LM_TRAIN_LR}: loss {losses[0]:.4f} -> {losses[-1]:.4f}"
+        f", gnorm {gnorms[0]:.3f} -> {gnorms[-1]:.3f}; step median "
+        f"{median:.3f} ms (first {step_ms[0]:.3f}; {out['tokens_per_s']:.0f} "
+        f"tok/s), loss and backward {fwd_bwd_ms:.3f} ms, AdamW "
+        f"{opt_ms:.3f} ms; peak {peak / 2**30:.2f} GiB; bounds: FLOP "
+        f"{out['flop_bound_ms']:.3f} ms (6 x active params x tokens / 989 "
+        f"TFLOP/s; {out['flop_bound_remat_ms']:.3f} with the forward that "
+        f"remat repeats), AdamW bytes {out['adamw_bound_ms']:.3f} ms "
+        f"({out['adamw_bytes']:,} B / 3.35 TB/s)  [{smi}]")
+    log(f"lm train {label}: one step profiled: {prof['kernels']} kernels, "
+        f"device time {prof['device_ms']:.3f} ms of the {median:.3f} ms "
+        f"median step, host share {out['step_profile']['host_share']:.3f}; "
+        f"most device time: {prof['top_kernels_ms']}  [{smi}]")
+    if study:
+        del opt
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        one = {k: v[:1] for k, v in batch.items()}
+        out["remat_study"] = lm_remat_study(cfg, model, one, smi)
+        torch.cuda.empty_cache()
+        out["blocked_study"] = lm_blocked_study(cfg, model, batch, smi)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"lm train {label}: {out['wall_s']:.1f} s")
+    del model, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_cli(smi: str) -> dict:
+    """(e): ``launch.train --mode lm`` as a subprocess on the card."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          "--mode", "lm", "--arch", "qwen3-14b", "--trees",
+                          "3"], env=env, cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    log(f"lm train (e) train --mode lm: exit {res.returncode}; last lines:\n"
+        + "\n".join((res.stdout + res.stderr).splitlines()[-4:]))
+    check(res.returncode == 0 and "[lm] step 0 loss " in res.stdout
+          and "[lm] done: 3 steps on cuda" in res.stdout,
+          "lm train (e): launch.train --mode lm exits 0 with its step-0 "
+          "loss line, on the card")
+    log(f"lm train (e): {wall:.1f} s  [{smi}]")
+    return {"cli_s": wall}
+
+
+def lm_train_path(seed: int, dev, smi: str) -> dict:
+    """Phase 10, with TF32 off for the parity gates and the witness."""
+    t_phase = time.perf_counter()
+    mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    flags = (mm.allow_tf32, cudnn.allow_tf32)
+    mm.allow_tf32 = cudnn.allow_tf32 = False
+    try:
+        out = lm_train_smoke(seed, dev, smi)
+        out["full"] = [lm_train_full(arch, n, B, S, study, seed, dev, smi)
+                       for arch, n, B, S, study in LM_TRAIN_FULL]
+        out.update(lm_train_cli(smi))
+    finally:
+        mm.allow_tf32, cudnn.allow_tf32 = flags
+    out["card"] = smi
+    log("lm train summary " + json.dumps(out))
+    log(f"lm train phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--records", type=int, default=10_000_000)
@@ -3846,6 +4264,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # phase 9: the LM substrate's serving path (no kernel of the table)
     lm_path(args.seed, dev, smi)
+    # phase 10: LM training (no kernel of the table either)
+    lm_train_path(args.seed, dev, smi)
     for row, key, counter in (
             ("histogram", "higgs", "histogram"),
             ("partition", "higgs", "partition"),

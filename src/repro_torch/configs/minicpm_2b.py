@@ -2,8 +2,8 @@
 
 [arXiv:2404.06395; hf]  40L d_model=2304 36H (kv=36: MHA) d_ff=5760
 vocab=122753; head_dim=64.  WSD (warmup-stable-decay) schedule is a
-trainer feature (``wsd_schedule`` of the JAX package's optimiser, not
-ported yet).  Full attention -> long_500k skipped.
+trainer feature (``repro_torch.models.optim.wsd_schedule``).  Full
+attention -> long_500k skipped.
 """
 from repro_torch.configs.registry import ArchConfig
 

@@ -1,7 +1,7 @@
 """Chunked data sources and the prefetching record stream.
 
-The counterpart of :mod:`repro.data.pipeline` for the out-of-core path
-(its LM token stream belongs to the LM substrate, not ported yet).
+The counterpart of :mod:`repro.data.pipeline`: the out-of-core path and
+the LM substrate's synthetic token stream (:func:`token_batches`).
 
 The :class:`DataSource` protocol is the out-of-core entry point: anything
 that can re-iterate ``(X_chunk, y_chunk)`` numpy pairs feeds the streaming
@@ -327,6 +327,16 @@ def as_source(data) -> "DataSource":
     raise TypeError(
         f"cannot build a DataSource from {type(data).__name__}; pass a "
         "DataSource, an (X, y) tuple, or an npz-shard directory path")
+
+
+def token_batches(rng: np.random.Generator, vocab: int, batch: int,
+                  seq: int, n_batches: int) -> Iterator[dict]:
+    """Synthetic LM token stream (tokens/labels shifted by one), as numpy
+    int32: the arrays ``repro``'s stream draws from the same generator."""
+    for _ in range(n_batches):
+        seqs = rng.integers(0, vocab, (batch, seq + 1), dtype=np.int64)
+        yield {"tokens": seqs[:, :-1].astype(np.int32),
+               "labels": seqs[:, 1:].astype(np.int32)}
 
 
 def record_shards(codes: np.ndarray, g: np.ndarray, h: np.ndarray,

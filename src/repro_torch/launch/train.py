@@ -15,8 +15,18 @@ shards and trains out-of-core from them through a ``RetryingSource``.
 SIGTERM or SIGINT finish the round in flight, commit a checkpoint and
 exit with code 75 (EX_TEMPFAIL); ``--resume`` then grows the remaining
 trees, the same ensemble as an uninterrupted run.  The last line of a
-run's output is its loss history as JSON.  ``--mode lm`` is LM training,
-which is not ported (ROADMAP Queue 1 item 10b).
+run's output is its loss history as JSON.
+
+``--mode lm --arch <id>`` trains the architecture's smoke config of the
+LM substrate (:mod:`repro_torch.models.lm`) from random weights (seed
+``--seed``) on ``--device``: ``--trees`` AdamW steps
+(``lm.make_train_step``, the config's LR schedule, warmup 20) on batches
+of 8 x 32 tokens from ``data.pipeline.token_batches``, printing
+``[lm] step i loss x`` every 20 steps.  As ``repro``'s driver, it trains
+at ``--lr`` (0.1 unless given).
+
+    python -m repro_torch.launch.train --mode lm --arch qwen3-14b \
+        --trees 100 [--device cpu]
 """
 from __future__ import annotations
 
@@ -24,9 +34,11 @@ import argparse
 import json
 import os
 
+import numpy as np
 import torch
 
 EX_TEMPFAIL = 75
+LM_BATCH, LM_SEQ = 8, 32
 
 
 def _mesh(args):
@@ -116,17 +128,76 @@ def run_gbdt(args) -> None:
     print(f"[train] history {json.dumps(est.history_)}", flush=True)
 
 
+def lm_train_batch(cfg, arrays: dict, device) -> dict:
+    """``token_batches``' numpy tokens and labels on ``device`` (int64),
+    with the frontends' stub inputs where the family has them, as
+    ``repro``'s driver feeds them: M-RoPE positions (3, B, S), four zero
+    patch embeddings (B, 4, d) for a VLM, zero audio frames (B,
+    frontend_len, d) for an encoder-decoder."""
+    batch = {k: torch.from_numpy(v).to(device).long()
+             for k, v in arrays.items()}
+    b, s = batch["tokens"].shape
+    if cfg.mrope:
+        batch["positions"] = torch.arange(s, device=device)[
+            None, None].expand(3, b, s)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.zeros((b, 4, cfg.d_model),
+                                            device=device)
+    if cfg.family == "encdec":
+        batch["audio_embeds"] = torch.zeros(
+            (b, cfg.frontend_len, cfg.d_model), device=device)
+    return batch
+
+
+def run_lm(args) -> None:
+    from repro_torch.api.plan import resolve_device
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import token_batches
+    from repro_torch.models import lm, optim
+
+    cfg = get_smoke(args.arch)
+    dev = resolve_device(args.device)
+    model = lm.init_params(cfg, torch.Generator().manual_seed(args.seed),
+                           dev)
+    opt = optim.adamw_init(model)
+    base_lr = args.lr or 3e-3
+    step = lm.make_train_step(cfg, base_lr=base_lr, warmup=20,
+                              total_steps=args.trees)
+    print(f"[lm] {cfg.name}: {lm.param_count(cfg):,} params on {dev}, "
+          f"batches {LM_BATCH}x{LM_SEQ}, {args.trees} steps, "
+          f"{cfg.lr_schedule} schedule at base lr {base_lr}")
+    stream = token_batches(np.random.default_rng(args.seed), cfg.vocab,
+                           LM_BATCH, LM_SEQ, args.trees)
+    metrics = None
+    for i, arrays in enumerate(stream):
+        batch = lm_train_batch(cfg, arrays, dev)
+        model, opt, metrics = step(model, opt, batch)
+        if i % 20 == 0:
+            print(f"[lm] step {i} loss {float(metrics['loss']):.4f}",
+                  flush=True)
+    if metrics is not None:
+        print(f"[lm] done: {args.trees} steps on {dev}, loss "
+              f"{float(metrics['loss']):.4f}, gnorm "
+              f"{float(metrics['gnorm']):.4f}", flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--mode", default="gbdt", choices=["gbdt", "lm"])
     ap.add_argument("--dataset", default="higgs")
+    ap.add_argument("--arch", default="qwen3-14b",
+                    help="--mode lm: the architecture whose smoke config "
+                         "trains")
     ap.add_argument("--device", default="cuda",
                     help="where the fit runs (CUDA unless named)")
     ap.add_argument("--records", type=int, default=20_000)
     ap.add_argument("--trees", type=int, default=100,
-                    help="boosting rounds")
+                    help="boosting rounds (gbdt) or steps (lm)")
     ap.add_argument("--depth", type=int, default=6)
-    ap.add_argument("--lr", type=float, default=0.1)
+    ap.add_argument("--lr", type=float, default=0.1,
+                    help="learning rate (gbdt), or AdamW's base rate (lm: "
+                         "the default 0.1 trains at 0.1, as repro's driver "
+                         "does; 0 means 3e-3)")
     ap.add_argument("--max-bins", type=int, default=128)
     ap.add_argument("--strategy", default="auto",
                     help="step-① histogram strategy of the plan")
@@ -144,10 +215,9 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.mode == "lm":
-        raise NotImplementedError(
-            "--mode lm needs LM training, which is not ported "
-            "(ROADMAP Queue 1 item 10b)")
-    run_gbdt(args)
+        run_lm(args)
+    else:
+        run_gbdt(args)
 
 
 if __name__ == "__main__":

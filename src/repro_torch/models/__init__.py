@@ -1,2 +1,2 @@
-"""The LM substrate: the counterpart of :mod:`repro.models` (serving and
-the forward pass; training is not ported yet)."""
+"""The LM substrate: the counterpart of :mod:`repro.models` (serving,
+training and the optimiser)."""

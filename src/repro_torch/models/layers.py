@@ -143,7 +143,6 @@ def sdpa(q, k, v, *, causal: bool, sliding_window: Optional[int] = None,
     k = _repeat_kv(k, h // k.shape[2])
     v = _repeat_kv(v, h // v.shape[2])
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    logits.mul_(_scale(d))
     sk = k.shape[1]
     if kv_valid is not None:
         keep = kv_valid
@@ -155,7 +154,12 @@ def sdpa(q, k, v, *, causal: bool, sliding_window: Optional[int] = None,
             keep &= k_pos <= q_pos
         if sliding_window is not None:
             keep &= k_pos > q_pos - sliding_window
-    logits.masked_fill_(~keep, MASKED)
+    if logits.requires_grad:
+        # in place, on the einsum's output (a view), autograd would copy
+        # the (B, H, Sq, Sk) logits three times in the backward pass
+        logits = torch.where(keep, logits * _scale(d), MASKED)
+    else:
+        logits.mul_(_scale(d)).masked_fill_(~keep, MASKED)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     del logits
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(q.dtype))

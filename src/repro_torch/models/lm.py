@@ -17,26 +17,43 @@ which take the config first and the module as ``params``.
 
 Three execution modes share the block code: train (the forward pass, no
 cache), prefill (fills the KV/SSM caches) and decode (one token against
-the caches, updated in place).  Block weights are cast to the compute
-dtype once, at their first use in that dtype, and kept (``repro`` casts
-at every use, which gives the same bits); the SSM decay scalars and the
-router stay float32.  ``.to()`` or :meth:`LM.drop_casts` drops the copies.
+the caches, updated in place).  The train mode (``forward_hidden``,
+``loss_fn``, ``loss_fn_blocked``, ``make_train_step`` with
+:mod:`repro_torch.models.optim`, and ``forward_train``, which is
+``forward_hidden`` under ``torch.no_grad``) casts each block's weights
+inside its layer group at every call, as ``repro``'s ``_apply_block``
+does, so a bf16 copy is never stale and under remat is recomputed in the
+backward pass, not held.  ``repro`` scans over groups of
+``cfg.scan_period()`` layers; here each group is one
+``torch.utils.checkpoint`` region (``cfg.remat``; ``remat_policy``
+"full" keeps the group's inputs only, "dots" also the outputs of
+``aten.mm``/``aten.addmm``, as ``dots_with_no_batch_dims_saveable``).
+``scan_unroll`` means nothing here: there is one loop.
 
-Training (``loss_fn``, the optimiser, remat) and the sharding rules
-(``partition_specs``, ``param_shardings``, ``cache_specs``) are not
-ported here.
+Serving (``prefill``, ``decode_step``, under ``torch.no_grad``) instead
+casts the decoder's block weights and the embedding table to the compute
+dtype once, at their first use in that dtype, and keeps them (the same
+bits); the SSM decay scalars and the router stay float32.  ``.to()``,
+``load_state_dict``, a train step or :meth:`LM.drop_casts` drops the
+copies.
+
+The sharding rules (``partition_specs``, ``param_shardings``,
+``cache_specs``) are not ported here.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.api.plan import resolve_device
 from repro_torch.configs.registry import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import optim
 from repro_torch.models.mamba import mamba2_mixer
 from repro_torch.models.moe import moe_ffn
 
@@ -194,12 +211,10 @@ class LM(_Params):
                 _Params.reset_parameters(m, generator)
 
     def casts(self, cdt: torch.dtype):
-        """(decoder block weights, encoder block weights, embedding table)
-        in ``cdt``, cast at the first call for ``cdt`` and kept."""
+        """(decoder block weights, embedding table) in ``cdt`` for
+        serving, cast at the first call for ``cdt`` and kept."""
         if cdt not in self._casts:
-            enc = getattr(self, "enc_blocks", [])
             self._casts[cdt] = ([_cast_block(b, cdt) for b in self.blocks],
-                                [_cast_block(b, cdt) for b in enc],
                                 self.embed.to(cdt))
         return self._casts[cdt]
 
@@ -209,6 +224,10 @@ class LM(_Params):
     def _apply(self, fn, *args, **kwargs):
         self.drop_casts()
         return super()._apply(fn, *args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self.drop_casts()
+        return super()._load_from_state_dict(*args, **kwargs)
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
@@ -321,8 +340,7 @@ def _rope(cfg: ArchConfig, positions, mrope_pos=None):
 
 def _cast_block(block: _Params, cdt: torch.dtype) -> Dict[str, Any]:
     """A block's weights in the compute dtype, its children's as nested
-    dicts; SSM decay scalars and the router stay float32.
-    (:meth:`LM.casts` keeps these per dtype.)"""
+    dicts; SSM decay scalars and the router stay float32."""
     out: Dict[str, Any] = {
         n: (p if n in _KEEP_F32 or not p.is_floating_point() else p.to(cdt))
         for n, p in block._parameters.items()}
@@ -405,30 +423,75 @@ def _apply_block(cfg: ArchConfig, kind, bp, x, cos_sin, mode, cache=None,
 
 
 def _run_stack(cfg: ArchConfig, blocks: List[Dict], x, *, kinds, mode,
-               cos_sin=None, caches=None, pos=None, enc=None,
-               causal: bool = True):
-    """The layers in order (``repro`` scans over layer groups).  Returns
-    (x, the new caches or None, the summed MoE aux loss)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+               caches, cos_sin=None, pos=None, enc=None):
+    """The layers in order, prefill or decode, on the cast weights
+    ``blocks`` (``repro`` scans over layer groups).  Returns (x, the new
+    caches)."""
     new_caches = []
     for i, bp in enumerate(blocks):
-        x, nc, a = _apply_block(cfg, kinds[i], bp, x, cos_sin, mode,
-                                cache=None if caches is None else caches[i],
-                                pos=pos, enc=enc, causal=causal)
+        x, nc, _ = _apply_block(cfg, kinds[i], bp, x, cos_sin, mode,
+                                cache=caches[i], pos=pos, enc=enc)
         new_caches.append(nc)
+    return x, new_caches
+
+
+# the products with no batch dimension, which "dots" remat keeps
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ArchConfig, fn):
+    """``fn`` as one activation-checkpoint region: its outputs are
+    recomputed in the backward pass from its inputs; under
+    ``remat_policy == "dots"`` the outputs of ``aten.mm``/``aten.addmm``
+    (``repro``'s dots with no batch dimension) are kept instead."""
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
+
+
+def _train_stack(cfg: ArchConfig, blocks, x, *, kinds, period: int,
+                 cos_sin=None, enc=None, causal: bool = True):
+    """The layers of ``blocks`` (modules) in train mode, in groups of
+    ``period`` consecutive layers (``repro``'s scan body), each group
+    casting its weights to the compute dtype and, under ``cfg.remat``
+    with autograd on, one checkpoint region.  Returns (x, the summed MoE
+    aux loss)."""
+    cdt = _dtype(cfg.compute_dtype)
+
+    def group(x, lo: int):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(lo, lo + period):
+            x, _, a = _apply_block(cfg, kinds[i], _cast_block(blocks[i], cdt),
+                                   x, cos_sin, "train", enc=enc,
+                                   causal=causal)
+            aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, len(blocks), period):
+        fn = functools.partial(group, lo=lo)
+        remat = cfg.remat and torch.is_grad_enabled()
+        x, a = _remat(cfg, fn)(x) if remat else fn(x)
         aux = aux + a
-    return x, (new_caches if caches is not None else None), aux
+    return x, aux
 
 
 def _encode(cfg: ArchConfig, params: LM, audio_embeds):
+    """The encoder stack on the audio frames (one layer a group)."""
     cdt = _dtype(cfg.compute_dtype)
-    _, enc_blocks, _ = params.casts(cdt)
     enc = audio_embeds.to(cdt)
     enc = enc + L.sinusoidal_positions(enc.shape[1], cfg.d_model,
                                        device=enc.device).to(cdt)[None]
-    enc, _, _ = _run_stack(cfg, enc_blocks, enc,
-                           kinds=[("attn", "mlp")] * len(enc_blocks),
-                           mode="train", causal=False)
+    enc, _ = _train_stack(cfg, params.enc_blocks, enc,
+                          kinds=[("attn", "mlp")] * len(params.enc_blocks),
+                          period=1, causal=False)
     return L.rms_norm(enc, params.enc_norm, cfg.norm_eps)
 
 
@@ -444,25 +507,24 @@ def _embed_tokens(cfg: ArchConfig, params: LM, tokens, batch):
 
 
 def _logits(cfg: ArchConfig, params: LM, x):
-    _, _, embed = params.casts(_dtype(cfg.compute_dtype))
+    _, embed = params.casts(_dtype(cfg.compute_dtype))
     return x @ embed.T
 
 
-@torch.no_grad()
 def forward_hidden(cfg: ArchConfig, params: LM, batch):
-    """Forward pass up to the final norm.
+    """Forward pass up to the final norm, under autograd (the training
+    path: weights cast inside each remat group).
 
     Returns ((B, S, d) hidden states, moe aux loss scalar)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    blocks, _, _ = params.casts(_dtype(cfg.compute_dtype))
     x = _embed_tokens(cfg, params, tokens, batch)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     cos_sin = _rope(cfg, positions, batch.get("positions"))
     enc = (_encode(cfg, params, batch["audio_embeds"])
            if cfg.family == "encdec" else None)
-    x, _, aux = _run_stack(cfg, blocks, x, kinds=cfg.layer_kinds(),
-                           mode="train", cos_sin=cos_sin, enc=enc)
+    x, aux = _train_stack(cfg, params.blocks, x, kinds=cfg.layer_kinds(),
+                          period=cfg.scan_period(), cos_sin=cos_sin, enc=enc)
     return L.rms_norm(x, params.final_norm, cfg.norm_eps), aux
 
 
@@ -470,9 +532,106 @@ def forward_hidden(cfg: ArchConfig, params: LM, batch):
 def forward_train(cfg: ArchConfig, params: LM, batch):
     """batch: tokens (B,S), optional positions (3,B,S) for M-RoPE,
     patch_embeds (B,P,d) for VLM, audio_embeds (B,F,d) for encdec.
-    Returns logits (B, S, vocab_padded) in compute dtype."""
+    Returns logits (B, S, vocab_padded) in compute dtype
+    (:func:`forward_hidden` without autograd)."""
     x, _ = forward_hidden(cfg, params, batch)
-    return _logits(cfg, params, x)
+    return x @ params.embed.to(x.dtype).T
+
+
+# ==========================================================================
+# training
+# ==========================================================================
+def loss_fn(cfg: ArchConfig, params: LM, batch):
+    """Mean next-token cross entropy over ``batch["labels"]`` (B, S): the
+    logits in float32 after the product in the compute dtype, the padded
+    vocabulary rows at -1e30; plus ``moe_aux_weight`` x the MoE aux loss
+    where that weight is set."""
+    x, aux = forward_hidden(cfg, params, batch)
+    logits = (x @ params.embed.to(x.dtype).T).float()
+    if cfg.vocab_padded != cfg.vocab:  # mask the padded vocab rows
+        pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab
+        logits = torch.where(pad, L.MASKED, logits)
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None])[..., 0]
+    loss = torch.mean(logz - gold)
+    if cfg.moe_aux_weight:
+        loss = loss + cfg.moe_aux_weight * aux
+    return loss
+
+
+def _vocab_chunk(cfg: ArchConfig, h, emb_c, labels, lo: int, m, s, gold):
+    """One vocab chunk of :func:`loss_fn_blocked`: its float32 logits,
+    the online logsumexp's update and the gold logit where the label
+    falls in the chunk."""
+    vb = emb_c.shape[0]
+    logits = h @ emb_c.float().T                                  # (B,S,vb)
+    ids = lo + torch.arange(vb, device=h.device)
+    logits = torch.where(ids >= cfg.vocab, L.MASKED, logits)
+    m_new = torch.maximum(m, logits.amax(-1))
+    s = s * torch.exp(m - m_new) + torch.exp(
+        logits - m_new[..., None]).sum(-1)
+    in_chunk = (labels >= lo) & (labels < lo + vb)
+    local = logits.gather(-1, torch.clamp(labels - lo, 0, vb - 1)[..., None])
+    return m_new, s, torch.where(in_chunk, local[..., 0], gold)
+
+
+def loss_fn_blocked(cfg: ArchConfig, params: LM, batch, n_blocks: int = 8):
+    """Vocab-blocked cross entropy: ``loss_fn`` without the (B, S, vocab)
+    logits.  It walks ``n_blocks`` vocab chunks with an online logsumexp
+    (running max + rescaled sum) in float32 and takes the gold logit from
+    the chunk that holds the label.  Each chunk is a checkpoint region,
+    so the backward pass recomputes its logits instead of holding them:
+    one chunk's logits are alive at a time."""
+    h, aux = forward_hidden(cfg, params, batch)
+    h = h.float()                                                 # (B,S,d)
+    labels = batch["labels"].long()
+    vp = cfg.vocab_padded
+    if vp % n_blocks:
+        raise ValueError(f"n_blocks {n_blocks} does not divide the padded "
+                         f"vocab {vp}")
+    vb = vp // n_blocks
+    m = torch.full(labels.shape, -torch.inf, dtype=torch.float32,
+                   device=h.device)
+    s = torch.zeros(labels.shape, dtype=torch.float32, device=h.device)
+    gold = torch.zeros(labels.shape, dtype=torch.float32, device=h.device)
+    for i in range(n_blocks):
+        m, s, gold = ckpt.checkpoint(
+            _vocab_chunk, cfg, h, params.embed[i * vb:(i + 1) * vb], labels,
+            i * vb, m, s, gold, use_reentrant=False)
+    loss = torch.mean(m + torch.log(s) - gold)
+    if cfg.moe_aux_weight:
+        loss = loss + cfg.moe_aux_weight * aux
+    return loss
+
+
+def make_train_step(cfg: ArchConfig, *, base_lr: float = 3e-4,
+                    warmup: int = 100, total_steps: int = 10_000,
+                    vocab_blocks: int = 0):
+    """Returns step(model, opt_state, batch) -> (model, opt_state, metrics):
+    the loss and its gradients by autograd, then one AdamW update of the
+    module's parameters, in place, at the schedule's rate for step
+    ``opt_state.step + 1``.  ``metrics`` holds ``loss``, ``lr`` and
+    ``gnorm`` as 0-d device tensors (nothing is read back to the host).
+
+    ``vocab_blocks > 0`` switches to the blocked cross entropy."""
+    sched = optim.get_schedule(cfg.lr_schedule)
+    lfn = (loss_fn if not vocab_blocks
+           else functools.partial(loss_fn_blocked, n_blocks=vocab_blocks))
+
+    def step(model: LM, opt_state: optim.AdamWState, batch):
+        model.zero_grad(set_to_none=True)
+        loss = lfn(cfg, model, batch)
+        loss.backward()
+        lr = sched(opt_state.step + 1, base_lr=base_lr, warmup=warmup,
+                   total=total_steps)
+        model, opt_state, gnorm = optim.adamw_update(model, opt_state, lr=lr)
+        model.zero_grad(set_to_none=True)
+        model.drop_casts()              # serving's copies are stale now
+        return model, opt_state, {"loss": loss.detach(), "lr": lr,
+                                  "gnorm": gnorm}
+
+    return step
 
 
 # ==========================================================================
@@ -523,16 +682,16 @@ def prefill(cfg: ArchConfig, params: LM, batch, *,
     prefix must pass prefix + max_new_tokens here."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    blocks, _, _ = params.casts(_dtype(cfg.compute_dtype))
+    blocks, _ = params.casts(_dtype(cfg.compute_dtype))
     x = _embed_tokens(cfg, params, tokens, batch)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     cos_sin = _rope(cfg, positions, batch.get("positions"))
     enc = (_encode(cfg, params, batch["audio_embeds"])
            if cfg.family == "encdec" else None)
     caches = init_cache(cfg, b, max_len or s, cache_dtype, device=x.device)
-    x, caches, _ = _run_stack(cfg, blocks, x, kinds=cfg.layer_kinds(),
-                              mode="prefill", cos_sin=cos_sin,
-                              caches=caches, enc=enc)
+    x, caches = _run_stack(cfg, blocks, x, kinds=cfg.layer_kinds(),
+                           mode="prefill", cos_sin=cos_sin, caches=caches,
+                           enc=enc)
     x = L.rms_norm(x[:, -1:], params.final_norm, cfg.norm_eps)
     return _logits(cfg, params, x)[:, 0].float(), caches
 
@@ -547,7 +706,7 @@ def decode_step(cfg: ArchConfig, params: LM, caches, token, pos,
     replayed with ``pos`` updated in place.  Updates ``caches`` in place;
     returns (logits (B, vocab_padded) float32, caches)."""
     b = token.shape[0]
-    blocks, _, _ = params.casts(_dtype(cfg.compute_dtype))
+    blocks, _ = params.casts(_dtype(cfg.compute_dtype))
     x = params.embed[token].to(_dtype(cfg.compute_dtype))
     if not torch.is_tensor(pos):       # a fill on the device, no copy
         pos = torch.full((), pos, dtype=torch.long, device=x.device)
@@ -555,8 +714,8 @@ def decode_step(cfg: ArchConfig, params: LM, caches, token, pos,
     if cfg.mrope and mrope_pos is None:
         mrope_pos = pos.expand(3, b, 1)
     cos_sin = _rope(cfg, positions, mrope_pos)
-    x, caches, _ = _run_stack(cfg, blocks, x, kinds=cfg.layer_kinds(),
-                              mode="decode", cos_sin=cos_sin, caches=caches,
-                              pos=pos)
+    x, caches = _run_stack(cfg, blocks, x, kinds=cfg.layer_kinds(),
+                           mode="decode", cos_sin=cos_sin, caches=caches,
+                           pos=pos)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     return _logits(cfg, params, x)[:, 0].float(), caches
