@@ -228,7 +228,7 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    tokens / 989 TFLOP/s), and one decode step under ``torch.profiler``:
    its kernels, device time and the host's share of the median step;
    printed as ``lm summary {...}``.
-10. LM training (log lines ``lm train ...``, last), with TF32 off; no
+10. LM training (log lines ``lm train ...``), with TF32 off; no
    kernel of the table either (``repro`` trains with ``jax.grad``,
    ``jax.checkpoint`` and a jnp AdamW).  Each part is a gate: (a) each
    of the ten smoke configs (float32) on the card against the CPU from
@@ -258,6 +258,34 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    --mode lm --arch qwen3-14b --trees 3`` as a subprocess exits 0 on the
    card with its step-0 loss line; printed as ``lm train summary
    {...}``.
+11. The dry runs and the report (log lines ``dryrun ...``, last),
+   held against the card; ``repro``'s dry runs reach no kernel of the
+   table.  Each part is a gate: (a) ``python -m
+   repro_torch.launch.dryrun_gbdt --mesh both`` exits 0 for each of the
+   five variants, and each plan's per-card terms are printed (200 M
+   records x 64 fields, 256 bins, depth 6; datasheet peaks, not
+   measurements); (b) the single-pod plan's card shard, 12,500,000
+   random records x 4 fields, grown into one tree on the card by
+   ``core.tree.fit_forest``, each level's histogram and partition call
+   timed by CUDA events and printed beside the plan's memory terms (a
+   witness, not a band), then ``distributed_fit_tree`` (each
+   ``explicit*`` variant) and ``pjit_fit_tree`` on a (2, 2) mesh that
+   repeats the card, at 25,000,000 x 8: ``collective_stats()`` of the
+   tree equals the plan's collectives for that mesh and size by kind,
+   count and bytes; (c) ``python -m repro_torch.launch.dryrun --arch all
+   --shape all --mesh both --jobs 6`` as a subprocess that runs on the
+   host's cores beside (a), (b) and (d), exits 0 with every runnable
+   cell planned on both meshes (66 records), skips only where
+   ``cell_is_runnable`` says so (14), 0 FAIL, its wall time printed;
+   (d) minicpm-2b as phase 10 (b) trains it (float32 weights, bf16
+   compute, remat "full", B 4 x 512) planned on a (1, 1) meta mesh, then
+   one real ``make_train_step`` on the card under ``FlopCounterMode``:
+   its FLOPs equal the plan's exactly, and the plan's
+   ``bytes_per_device`` lies within 0.8–1.25 of the step's
+   ``torch.cuda.max_memory_allocated``; (e) ``python -m
+   repro_torch.launch.report`` over (c)'s records exits 0 with 40 rows
+   for each mesh; printed as ``dryrun summary {...}``.  Its files go to
+   ``build/smoke_dryrun`` (removed after).
 
 The last two lines of standard output are JSON: the kernel table, then
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -4171,6 +4199,310 @@ def lm_train_path(seed: int, dev, smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 11, the dry runs held against the card
+# --------------------------------------------------------------------------
+DRYRUN_JOBS = 6                   # (c): cells traced at once
+DRYRUN_RECORDS, DRYRUN_FIELDS = 200_000_000, 64   # the GBDT plan's dataset
+DRYRUN_MESH_RECORDS, DRYRUN_MESH_FIELDS = 25_000_000, 8   # (b)'s (2, 2) mesh
+DRYRUN_BYTES_BAND = (0.8, 1.25)   # (d): planned / measured peak memory
+
+
+def dryrun_cli(module: str, *args, out=None, timeout: int = 300):
+    """``python -m <module> args`` with the repository's ``src``; returns
+    the finished process, or with ``out`` (a path) a running one writing
+    there."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", module, *args]
+    if out is not None:
+        return subprocess.Popen(cmd, env=env, cwd=ROOT, text=True,
+                                stdout=open(out, "w"),
+                                stderr=subprocess.STDOUT)
+    return subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                          text=True, timeout=timeout)
+
+
+def dryrun_gbdt_plans(out_dir: Path, smi: str) -> dict:
+    """(a): ``launch.dryrun_gbdt --mesh both`` for every variant."""
+    from repro_torch.launch import dryrun_gbdt
+
+    out = {}
+    for variant in dryrun_gbdt.VARIANTS:
+        res = dryrun_cli("repro_torch.launch.dryrun_gbdt", "--mesh", "both",
+                         "--variant", variant, "--out", str(out_dir))
+        check(res.returncode == 0, f"dryrun (a) dryrun_gbdt --variant "
+              f"{variant} exits 0: {res.stdout[-500:]}{res.stderr[-2000:]}")
+        for mesh in ("single", "multi"):
+            rec = json.loads((out_dir / f"{mesh}_gbdt_{variant}.json")
+                             .read_text())
+            keep = ("records_per_card", "fields_per_card", "compute_s",
+                    "memory_s", "collective_s", "dominant",
+                    "collective_bytes_per_chip", "bytes_per_device")
+            out[f"{mesh}_{variant}"] = {k: rec[k] for k in keep}
+            links = sorted({c["link"] for c in rec["collective_links"]})
+            log(f"dryrun (a) {mesh} {variant}: card "
+                f"{rec['records_per_card']:,} x {rec['fields_per_card']}, "
+                f"compute {rec['compute_s']:.3e} "
+                f"s, memory {rec['memory_s']:.3e} s, collective "
+                f"{rec['collective_s']:.3e} s over {','.join(links)} "
+                f"({rec['collective_bytes_per_chip']:.4e} B), dominant "
+                f"{rec['dominant']}, {rec['bytes_per_device']:,} B a card "
+                "(plan: datasheet peaks)")
+    return out
+
+
+def timed_calls(names):
+    """Patch ``ops.<name>`` for each name to record CUDA events around each
+    call; returns (spans by name, restore)."""
+    from repro_torch.kernels import ops
+
+    spans = {n: [] for n in names}
+    real = {n: getattr(ops, n) for n in names}
+
+    def wrap(name):
+        def timed(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = real[name](*a, **kw)
+            end.record()
+            spans[name].append((start, end))
+            return res
+        return timed
+
+    for n in names:
+        setattr(ops, n, wrap(n))
+    return spans, lambda: [setattr(ops, n, f) for n, f in real.items()]
+
+
+def dryrun_gbdt_witness(seed: int, dev, smi: str) -> dict:
+    """(b): the single-pod plan's card shard grown on the card, level by
+    level beside the plan; then the (2, 2) mesh's collectives against the
+    plan's, exactly."""
+    from repro_torch.core import tree as tree_mod
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun_gbdt
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.mesh import make_mesh, meta_production_mesh
+
+    plan = dryrun_gbdt.plan_levels(
+        meta_production_mesh(False), n_records=DRYRUN_RECORDS,
+        n_fields=DRYRUN_FIELDS, n_bins=N_BINS, depth=DEPTH,
+        variant="explicit")
+    n, F = plan["records_per_card"], plan["fields_per_card"]
+    check((n, F) == (12_500_000, 4), "dryrun (b): the single-pod card holds "
+          "12,500,000 records x 4 fields")
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    codes = torch.randint(0, N_BINS, (n, F), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    g = torch.randn((1, n), generator=gen, device=dev)
+    h = torch.rand((1, n), generator=gen, device=dev)
+    kw = dict(depth=DEPTH, n_bins=N_BINS, missing_bin=N_BINS - 1,
+              is_cat_field=torch.zeros(F, dtype=torch.bool, device=dev),
+              field_mask=torch.ones(F, dtype=torch.bool, device=dev),
+              lambda_=1.0, gamma=0.0, min_child_weight=1.0)
+
+    codes_cm = codes.T.contiguous()
+
+    def grow():
+        return tree_mod.fit_forest(codes, codes_cm, g, h, **kw)
+
+    grow()
+    torch.cuda.synchronize()
+    spans, restore = timed_calls(("build_histogram", "partition_level_cm"))
+    try:
+        tree = grow()
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    check(bool(torch.isfinite(tree.leaf_value).all()), "dryrun (b): the "
+          "card's tree has finite leaves")
+    levels = []
+    for lv, (hs, ps) in enumerate(zip(spans["build_histogram"],
+                                      spans["partition_level_cm"])):
+        want = plan["levels"][lv]
+        row = {"level": lv, "hist_ms": hs[0].elapsed_time(hs[1]),
+               "partition_ms": ps[0].elapsed_time(ps[1]),
+               "plan_hist_ms": want["hist_memory_s"] * 1e3,
+               "plan_partition_ms": want["partition_memory_s"] * 1e3}
+        levels.append(row)
+        log(f"dryrun (b) card shard {n:,} x {F}, level {lv} (NN = "
+            f"{2 ** lv}): histogram {row['hist_ms']:.4f} ms, partition "
+            f"{row['partition_ms']:.4f} ms (CUDA events, wrapper calls) "
+            f"beside the plan's memory terms {row['plan_hist_ms']:.4f} and "
+            f"{row['plan_partition_ms']:.4f} ms  [{smi}]")
+    check(len(levels) == DEPTH, f"dryrun (b): {DEPTH} levels timed")
+    del codes, codes_cm, g, h
+    torch.cuda.empty_cache()
+
+    # the (2, 2) mesh on the one card: collectives exactly as planned
+    n, F = DRYRUN_MESH_RECORDS, DRYRUN_MESH_FIELDS
+    mesh = make_mesh((2, 2), ("data", "model"), devices=[dev] * 4)
+    codes = torch.randint(0, N_BINS, (n, F), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    codes_cm = codes.T.contiguous()
+    g = torch.randn((n,), generator=gen, device=dev)
+    h = torch.rand((n,), generator=gen, device=dev)
+    kw["is_cat_field"] = torch.zeros(F, dtype=torch.bool, device=dev)
+    kw["field_mask"] = torch.ones(F, dtype=torch.bool, device=dev)
+    mesh_out = {}
+    for variant in dryrun_gbdt.VARIANTS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharding.reset_collective_stats()
+        if variant == "base":
+            sharding.pjit_fit_tree(
+                mesh, **{k: v for k, v in kw.items()
+                         if k not in ("is_cat_field", "field_mask")})(
+                codes, codes_cm, g, h, kw["is_cat_field"], kw["field_mask"])
+        else:
+            sharding.distributed_fit_tree(
+                mesh, codes, codes_cm, g, h, partition_bits="bits" in variant,
+                hist_dtype=torch.bfloat16 if "bf16" in variant else None,
+                **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        got = sharding.collective_stats()
+        want = rl.by_kind(dryrun_gbdt.plan_collectives(
+            dryrun_gbdt.plan_levels(mesh, n_records=n, n_fields=F,
+                                    n_bins=N_BINS, depth=DEPTH,
+                                    variant=variant)))
+        mesh_out[variant] = {"collectives": got, "tree_wall_ms": wall}
+        used = {k: v for k, v in got.items() if v["count"]}
+        verdict = "equal" if got == want else "DIFFERENT: " + json.dumps(want)
+        log(f"dryrun (b) (2, 2) mesh of {dev}, {n:,} x {F}, {variant}: "
+            f"collectives {json.dumps(used)} (plan {verdict}); tree "
+            f"{wall:.1f} ms host wall  [{smi}]")
+        check(got == want, f"dryrun (b) {variant}: the (2, 2) mesh's "
+              "collectives equal the plan's by kind, count and bytes")
+    del codes, codes_cm, g, h
+    torch.cuda.empty_cache()
+    return {"levels": levels, "mesh": mesh_out}
+
+
+def dryrun_lm_witness(seed: int, dev, smi: str) -> dict:
+    """(d): minicpm-2b as phase 10 (b) trains it, planned on a (1, 1) meta
+    mesh, then one real step on the card: FLOPs equal, the planned bytes a
+    card within ``DRYRUN_BYTES_BAND`` of the measured peak."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.registry import ShapeConfig
+    from repro_torch.data.pipeline import token_batches
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import meta_mesh
+    from repro_torch.launch.train import lm_train_batch
+    from repro_torch.models import lm, optim
+
+    arch, _, B, S, _ = LM_TRAIN_FULL[0]
+    cfg = get_arch(arch)
+    shape = ShapeConfig(f"train_{S}", S, B, "train")
+    t0 = time.perf_counter()
+    trace = dryrun.trace_cell(cfg, shape, {})
+    rec = dryrun.plan_cell(cfg, shape, meta_mesh((1, 1), ("data", "model")),
+                           {}, trace)
+    plan_s = time.perf_counter() - t0
+    model = lm.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    arrays = next(token_batches(np.random.default_rng(seed), cfg.vocab, B,
+                                S, 1))
+    batch = lm_train_batch(cfg, arrays, dev)
+    opt = optim.adamw_init(model)
+    step = lm.make_train_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        _, _, m = step(model, opt, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    flops = fc.get_total_flops()
+    ratio = rec["bytes_per_device"] / peak
+    out = {"config": arch, "batch": B, "seq": S, "plan_s": plan_s,
+           "plan_flops": trace["flops"], "step_flops": flops,
+           "plan_bytes_per_device": rec["bytes_per_device"],
+           "plan_argument_bytes": rec["argument_size_in_bytes"],
+           "plan_temp_bytes": rec["temp_size_in_bytes"],
+           "peak_bytes": peak, "bytes_ratio": ratio,
+           "loss": float(m["loss"])}
+    log(f"dryrun (d) {arch} B {B} x {S}, remat {cfg.remat_policy}: plan on a "
+        f"(1, 1) meta mesh in {plan_s:.1f} s; FLOPs plan {trace['flops']:,} "
+        f"vs the card's step {flops:,} "
+        f"({'equal' if flops == trace['flops'] else 'DIFFERENT'}); bytes a "
+        f"card plan {rec['bytes_per_device']:,} (arguments "
+        f"{rec['argument_size_in_bytes']:,}, saved "
+        f"{rec['temp_size_in_bytes']:,}) "
+        f"vs peak {peak:,} ({peak / 2**30:.2f} GiB): ratio {ratio:.4f} "
+        f"(band {DRYRUN_BYTES_BAND})  [{smi}]")
+    check(flops == trace["flops"], "dryrun (d): the card's step counts the "
+          "meta plan's FLOPs exactly")
+    check(DRYRUN_BYTES_BAND[0] <= ratio <= DRYRUN_BYTES_BAND[1],
+          "dryrun (d): the planned bytes a card lie within "
+          f"{DRYRUN_BYTES_BAND} of the step's peak memory")
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_path(seed: int, dev, smi: str) -> dict:
+    """Phase 11: the dry runs and the report, held against the card."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "smoke_dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    (out_dir / "lm").mkdir(parents=True)
+    lm_log = out_dir / "lm.log"
+    # (c) runs on the host's cores while (a), (b) and (d) go on
+    t_lm = time.perf_counter()
+    proc = dryrun_cli("repro_torch.launch.dryrun", "--arch", "all",
+                      "--shape", "all", "--mesh", "both", "--jobs",
+                      str(DRYRUN_JOBS), "--out", str(out_dir / "lm"),
+                      out=lm_log)
+    try:
+        out = {"gbdt_plans": dryrun_gbdt_plans(out_dir, smi)}
+        out["gbdt_witness"] = dryrun_gbdt_witness(seed, dev, smi)
+        out["lm_witness"] = dryrun_lm_witness(seed, dev, smi)
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lm_wall = time.perf_counter() - t_lm
+    text = lm_log.read_text()
+    lines = text.splitlines()
+    n_ok = sum(1 for ln in lines if ln.startswith("[dryrun]   ok"))
+    n_skip = sum(1 for ln in lines if ln.startswith("[dryrun] SKIP"))
+    n_fail = sum(1 for ln in lines if ln.startswith("[dryrun] FAIL"))
+    log(f"dryrun (c) dryrun --arch all --shape all --mesh both --jobs "
+        f"{DRYRUN_JOBS}: exit {rc}, {n_ok} planned, {n_skip} skipped, "
+        f"{n_fail} failed a mesh pair of 40 cells; wall {lm_wall:.1f} s "
+        f"(from its start, beside (a), (b), (d)); "
+        f"{lines[-1] if lines else ''}")
+    from repro_torch.configs import all_cells
+    runnable = sum(ok for _, _, ok, _ in all_cells())
+    check(rc == 0 and n_fail == 0 and n_ok == 2 * runnable
+          and n_skip == 2 * (40 - runnable), "dryrun (c): every runnable "
+          "cell planned on both meshes, skips only where cell_is_runnable "
+          f"says so, 0 FAIL:\n{text[-3000:]}")
+    out["lm_dryrun"] = {"wall_s": lm_wall, "planned": n_ok,
+                        "skipped": n_skip}
+    for mesh in ("single", "multi"):
+        res = dryrun_cli("repro_torch.launch.report", "--dir",
+                         str(out_dir / "lm"), "--mesh", mesh)
+        rows = [ln for ln in res.stdout.splitlines()
+                if ln.count(" | ") >= 9 and not ln.startswith("arch ")]
+        log(f"dryrun (e) report --mesh {mesh}: exit {res.returncode}, "
+            f"{len(rows)} rows:\n" + res.stdout)
+        check(res.returncode == 0 and len(rows) == 40,
+              f"dryrun (e): report --mesh {mesh} exits 0 with 40 rows")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out["card"] = smi
+    log("dryrun summary " + json.dumps(out))
+    log(f"dryrun phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--records", type=int, default=10_000_000)
@@ -4266,6 +4598,8 @@ def main(argv=None) -> int:
     lm_path(args.seed, dev, smi)
     # phase 10: LM training (no kernel of the table either)
     lm_train_path(args.seed, dev, smi)
+    # phase 11: the dry runs and the report, held against the card
+    dryrun_path(args.seed, dev, smi)
     for row, key, counter in (
             ("histogram", "higgs", "histogram"),
             ("partition", "higgs", "partition"),

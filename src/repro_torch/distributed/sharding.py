@@ -492,14 +492,14 @@ def distributed_fit_tree(mesh: Mesh, codes, codes_cm, g, h, *, depth: int,
                                        .long()].to(dev)
                     lvl = piece if lvl is None else torch.where(
                         (owner_m == m)[:, None], piece, lvl)
-                if M > 1:
-                    _record("all-gather", _nbytes(lvl))
                 new = ops.partition_level(
                     nid[d][0], lvl.T.contiguous(), col_ids.to(dev),
                     thr.to(dev), cat.to(dev), dl.to(dev),
                     missing_bin=missing_bin, plan=plan)
             nid[d] = [new if m == 0 else new.to(grid[d, m])
                       for m in range(M)]
+        if M > 1:       # one gather a card: its (nn, n_l) split columns
+            _record("all-gather", _nbytes(lvl))
 
     feature, threshold, is_cat, default_left, value_bottom, value_set = state
     # the bottom leaves from per-shard G, H sums, one sum over the data axes

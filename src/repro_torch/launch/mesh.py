@@ -10,8 +10,11 @@ torch devices with named axes, held by one process:
 Every axis but ``"model"`` carries records (:func:`data_axes`).  A mesh
 may repeat a device: ``[cuda:0] * 4`` runs four data shards on one card
 and ``["cpu"] * 8`` eight on the host, the port's counterpart of
-``repro``'s forced host device count.  Building a mesh touches no device
-state beyond counting the CUDA devices when none are given.
+``repro``'s forced host device count.  A mesh of ``meta`` devices
+(:func:`meta_mesh`) is the dry runs' production mesh, as ``repro``'s are
+of placeholder devices: it places nothing and only its shape is read.
+Building a mesh touches no device state beyond counting the CUDA devices
+when none are given.
 """
 from __future__ import annotations
 
@@ -100,9 +103,48 @@ def make_production_mesh(*, multi_pod: bool = False,
     return make_mesh(shape, axes, devices=devices)
 
 
+def meta_mesh(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
+    """A mesh of ``shape`` over ``meta`` devices (a plan's mesh)."""
+    n = int(np.prod(tuple(shape)))
+    return make_mesh(shape, axes, devices=[torch.device("meta")] * n)
+
+
+def meta_production_mesh(multi_pod: bool = False) -> Mesh:
+    """The production mesh over ``meta`` devices (the dry runs' mesh)."""
+    n = int(np.prod(MULTI_POD_SHAPE if multi_pod else SINGLE_POD_SHAPE))
+    return make_production_mesh(multi_pod=multi_pod,
+                                devices=[torch.device("meta")] * n)
+
+
+def axis_size(mesh: Mesh, axes) -> int:
+    """The shards of ``axes`` (``None``, one axis, or a tuple of them)."""
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    return int(np.prod([mesh.shape[a] for a in axes]))
+
+
+def shard_shape(mesh: Mesh, spec: Sequence, shape: Sequence[int]) -> tuple:
+    """One card's shape of a ``shape`` tensor laid out by ``spec`` (per
+    dimension ``None`` or the axes that shard it); a dimension that its
+    axes do not divide takes the ceiling, the largest shard."""
+    if len(spec) != len(shape):
+        raise ValueError(f"spec {spec} for a tensor of shape {shape}")
+    return tuple(-(-int(d) // axis_size(mesh, a)) for d, a in
+                 zip(shape, spec))
+
+
 def data_axes(mesh: Mesh) -> Tuple[str, ...]:
     """Axes carrying records (everything but ``"model"``)."""
     return tuple(a for a in mesh.axis_names if a != "model")
+
+
+def spec_data_axes(mesh: Mesh):
+    """The data axes as a spec names them: one axis, or a tuple of axes
+    when there are several."""
+    da = data_axes(mesh)
+    return da if len(da) > 1 else da[0]
 
 
 def model_axis(mesh: Mesh) -> str:

@@ -37,8 +37,23 @@ bits); the SSM decay scalars and the router stay float32.  ``.to()``,
 ``load_state_dict``, a train step or :meth:`LM.drop_casts` drops the
 copies.
 
-The sharding rules (``partition_specs``, ``param_shardings``,
-``cache_specs``) are not ported here.
+The sharding rules are ``repro``'s, as data that a plan reads: no
+tensor is placed by them (the port has no ``NamedSharding``).
+:func:`abstract_params` gives ``{name: (shape, dtype)}`` in ``repro``'s
+stacked layout (a block parameter's group axis first, keyed by the name
+of the group's first layer), :func:`partition_specs` each one's spec (a
+tuple with, per dimension, ``None`` or the mesh axes that shard it),
+:func:`param_shardings` its spec, shape and bytes on one card, and
+:func:`cache_specs` the caches on ``meta`` with their specs.  Rules
+(MaxText-flavored, ``repro``'s):
+
+  data axes = all mesh axes but "model" (("pod", "data") multi-pod).
+  embed (V, d)            -> ("model", fsdp)
+  in-proj  (d, X)         -> (fsdp, "model")
+  out-proj (X, d)         -> ("model", fsdp)
+  experts  (E, d, f)      -> EP ("model", fsdp, None) when E divides the
+                             model axis, else TP (None, fsdp, "model")
+  fsdp = data axes when cfg.fsdp (ZeRO-3: params+moments spread over data)
 """
 from __future__ import annotations
 
@@ -52,6 +67,8 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.api.plan import resolve_device
 from repro_torch.configs.registry import ArchConfig
+from repro_torch.launch.mesh import (Mesh, data_axes, shard_shape,
+                                     spec_data_axes)
 from repro_torch.models import layers as L
 from repro_torch.models import optim
 from repro_torch.models.mamba import mamba2_mixer
@@ -262,6 +279,111 @@ def active_param_count(cfg: ArchConfig) -> int:
             n = n * cfg.top_k // cfg.n_experts
         total += n
     return total
+
+
+# ==========================================================================
+# partition specs
+# ==========================================================================
+_IN_W = ("wq", "wk", "wv", "w_in", "w_gate", "in_proj",
+         "shared_w_in", "shared_w_gate")
+_OUT_W = ("wo", "w_out", "out_proj", "shared_w_out")
+_STACKS = ("blocks", "enc_blocks")
+
+
+def stacked_name(cfg: ArchConfig, name: str) -> Tuple[str, int, int]:
+    """(name in ``repro``'s stacked layout, group index, groups) of the
+    port's parameter ``name``: layer i of the decoder is group i // period
+    of ``blocks.{i % period}``, encoder layer i group i of
+    ``enc_blocks.0``; a parameter outside the stacks is its own (0, 1)."""
+    stack, _, rest = name.partition(".")
+    if stack not in _STACKS:
+        return name, 0, 1
+    i, _, leaf = rest.partition(".")
+    i = int(i)
+    if stack == "enc_blocks":
+        return f"enc_blocks.0.{leaf}", i, cfg.encoder_layers
+    period = cfg.scan_period()
+    return (f"blocks.{i % period}.{leaf}", i // period,
+            cfg.n_layers // period)
+
+
+def abstract_params(cfg: ArchConfig) -> Dict[str, Tuple[tuple, torch.dtype]]:
+    """Full-scale ``{name: (shape, dtype)}`` in ``repro``'s stacked layout,
+    read from ``LM(cfg, device="meta")`` (nothing is allocated): a block
+    parameter carries its group axis first and is keyed by the name of
+    its group's first layer."""
+    out = {}
+    for name, p in LM(cfg, device="meta").named_parameters():
+        key, g, groups = stacked_name(cfg, name)
+        if g == 0:
+            group_axis = (groups,) if name.startswith(_STACKS) else ()
+            out[key] = (group_axis + tuple(p.shape), p.dtype)
+    return out
+
+
+def partition_specs(cfg: ArchConfig, mesh: Mesh) -> Dict[str, tuple]:
+    """``repro``'s spec of every parameter of :func:`abstract_params`,
+    keyed alike: per dimension ``None`` or the axis (or tuple of axes)
+    that shards it, the group axis of a stacked parameter ``None``."""
+    da = spec_data_axes(mesh)
+    m = mesh.shape["model"]
+    fsdp = da if cfg.fsdp else None
+    ep = cfg.n_experts >= m and cfg.n_experts % m == 0
+    if isinstance(fsdp, tuple):
+        ff = fsdp + ("model",)
+    else:
+        ff = (fsdp, "model") if fsdp else "model"
+
+    def rule(key: str, shape: tuple) -> tuple:
+        stacked = key.startswith(_STACKS)
+        name = key.rsplit(".", 1)[-1]
+        rank = len(shape) - (1 if stacked else 0)
+
+        def S(*spec):
+            return ((None,) + spec) if stacked else spec
+
+        if name == "embed":
+            return ("model", fsdp)
+        if name in _IN_W:
+            if rank == 3:                      # (E, d, ff) expert weights
+                if ep:
+                    return S("model", fsdp, None)
+                if cfg.moe_ff_fsdp:            # keep contracted d unsharded
+                    return S(None, None, ff)
+                return S(None, fsdp, "model")
+            return S(fsdp, "model")
+        if name in _OUT_W:
+            if rank == 3:                      # (E, ff, d)
+                if ep:
+                    return S("model", fsdp, None)
+                if cfg.moe_ff_fsdp:
+                    return S(None, ff, None)
+                return S(None, "model", fsdp)
+            return S("model", fsdp)
+        if name == "conv_w":
+            return S(None, "model")
+        if name in ("A_log", "D", "dt_bias"):
+            return S("model") if cfg.ssm_heads % m == 0 else S(None)
+        if name == "gate_norm":
+            return S("model") if cfg.d_inner % m == 0 else S(None)
+        return S(*([None] * rank))             # norms, biases, router
+
+    return {key: rule(key, shape)
+            for key, (shape, _) in abstract_params(cfg).items()}
+
+
+def param_shardings(cfg: ArchConfig, mesh: Mesh
+                    ) -> Dict[str, Tuple[tuple, tuple, int]]:
+    """``{name: (spec, local shape, local bytes)}`` on one card for every
+    parameter of :func:`abstract_params`; a dimension an axis does not
+    divide takes the ceiling (the largest shard)."""
+    specs = partition_specs(cfg, mesh)
+    out = {}
+    for key, (shape, dtype) in abstract_params(cfg).items():
+        local = shard_shape(mesh, specs[key], shape)
+        out[key] = (specs[key], local,
+                    int(np.prod(local)) * dtype.itemsize)
+    return out
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -669,6 +791,39 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                                     device=device)}
         caches.append(c)
     return caches
+
+
+def cache_specs(cfg: ArchConfig, mesh: Mesh, batch: int, max_len: int,
+                dtype=torch.bfloat16, kv_shard: str = "hd"):
+    """(caches on ``meta``, their specs), both one dict a layer as
+    :func:`init_cache` gives them; a spec is ``repro``'s without its group
+    axis (``repro``'s is ``(None,) + spec``).  SSM state shards heads;
+    batch shards the data axes (replicated when it cannot divide them,
+    e.g. long_500k's B = 1).  K/V model-axis placement is selectable:
+      * ``hd``  — shard head_dim (always divisible; contraction psum)
+      * ``seq`` — shard the cache sequence dim (balanced attention read;
+                  the decode write touches one shard per step)
+      * ``kv``  — shard the KV-head dim (pads 8 heads -> model width)
+      * ``none``— replicate over the model axis
+    """
+    n_da = int(np.prod([mesh.shape[a] for a in data_axes(mesh)]))
+    da = spec_data_axes(mesh) if batch % n_da == 0 else None
+    kv_spec = {"hd": (da, None, None, "model"),
+               "seq": (da, "model", None, None),
+               "kv": (da, None, "model", None),
+               "none": (da, None, None, None)}[kv_shard]
+    caches = init_cache(cfg, batch, max_len, dtype, device="meta")
+
+    def rule(name: str, leaf):
+        if isinstance(leaf, dict):
+            return {k: rule(k, v) for k, v in leaf.items()}
+        if name in ("k", "v"):
+            return kv_spec
+        if name == "conv":
+            return (da, None, "model")
+        return (da, "model", None, None)        # ssm state
+
+    return caches, [rule("", c) for c in caches]
 
 
 @torch.no_grad()

@@ -60,7 +60,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.distributed.trainer, repro_torch.configs, "
             "repro_torch.models, repro_torch.models.lm, "
             "repro_torch.models.layers, repro_torch.models.moe, "
-            "repro_torch.models.mamba, repro_torch.models.optim; "
+            "repro_torch.models.mamba, repro_torch.models.optim, "
+            "repro_torch.launch.dryrun, repro_torch.launch.dryrun_gbdt, "
+            "repro_torch.launch.report; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
