@@ -1,0 +1,17 @@
+"""The grower's host time a round, in ms: the total of the program's
+``tree.grow`` spans (steps ①–③ of every level and the leaves) over the
+count of its ``gbdt.round`` spans (``repro_torch.obs``), as recorded
+while the traced run's profiles record.  None where no round was
+recorded, or where the program keeps no spans."""
+
+
+def read(ctx):
+    try:
+        from repro_torch import obs
+    except ImportError:
+        return None
+    rows = obs.spans()
+    rounds = rows.get("gbdt.round", {}).get("count", 0)
+    if not rounds:
+        return None
+    return rows.get("tree.grow", {}).get("total_ns", 0) / rounds / 1e6

@@ -173,7 +173,10 @@ class BoosterEstimator:
 
     @property
     def step_times_(self) -> Dict[str, float]:
-        """Accumulated seconds per paper step from the last ``fit``."""
+        """Host seconds per paper step from the last ``fit``, summed over
+        its rounds.  The host loop takes them without a sync: the device
+        catches up at the round's loss read, which falls under
+        ``"other"``; the sum a round is still the round's wall time."""
         self._check_fitted()
         return self._result.step_times if self._result is not None else {}
 

@@ -38,6 +38,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.api.plan import ExecutionPlan, resolve_device, resolve_plan
 from repro_torch.core import losses as losses_mod
 from repro_torch.core import tree as tree_mod
@@ -46,7 +47,6 @@ from repro_torch.core.binning import BinnedDataset, PackedCodes
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import traversal as trav_k
 from repro_torch.kernels.ref import TreeArrays
-from repro_torch.resilience import metrics as _metrics
 from repro_torch.resilience.errors import (NumericalDivergenceError,
                                            TrainingInterrupted)
 from repro_torch.resilience.recovery import RecoveryPolicy, classify
@@ -179,16 +179,19 @@ class GBDTModel:
         if mode not in (None, "direct", "cached"):
             raise ValueError(f"unknown predict mode {mode!r}; choose "
                              "'cached' or 'direct'")
-        if mode == "cached":
-            from repro_torch.core.inference import predict_margin_cached
-            return predict_margin_cached(self, codes, plan=plan, cache=cache)
-        K = self.n_classes
-        base = base_margin_tensor(self.base_margin, codes.device)
-        out = base.reshape(-1).expand(codes.shape[0], K).clone()
-        ops.predict_ensemble(self.trees, codes, missing_bin=self.missing_bin,
-                             depth=self.max_depth, plan=plan, n_classes=K,
-                             out=out)
-        return out[:, 0] if K == 1 else out
+        with obs.span("gbdt.predict"):
+            if mode == "cached":
+                from repro_torch.core.inference import predict_margin_cached
+                return predict_margin_cached(self, codes, plan=plan,
+                                             cache=cache)
+            K = self.n_classes
+            base = base_margin_tensor(self.base_margin, codes.device)
+            out = base.reshape(-1).expand(codes.shape[0], K).clone()
+            ops.predict_ensemble(self.trees, codes,
+                                 missing_bin=self.missing_bin,
+                                 depth=self.max_depth, plan=plan,
+                                 n_classes=K, out=out)
+            return out[:, 0] if K == 1 else out
 
     def predict(self, codes, *, plan: Optional[ExecutionPlan] = None,
                 mode: Optional[str] = None, cache=None) -> torch.Tensor:
@@ -290,7 +293,9 @@ def _model_rounds(model: "GBDTModel", K: Optional[int]) -> List[TreeArrays]:
 class TrainResult:
     model: GBDTModel
     history: Dict[str, List[float]]
-    step_times: Dict[str, float]     # accumulated seconds per paper step
+    step_times: Dict[str, float]     # host seconds per paper step, taken
+    #                                  without a sync: the device catches up
+    #                                  at the loss read, under "other"
     stats: Dict = dataclasses.field(default_factory=dict)
     margins: Optional[torch.Tensor] = None   # final training margins,
     #                                          (n,) or (n, K)
@@ -415,26 +420,30 @@ def _grow_round(config: GBDTConfig, plan: ExecutionPlan,
     folded into the stored leaves.  Shared by the host loop and the fused
     round."""
     K = loss.n_outputs
-    g, h = loss.grad_hess(margins, y)
-    g, h, field_mask = _apply_draws(config, draws, g, h, data.n_fields, K)
+    with obs.span("gbdt.grad"):
+        g, h = loss.grad_hess(margins, y)
+        g, h, field_mask = _apply_draws(config, draws, g, h, data.n_fields,
+                                        K)
     common = dict(depth=config.max_depth, n_bins=data.n_bins,
                   missing_bin=data.missing_bin,
                   is_cat_field=data.is_categorical,
                   field_mask=field_mask, lambda_=config.lambda_,
                   gamma=config.gamma,
                   min_child_weight=config.min_child_weight, plan=plan)
-    if K is not None:
-        # one class-batched pass grows all K per-class trees
-        tree = tree_mod.fit_forest(data.codes, data.codes_cm,
-                                   g.T.contiguous(), h.T.contiguous(),
-                                   **common)
-    elif config.grow_policy == "depthwise":
-        tree = tree_mod.fit_tree(data.codes, data.codes_cm, g.contiguous(),
-                                 h.contiguous(), **common)
-    else:
-        tree = tree_mod.fit_tree_lossguide(
-            data.codes, data.codes_cm, g.contiguous(), h.contiguous(),
-            max_leaves=config.max_leaves, **common)
+    with obs.span("tree.grow"):
+        if K is not None:
+            # one class-batched pass grows all K per-class trees
+            tree = tree_mod.fit_forest(data.codes, data.codes_cm,
+                                       g.T.contiguous(), h.T.contiguous(),
+                                       **common)
+        elif config.grow_policy == "depthwise":
+            tree = tree_mod.fit_tree(data.codes, data.codes_cm,
+                                     g.contiguous(), h.contiguous(),
+                                     **common)
+        else:
+            tree = tree_mod.fit_tree_lossguide(
+                data.codes, data.codes_cm, g.contiguous(), h.contiguous(),
+                max_leaves=config.max_leaves, **common)
     # shrinkage is folded into the stored leaf values
     return tree._replace(leaf_value=tree.leaf_value * config.learning_rate)
 
@@ -460,6 +469,15 @@ def _validate_multiclass_labels(K: int, y: torch.Tensor,
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _mean_loss(loss: losses_mod.Loss, margins, y) -> float:
+    """The mean loss, enqueued (``gbdt.loss``), then read: the round's one
+    wait on the device (``host.wait``)."""
+    with obs.span("gbdt.loss"):
+        value = torch.mean(loss.value(margins, y))
+    with obs.span("host.wait"):
+        return float(value)
 
 
 def train(config: GBDTConfig, data: BinnedDataset, y,
@@ -555,34 +573,40 @@ def train(config: GBDTConfig, data: BinnedDataset, y,
     predict_round = _predict_forest if K is not None else _predict_one_tree
     start = len(trees)     # a warm start continues the round numbering
     for t_idx in range(start, start + config.n_trees):
+        # step_times take the host's clock only: the device catches up at
+        # the loss read, under "other"
         t0 = time.perf_counter()
-        draws = _round_draws(config, _round_generator(config, t_idx, device),
-                             n, F)
-        tree = _grow_round(config, plan, loss, data, y, margins, draws)
-        _sync(device)
-        t1 = time.perf_counter()
-        step_times["binning_split"] += t1 - t0
+        with obs.span("gbdt.round"):
+            with obs.span("gbdt.draws"):
+                draws = _round_draws(
+                    config, _round_generator(config, t_idx, device), n, F)
+            tree = _grow_round(config, plan, loss, data, y, margins, draws)
+            t1 = time.perf_counter()
+            step_times["binning_split"] += t1 - t0
 
-        # step ⑤ — one-tree traversal refreshes margins (and thus g, h),
-        # adding each leaf into them in place
-        margins = predict_round(tree, data, plan, margins)
-        _sync(device)
-        t2 = time.perf_counter()
-        step_times["traversal"] += t2 - t1
+            # step ⑤ — one-tree traversal refreshes margins (and thus g, h),
+            # adding each leaf into them in place
+            with obs.span("gbdt.traverse"):
+                margins = predict_round(tree, data, plan, margins)
+            t2 = time.perf_counter()
+            step_times["traversal"] += t2 - t1
 
-        trees.append(tree)
-        train_loss = float(torch.mean(loss.value(margins, y)))
-        history["train_loss"].append(train_loss)
-        stop = False
-        if eval_set is not None:
-            eval_margins = predict_round(tree, ev_data, plan, eval_margins)
-            ev = float(torch.mean(loss.value(eval_margins, ev_y)))
-            history["eval_loss"].append(ev)
-            if ev < best_eval - 1e-12:
-                best_eval, best_round = ev, t_idx
-            stop = (config.early_stopping_rounds is not None
-                    and t_idx - best_round >= config.early_stopping_rounds)
-        step_times["other"] += time.perf_counter() - t2
+            trees.append(tree)
+            train_loss = _mean_loss(loss, margins, y)
+            history["train_loss"].append(train_loss)
+            stop = False
+            if eval_set is not None:
+                with obs.span("gbdt.traverse"):
+                    eval_margins = predict_round(tree, ev_data, plan,
+                                                 eval_margins)
+                ev = _mean_loss(loss, eval_margins, ev_y)
+                history["eval_loss"].append(ev)
+                if ev < best_eval - 1e-12:
+                    best_eval, best_round = ev, t_idx
+                stop = (config.early_stopping_rounds is not None
+                        and t_idx - best_round
+                        >= config.early_stopping_rounds)
+            step_times["other"] += time.perf_counter() - t2
 
         if verbose and (t_idx % config.log_every == 0
                         or t_idx == start + config.n_trees - 1):
@@ -935,7 +959,7 @@ def _train_fused(config, plan, loss, data, y, ev_data, ev_y, trees, margins,
                         f"non-finite loss/margins at round {t_idx}",
                         round_index=t_idx, what="loss/margins")
                 rstats["divergence_rollbacks"] += 1
-                _metrics.record("recoveries")
+                obs.record("recoveries")
                 del trees[snap["trees"]:]
                 del train_dev[snap["dev"]:]
                 del eval_dev[snap["dev"]:]
@@ -1332,7 +1356,7 @@ def train_streaming(config: GBDTConfig, source, binner, y, *,
                             >= recovery.max_oom_halvings):
                         raise
                     rstats["oom_halvings"] += 1
-                    _metrics.record("recoveries")
+                    obs.record("recoveries")
                     chunk_state["rows"] = new_rows
                     if cuda:
                         torch.cuda.empty_cache()
@@ -1345,7 +1369,7 @@ def train_streaming(config: GBDTConfig, source, binner, y, *,
                     if rstats["recoveries"] >= recovery.max_recoveries:
                         raise
                     rstats["recoveries"] += 1
-                    _metrics.record("recoveries")
+                    obs.record("recoveries")
                     if recovery.retry_delay_s:
                         time.sleep(recovery.retry_delay_s)
                     if recovery.checkpoint_dir is not None:

@@ -35,11 +35,19 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.api.plan import ExecutionPlan, resolve_plan
 from repro_torch.core import splits as splits_mod
 from repro_torch.core.binning import PackedCodes
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import TreeArrays
+
+
+# the level loop's span names (``repro_torch.obs``), made once: steps ①, ②
+# and ③ of level L
+_HIST_SPANS = tuple(f"tree.hist.{L}" for L in range(32))
+_SPLIT_SPANS = tuple(f"tree.split.{L}" for L in range(32))
+_PARTITION_SPANS = tuple(f"tree.partition.{L}" for L in range(32))
 
 
 def _lift_loose_kwargs(plan: Optional[ExecutionPlan],
@@ -128,29 +136,34 @@ def fit_forest(codes, codes_cm, g, h, *, depth: int, n_bins: int,
         # step ① — one pass bins every vertex of every class; with
         # plan.hist_subtraction, levels > 0 bin only the smaller child of
         # each parent and derive the sibling from the last level's hist
-        if plan.hist_subtraction and level > 0:
-            hist = _subtract_level_hist(codes, g, h, node_ids, hist,
-                                        n_nodes=nn, n_bins=n_bins, plan=plan)
-        else:
-            hist = ops.build_histogram(codes, g, h, node_ids, n_nodes=nn,
-                                       n_bins=n_bins, plan=plan)
+        with obs.span(_HIST_SPANS[level]):
+            if plan.hist_subtraction and level > 0:
+                hist = _subtract_level_hist(codes, g, h, node_ids, hist,
+                                            n_nodes=nn, n_bins=n_bins,
+                                            plan=plan)
+            else:
+                hist = ops.build_histogram(codes, g, h, node_ids, n_nodes=nn,
+                                           n_bins=n_bins, plan=plan)
         # step ② — split decisions + tree-table updates
-        state, _, _ = _decide_level(
-            hist, level, depth, state, is_cat_field, field_mask, lambda_,
-            gamma, min_child_weight, find)
+        with obs.span(_SPLIT_SPANS[level]):
+            state, _, _ = _decide_level(
+                hist, level, depth, state, is_cat_field, field_mask, lambda_,
+                gamma, min_child_weight, find)
         # step ③ — route every class's records to children, reading the
         # chosen fields straight from the column-major copy; the level's
         # splits are handed over as views of the tree tables, where step ②
         # wrote them (feature -1 where a node does not split)
         off = nn - 1
-        node_ids = ops.partition_level_cm(
-            node_ids, codes_cm,
-            *[table[:, off:off + nn] for table in state[:4]],
-            missing_bin=missing_bin, plan=plan)
+        with obs.span(_PARTITION_SPANS[level]):
+            node_ids = ops.partition_level_cm(
+                node_ids, codes_cm,
+                *[table[:, off:off + nn] for table in state[:4]],
+                missing_bin=missing_bin, plan=plan)
 
     feature, threshold, is_cat, default_left, value_bottom, value_set = state
-    value_bottom = _settle_bottom_leaves(g, h, node_ids, value_bottom,
-                                         value_set, n_leaf, lambda_)
+    with obs.span("tree.leaves"):
+        value_bottom = _settle_bottom_leaves(g, h, node_ids, value_bottom,
+                                             value_set, n_leaf, lambda_)
     return TreeArrays(feature=feature, threshold=threshold, is_cat=is_cat,
                       default_left=default_left, leaf_value=value_bottom)
 

@@ -44,6 +44,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.api.plan import ExecutionPlan, resolve_plan
 from repro_torch.core import gbdt as gbdt_mod
 from repro_torch.core import losses as losses_mod
@@ -59,7 +60,6 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import TreeArrays
 from repro_torch.launch.mesh import (Mesh, cuda_devices, data_axes,
                                      make_mesh, n_data_shards)
-from repro_torch.resilience import metrics as _metrics
 from repro_torch.resilience.errors import (NumericalDivergenceError,
                                            Preemption, TrainingInterrupted)
 from repro_torch.resilience.recovery import RecoveryPolicy, classify
@@ -538,7 +538,7 @@ def train_distributed(config: GBDTConfig, data: BinnedDataset, y, *,
                         >= recovery.max_divergence_rollbacks):
                     raise
                 rstats["divergence_rollbacks"] += 1
-                _metrics.record("recoveries")
+                obs.record("recoveries")
                 if diverged_at == t_idx:
                     # the same round diverged on its replay: shrink steps
                     round_config = dataclasses.replace(
@@ -558,7 +558,7 @@ def train_distributed(config: GBDTConfig, data: BinnedDataset, y, *,
                 if rstats["oom_halvings"] >= recovery.max_oom_halvings:
                     raise
                 rstats["oom_halvings"] += 1
-                _metrics.record("recoveries")
+                obs.record("recoveries")
                 hist_slices *= 2
                 if owner.type == "cuda":
                     torch.cuda.empty_cache()
@@ -570,7 +570,7 @@ def train_distributed(config: GBDTConfig, data: BinnedDataset, y, *,
                 if rstats["recoveries"] >= recovery.max_recoveries:
                     raise
                 rstats["recoveries"] += 1
-                _metrics.record("recoveries")
+                obs.record("recoveries")
                 if recovery.retry_delay_s:
                     time.sleep(recovery.retry_delay_s)
                 if verbose:
@@ -586,7 +586,7 @@ def train_distributed(config: GBDTConfig, data: BinnedDataset, y, *,
             if restarts > dist.max_restarts:
                 raise
             if recovery is not None:
-                _metrics.record("recoveries")
+                obs.record("recoveries")
             surv = (dist.survivors(devices) if dist.survivors is not None
                     else (devices[:-1] if len(devices) > 1 else devices))
             place(data_parallel_mesh([torch.device(d) for d in surv]))
