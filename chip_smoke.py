@@ -67,6 +67,14 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    version and the grouped kernel at the Higgs shape (NN = 1 and 32),
    timed in turns with the grouped kernel; their ratio is printed at each
    shape.
+2d. Step ②'s split-search kernel at the deepest level of the two main
+   paths (Higgs: 32 nodes x 28 fields x 256 bins; Covertype: 7 x 32 = 224
+   nodes x 54 fields, 44 of them categorical): bit-equal to its plain
+   version on dyadic histograms, search and fused fold (the six tree
+   tables after ``_decide_level``); on real statistics the largest gain
+   difference; its device time (``torch.profiler``), the plain version's,
+   the bound, and the host time a level of both (the kernel's wrapper and
+   the plain search with its fold), without a sync.
 3a. A short fit of the Higgs-shaped data (2 trees) under
    ``ExecutionPlan(hist_strategy="cuda_packed")``: the naive-packing
    histogram must run once per level and the train loss must fall.
@@ -1194,6 +1202,8 @@ def iot_main_path(n: int, n_trees: int, seed: int, dev):
     check(counts["partition_nibble"] == DEPTH * n_trees
           and counts["partition"] == 0,
           "nibble partition launched once per level")
+    check(counts["split_level"] == DEPTH * n_trees,
+          "split search launched once per level")
     check(counts["traversal"] == n_trees, "traversal launched once per tree")
     check(counts["traversal_wide"] == 0 and counts["ensemble_wide"] == 0,
           "step ⑤ and prediction took the staged entry")
@@ -1284,6 +1294,8 @@ def main_path(n: int, n_trees: int, seed: int, dev):
           "histogram launched once per level")
     check(counts["partition"] == DEPTH * n_trees,
           "partition launched once per level")
+    check(counts["split_level"] == DEPTH * n_trees,
+          "split search launched once per level")
     check(counts["traversal"] == n_trees, "traversal launched once per tree")
     check(counts["traversal_wide"] == 0 and counts["ensemble_wide"] == 0,
           "step ⑤ and prediction took the staged entry")
@@ -1488,6 +1500,104 @@ def class_parity(n: int, seed: int, dev) -> dict:
     return rows
 
 
+SPLIT_OPS_PER_BIN = 20           # prefix sums of G and H; the gain both ways
+
+
+def _host_us(fn, reps: int) -> float:
+    """Mean host-clock time of ``fn`` in microseconds over ``reps`` calls
+    issued back to back, no sync between them (what a level costs the
+    host's loop); a warm-up and a sync first."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def split_parity(seed: int, dev) -> dict:
+    """Phase 2d: the split-search kernel against its plain version at the
+    deepest level of the Higgs- and Covertype-shaped paths.  Returns its
+    kernel row (without launch counts); ``*_k7`` keys hold Covertype's."""
+    from repro_torch.core import splits as splits_mod
+    from repro_torch.core import tree as tree_mod
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    nn, row = 2 ** (DEPTH - 1), {}
+    for sfx, K, F, n_cat in (("", 1, N_FIELDS, 0),
+                             ("_k7", MC_CLASSES, MC_FIELDS, MC_BINARY)):
+        lead, NB = (K, nn), N_BINS
+        is_cat = torch.arange(F, device=dev) >= F - n_cat
+        mask = torch.ones(F, dtype=torch.bool, device=dev)
+        dy = torch.stack([
+            torch.randint(-64, 64, lead + (F, NB), generator=gen,
+                          device=dev) / 64.0,
+            torch.randint(0, 64, lead + (F, NB), generator=gen,
+                          device=dev) / 64.0], -1).float()
+        real = torch.stack([
+            torch.randn(lead + (F, NB), generator=gen, device=dev),
+            torch.rand(lead + (F, NB), generator=gen, device=dev)], -1)
+        err = 0.0
+        for hist, exact in ((dy, True), (real, False)):
+            args = (hist.reshape(K * nn, F, NB, 2), is_cat, mask, 1.0, 0.0,
+                    1.0)
+            got = splits_mod.find_best_splits(*args)
+            want = splits_mod.find_best_splits_plain(*args)
+            if exact:
+                for name, a, b in zip(want._fields, got, want):
+                    check(torch.equal(a, b),
+                          f"split_level{sfx} {name} dyadic bit-equal")
+            else:
+                err = float((got.gain - want.gain).abs().max())
+        states = [(torch.full((K, 2 ** DEPTH - 1), -1, dtype=torch.int32,
+                              device=dev),
+                   *[torch.zeros((K, 2 ** DEPTH - 1), dtype=torch.int32,
+                                 device=dev) for _ in range(3)],
+                   torch.zeros((K, 2 ** DEPTH), device=dev),
+                   torch.zeros((K, 2 ** DEPTH), dtype=torch.bool,
+                               device=dev)) for _ in range(2)]
+        fold = dict(is_cat_field=is_cat, field_mask=mask, lambda_=1.0,
+                    gamma=0.0, min_child_weight=1.0)
+        fused, _, _ = tree_mod._decide_level(dy, DEPTH - 1, DEPTH, states[0],
+                                             *fold.values())
+        plain, _, _ = tree_mod._decide_level(
+            dy, DEPTH - 1, DEPTH, states[1], *fold.values(),
+            find=splits_mod.find_best_splits_plain)
+        check(all(torch.equal(a, b) for a, b in zip(fused, plain)),
+              f"split_level{sfx} fold: the six tables bit-equal")
+        args = (real.reshape(K * nn, F, NB, 2), is_cat, mask, 1.0, 0.0, 1.0)
+        level = lambda: tree_mod._decide_level(real, DEPTH - 1, DEPTH,
+                                               fused, *fold.values())
+        plain_level = lambda: tree_mod._decide_level(
+            real, DEPTH - 1, DEPTH, plain, *fold.values(),
+            find=splits_mod.find_best_splits_plain)
+        KNN = K * nn
+        b_ms, b_by = bound(8 * KNN * F * NB + 32 * KNN,
+                           SPLIT_OPS_PER_BIN * KNN * F * NB)
+        part = {"ms": device_ms(lambda: splits_mod.find_best_splits(*args),
+                                "split_level_kernel"),
+                "fold_ms": device_ms(level, "split_level_kernel"),
+                "plain_ms": time_ms(lambda: splits_mod.find_best_splits_plain(
+                    *args)),
+                "plain_level_ms": time_ms(plain_level),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "host_us": _host_us(level, 200),
+                "plain_host_us": _host_us(plain_level, 20),
+                "max_abs_err": err,
+                "shape": f"K={K} NN={nn} F={F} NB={NB} categorical={n_cat}"}
+        row.update({k + sfx: v for k, v in part.items()})
+        log(f"split_level{sfx} {part['shape']}: parity ok (search, fold)  "
+            f"kernel {part['ms']:.4f} ms (with fold {part['fold_ms']:.4f})  "
+            f"plain {part['plain_ms']:.3f} ms (level "
+            f"{part['plain_level_ms']:.3f})  bound {b_ms:.4f} ms ({b_by})  "
+            f"host a level {part['host_us']:.1f} us against "
+            f"{part['plain_host_us']:.1f} us; real-stat gain diff {err:.3g}")
+    row["library_ms"] = None
+    return row
+
+
 def mc_main_path(n: int, n_rounds: int, seed: int, dev):
     """Phase 3b: fit and predict a Covertype-shaped multi-class GBDT
     through the entry points a user calls.  Returns the run's launch
@@ -1551,6 +1661,8 @@ def mc_main_path(n: int, n_rounds: int, seed: int, dev):
           "class-batched histogram launched once per level")
     check(counts["partition"] == DEPTH * n_rounds,
           "class-batched partition launched once per level")
+    check(counts["split_level"] == DEPTH * n_rounds,
+          "split search launched once per level (all classes)")
     check(counts["traversal"] == n_rounds,
           "class-batched traversal launched once per round")
     check(counts["traversal_wide"] == 0 and counts["ensemble_wide"] == 0,
@@ -4536,6 +4648,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows.update(packed_parity(args.records, args.seed, dev))
     torch.cuda.empty_cache()
+    rows["split_level"] = split_parity(args.seed, dev)
     counts, steady_ms, (config, data, y), higgs_raw = main_path(
         args.records, args.trees, args.seed, dev)
     higgs_device_ms = round_breakdown("Higgs", config, data, y, steady_ms)
@@ -4606,7 +4719,8 @@ def main(argv=None) -> int:
             ("histogram_classes", "cover", "histogram"),
             ("partition_classes", "cover", "partition"),
             ("histogram_nibble", "iot", "histogram_nibble"),
-            ("partition_nibble", "iot", "partition_nibble")):
+            ("partition_nibble", "iot", "partition_nibble"),
+            ("split_level", "higgs", "split_level")):
         rows[row]["stream_launches"] = stream[key]["counts"][counter]
     rows["ensemble"]["stream_launches"] = \
         stream["higgs"]["warm_counts"]["ensemble"]
@@ -4622,7 +4736,8 @@ def main(argv=None) -> int:
                      "traversal": dc["warm"]["traversal"],
                      "ensemble": dc["predict"]["ensemble"],
                      "histogram_classes": dc["cover"]["histogram"],
-                     "partition_classes": dc["cover"]["partition"]}
+                     "partition_classes": dc["cover"]["partition"],
+                     "split_level": dc["higgs"]["split_level"]}
     for name, row in rows.items():
         row["dist_launches"] = dist_launches.get(name, 0)
     rows["histogram"].update(
@@ -4670,6 +4785,10 @@ def main(argv=None) -> int:
          "src/repro/kernels/traversal.py:84", iot_counts),
         ("histogram_naive", "histogram_naive", "histogram.cu",
          "src/repro/kernels/histogram.py:107", naive_counts),
+        # step ②: no pallas_call; the jnp of src/repro/core/splits.py,
+        # which jit fuses on the TPU
+        ("split_level", "split_level", "splits.cu",
+         "none (src/repro/core/splits.py:find_best_splits, jnp)", counts),
     ]
     table = []
     for name, counter, source, replaces, path_counts in meta:

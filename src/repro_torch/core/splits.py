@@ -1,8 +1,10 @@
 """Step ② — evaluating histogram bins to pick split points.
 
-The counterpart of :func:`repro.core.splits.find_best_splits`, in PyTorch
-on the histogram's device, and of ``find_best_splits_host``, the paper's
-offload of step ② to the host (numpy).
+The counterpart of :func:`repro.core.splits.find_best_splits`: on the card
+one launch of the split-search kernel (:mod:`repro_torch.kernels.splits`),
+elsewhere its plain PyTorch version, :func:`find_best_splits_plain`; and of
+``find_best_splits_host``, the paper's offload of step ② to the host
+(numpy).
 
 Split semantics (paper Fig 3 + missing-value handling):
   numeric field f, bin t:  "code <= t" goes left;
@@ -18,6 +20,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import splits as _split_k
 
 Tensor = torch.Tensor
 
@@ -45,6 +49,25 @@ def find_best_splits(hist: Tensor, is_cat_field: Tensor, field_mask: Tensor,
                      lambda_: float, gamma: float,
                      min_child_weight: float) -> SplitDecision:
     """hist: (NN, F, NB, 2); the last bin of every field is the missing bin.
+
+    A CUDA histogram (float32) takes one launch of the split-search kernel,
+    counted as ``split_level``; any other takes
+    :func:`find_best_splits_plain`, which states the semantics.
+    """
+    if hist.device.type == "cuda":
+        decision, _ = _split_k.split_level_cuda(
+            hist, is_cat_field, field_mask, lambda_, gamma, min_child_weight)
+        return SplitDecision(*decision)
+    return find_best_splits_plain(hist, is_cat_field, field_mask, lambda_,
+                                  gamma, min_child_weight)
+
+
+def find_best_splits_plain(hist: Tensor, is_cat_field: Tensor,
+                           field_mask: Tensor, lambda_: float, gamma: float,
+                           min_child_weight: float) -> SplitDecision:
+    """The plain PyTorch version of step ②, on the histogram's device.
+
+    hist: (NN, F, NB, 2); the last bin of every field is the missing bin.
 
     field_mask: (F,) bool — colsample / field-availability mask.  Per
     candidate the better missing direction is chosen, then the argmax over

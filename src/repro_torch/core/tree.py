@@ -7,13 +7,14 @@ The counterpart of :mod:`repro.core.tree`'s in-memory growers:
     K = 1 otherwise) grow level-synchronously over the same records; every
     record carries one level-local node id per class.  One histogram
     launch per level covers every vertex of every class, step ② picks the
-    splits with the class axis folded into the node axis (on the device, or
-    on the host under ``plan.host_offload_split``), and one partition
-    launch routes every class's records straight from the column-major
-    copy.  With ``plan.hist_subtraction``, levels > 0 bin only the smaller
-    child of every split parent and derive the sibling as ``parent −
-    smaller`` (paper §II-A).  Nothing in the level loop reads the host
-    (the host offload apart), so a CUDA graph can capture it.
+    splits with the class axis folded into the node axis (on the card one
+    launch of the split-search kernel, which also writes the level into
+    the tree tables; on the host under ``plan.host_offload_split``), and
+    one partition launch routes every class's records straight from the
+    column-major copy.  With ``plan.hist_subtraction``, levels > 0 bin
+    only the smaller child of every split parent and derive the sibling as
+    ``parent − smaller`` (paper §II-A).  Nothing in the level loop reads
+    the host (the host offload apart), so a CUDA graph can capture it.
   * :func:`fit_tree_lossguide` — the vertex-by-vertex (best-first)
     grower: a gain heap on the host, one histogram of the smaller child a
     split on the device, its sibling ``parent − child``.
@@ -40,6 +41,7 @@ from repro_torch.api.plan import ExecutionPlan, resolve_plan
 from repro_torch.core import splits as splits_mod
 from repro_torch.core.binning import PackedCodes
 from repro_torch.kernels import ops
+from repro_torch.kernels import splits as split_kernel
 from repro_torch.kernels.ref import TreeArrays
 
 
@@ -173,7 +175,18 @@ def _decide_level(hist, level, depth, state, is_cat_field, field_mask,
                   find=splits_mod.find_best_splits):
     """Step ② for one level: pick splits from the (K, nn, F, NB, 2) level
     histogram with ``find`` (on the device, or the host offload) and fold
-    them into the (K, ...) tree-table ``state``."""
+    them into the (K, ...) tree-table ``state``.
+
+    On the card, with the default ``find``, the search and the fold are
+    one launch of the split-search kernel, which updates every table of
+    ``state`` in place; elsewhere ``find`` runs and the fold below is plain
+    PyTorch (the kernel's specification).  Returns ``(state, best,
+    do_split)``: ``best`` the (K, nn) decisions, ``do_split`` (K, nn)."""
+    if find is splits_mod.find_best_splits and hist.device.type == "cuda":
+        decision, do_split = split_kernel.split_level_cuda(
+            hist, is_cat_field, field_mask, lambda_, gamma, min_child_weight,
+            tables=state, level=level, depth=depth)
+        return state, splits_mod.SplitDecision(*decision), do_split
     feature, threshold, is_cat, default_left, value_bottom, value_set = state
     K, nn, F, n_bins, _ = hist.shape
     off = nn - 1

@@ -25,13 +25,13 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("histogram", "partition", "traversal")
+SOURCES = ("histogram", "partition", "traversal", "splits")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 KERNELS = ("histogram", "histogram_nibble", "histogram_naive", "partition",
            "partition_nibble", "traversal", "traversal_wide", "ensemble",
-           "ensemble_wide")
+           "ensemble_wide", "split_level")
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 _libs: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[tuple, object] = {}
@@ -39,6 +39,7 @@ _functions: Dict[tuple, object] = {}
 POINTER = ctypes.c_void_p
 INT = ctypes.c_int
 INT64 = ctypes.c_longlong
+FLOAT = ctypes.c_float
 
 
 def count(kernel: str) -> None:

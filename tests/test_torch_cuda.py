@@ -9,6 +9,9 @@ Integer outputs are bit-equal; histograms bit-equal on dyadic g, h; the
 ensemble sum, taken in another order, to rtol 1e-5.  Each class-batched
 kernel is held against its plain version at K = 1 and K > 1, and each
 kernel that reads 4-bit ``PackedCodes`` also against its uint8 twin.
+The split-search kernel's decisions, and its fold into the tree tables,
+are bit-equal to the plain version on dyadic histograms, eagerly and
+replayed from a CUDA graph.
 The training variants (histogram subtraction, the lossguide grower, the
 host split offload, GOSS, fused rounds as CUDA graphs) are held against
 their direct or host-loop counterparts on the card and against the CPU.
@@ -1055,6 +1058,206 @@ def test_host_split_offload_on_card_matches_device(cuda):
     dev = splits.find_best_splits(*args)
     for name, a, b in zip(dev._fields, host, dev):
         assert a.device == b.device and torch.equal(a, b), name
+
+
+# --------------------------------------------------------------------------
+# step ②: the split-search kernel against its plain version
+# --------------------------------------------------------------------------
+def _dyadic_level_hist(lead, F, NB, rng, zero_frac=0.3):
+    """A (*lead, F, NB, 2) float32 level histogram of dyadic g, h (every
+    partial sum exact in float32), 30 % of its bins empty (numeric ties at
+    consecutive bins)."""
+    g = rng.integers(-64, 64, lead + (F, NB)) / 64
+    h = rng.integers(0, 64, lead + (F, NB)) / 64
+    empty = rng.uniform(size=g.shape) < zero_frac
+    g[empty] = 0.0
+    h[empty] = 0.0
+    return np.stack([g, h], -1).astype(np.float32)
+
+
+def _split_case(case, KNN, F, NB, rng):
+    """(hist, is_cat, mask, min_child_weight) of one kernel-parity case."""
+    hist = _dyadic_level_hist((KNN,), F, NB, rng)
+    is_cat = np.zeros(F, bool)
+    mask = np.ones(F, bool)
+    mcw = 0.5
+    if case == "cat_mask":
+        is_cat = rng.uniform(size=F) < 0.4
+        mask = rng.uniform(size=F) < 0.7
+        mask[0] = False                 # the parent's field may be masked
+    elif case == "refused":
+        is_cat = rng.uniform(size=F) < 0.4
+        mcw = 1e9                       # every candidate refused
+    elif case == "ties":
+        # every field a copy of field 0: the best ties across all fields
+        # (and so across warps); categorical copies with bins in equal
+        # pairs tie across bins
+        hist[:] = hist[:, :1]
+        is_cat = np.arange(F) % 2 == 1
+        hist[:, 1::2, 1:NB - 1:2] = hist[:, 1::2, 0:NB - 2:2]
+    return hist, is_cat, mask, mcw
+
+
+@pytest.mark.parametrize("case", ["numeric", "cat_mask", "refused", "ties"])
+@pytest.mark.parametrize("NB", [256, 16])
+@pytest.mark.parametrize("F", [28, 54, 115])
+@pytest.mark.parametrize("KNN", [1, 32, 224])
+def test_split_kernel_bit_equal_to_plain(cuda, KNN, F, NB, case):
+    """On dyadic histograms the kernel's eight decision arrays equal the
+    plain version's bit for bit, in one launch; ties take the first bin,
+    then the first field; a refused node reads gain -1, feature 0,
+    threshold 0."""
+    rng = np.random.default_rng(KNN * 1000 + F * 10 + NB)
+    hist, is_cat, mask, mcw = _split_case(case, KNN, F, NB, rng)
+    args = (torch.from_numpy(hist).to(cuda), torch.from_numpy(is_cat).to(cuda),
+            torch.from_numpy(mask).to(cuda), 1.0, 0.0, mcw)
+    before = _build.launch_counts()["split_level"]
+    got = splits.find_best_splits(*args)
+    assert _build.launch_counts()["split_level"] == before + 1
+    want = splits.find_best_splits_plain(*args)
+    for name, a, b in zip(want._fields, got, want):
+        assert a.shape == (KNN,) and a.dtype == b.dtype, name
+        assert torch.equal(a, b), name
+    if case == "refused":
+        assert torch.equal(got.gain, torch.full_like(got.gain, -1.0))
+        assert not got.feature.any() and not got.threshold.any()
+    if case == "ties":
+        # the first numeric copy (field 0) or the first categorical one
+        assert bool(((got.feature == 0) | (got.feature == 1)).all())
+
+
+@pytest.mark.parametrize("flags", ["bool", "int32"])
+def test_split_kernel_takes_field_flags_as_given(cuda, flags):
+    """Bool and int32 field flags read alike; is_cat echoes the flag."""
+    rng = np.random.default_rng(7)
+    hist, is_cat, mask, mcw = _split_case("cat_mask", 16, 28, 256, rng)
+    dtype = torch.bool if flags == "bool" else torch.int32
+    args = (torch.from_numpy(hist).to(cuda),
+            torch.from_numpy(is_cat).to(cuda, dtype),
+            torch.from_numpy(mask).to(cuda, dtype), 1.0, 0.25, mcw)
+    got = splits.find_best_splits(*args)
+    want = splits.find_best_splits_plain(*args)
+    for name, a, b in zip(want._fields, got, want):
+        assert torch.equal(a, b), name
+
+
+def _level_hists(K, depth, F, NB, rng):
+    """One dyadic (K, 2^L, F, NB, 2) histogram a level, with a quarter of
+    the nodes below the root empty (every candidate refused: a new
+    leaf)."""
+    out = []
+    for level in range(depth):
+        hist = _dyadic_level_hist((K, 2 ** level), F, NB, rng)
+        if level > 0:
+            hist[rng.uniform(size=(K, 2 ** level)) < 0.25] = 0.0
+        out.append(torch.from_numpy(hist))
+    return out
+
+
+def _fresh_state(K, depth, device):
+    i32 = dict(dtype=torch.int32, device=device)
+    return (torch.full((K, 2 ** depth - 1), -1, **i32),
+            torch.zeros((K, 2 ** depth - 1), **i32),
+            torch.zeros((K, 2 ** depth - 1), **i32),
+            torch.zeros((K, 2 ** depth - 1), **i32),
+            torch.zeros((K, 2 ** depth), dtype=torch.float32, device=device),
+            torch.zeros((K, 2 ** depth), dtype=torch.bool, device=device))
+
+
+@pytest.mark.parametrize("K,F,NB", [(1, 28, 256), (7, 54, 256),
+                                    (3, 115, 16)])
+def test_split_fold_leaves_the_plain_tables(cuda, K, F, NB):
+    """The fused search and fold of ``_decide_level`` leave the same six
+    tables, decisions and split mask as the plain search and fold, level
+    after level (resolved nodes included), one launch a level."""
+    depth = 5
+    rng = np.random.default_rng(K + F)
+    hists = _level_hists(K, depth, F, NB, rng)
+    is_cat = torch.from_numpy(np.arange(F) % 5 == 4).to(cuda)
+    mask = torch.from_numpy(rng.uniform(size=F) < 0.9).to(cuda)
+    fused, plain = _fresh_state(K, depth, cuda), _fresh_state(K, depth, cuda)
+    for level, hist in enumerate(hists):
+        hist = hist.to(cuda)
+        before = _build.launch_counts()["split_level"]
+        fused, best, split = tree_mod._decide_level(
+            hist, level, depth, fused, is_cat, mask, 1.0, 0.0, 0.5)
+        assert _build.launch_counts()["split_level"] == before + 1
+        plain, want, want_split = tree_mod._decide_level(
+            hist, level, depth, plain, is_cat, mask, 1.0, 0.0, 0.5,
+            find=splits.find_best_splits_plain)
+        assert torch.equal(split, want_split), level
+        for name, a, b in zip(want._fields, best, want):
+            assert a.shape == (K, 2 ** level) and torch.equal(a, b), name
+        for i, (a, b) in enumerate(zip(fused, plain)):
+            assert torch.equal(a, b), (level, i)
+    assert bool(plain[5].any())            # leaves settled on the way
+    assert bool((plain[0] < 0).any()) and bool((plain[0] >= 0).any())
+
+
+def test_split_kernel_replays_from_a_cuda_graph(cuda):
+    """Search and fold captured in a CUDA graph: a replay on new histogram
+    values gives what an eager launch gives on them."""
+    K, F, NB, depth, level = 7, 54, 256, 6, 5
+    rng = np.random.default_rng(3)
+    is_cat = torch.from_numpy(np.arange(F) >= 10).to(cuda)
+    mask = torch.ones(F, dtype=torch.bool, device=cuda)
+    hist = torch.from_numpy(
+        _dyadic_level_hist((K, 2 ** level), F, NB, rng)).to(cuda)
+    state = _fresh_state(K, depth, cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):       # warm: the library loads eagerly
+        tree_mod._decide_level(hist, level, depth,
+                               _fresh_state(K, depth, cuda), is_cat, mask,
+                               1.0, 0.0, 0.5)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _, best, split = tree_mod._decide_level(
+            hist, level, depth, state, is_cat, mask, 1.0, 0.0, 0.5)
+        search = splits.find_best_splits(hist.reshape(-1, F, NB, 2), is_cat,
+                                         mask, 1.0, 0.0, 0.5)
+    for trial in range(2):
+        new = _dyadic_level_hist((K, 2 ** level), F, NB, rng)
+        new[rng.uniform(size=(K, 2 ** level)) < 0.25] = 0.0
+        hist.copy_(torch.from_numpy(new))
+        fresh = _fresh_state(K, depth, cuda)
+        for t, f in zip(state, fresh):
+            t.copy_(f)
+        graph.replay()
+        torch.cuda.synchronize()
+        want_state, want, want_split = tree_mod._decide_level(
+            hist, level, depth, fresh, is_cat, mask, 1.0, 0.0, 0.5,
+            find=splits.find_best_splits_plain)
+        assert torch.equal(split, want_split), trial
+        for name, a, b in zip(want._fields, best, want):
+            assert torch.equal(a, b), (trial, name)
+        for name, a, b in zip(want._fields, search, want):
+            assert torch.equal(a, b.reshape(-1)), (trial, name)
+        for a, b in zip(state, want_state):
+            assert torch.equal(a, b), trial
+
+
+def test_fit_forest_launches_the_split_kernel_once_a_level(cuda,
+                                                           monkeypatch):
+    """One ``split_level`` launch a level of a tree-growing call, and no
+    plain split search on the card."""
+    rng = np.random.default_rng(64)
+    data, g, h, common = _grower_case(20_000, 28, 256, 3, rng)
+    dev = data.to(cuda)
+    cpu = tree_mod.fit_forest(data.codes, data.codes_cm, g, h, depth=6,
+                              **common)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA histogram took the plain split search")
+
+    monkeypatch.setattr(splits, "find_best_splits_plain", refuse)
+    _build.reset_launch_counts()
+    card = tree_mod.fit_forest(dev.codes, dev.codes_cm, g.to(cuda),
+                               h.to(cuda), depth=6, **_on(common, cuda))
+    assert _build.launch_counts()["split_level"] == 6
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b)
 
 
 def test_goss_weights_on_card_match_cpu(cuda):
