@@ -27,6 +27,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.api.plan import resolve_device
 
 # --------------------------------------------------------------------------
@@ -36,6 +37,7 @@ from repro_torch.api.plan import resolve_device
 # Packing is lossless, so every consumer stays bit-equal to the uint8 path.
 # --------------------------------------------------------------------------
 PACK_MAX_BINS = 16      # nibble capacity: codes 0..15
+UNPACK_SPAN = "codes.unpack"    # the span of every unpack of PackedCodes
 # rows of a streamed chunk that ``transform_chunk`` casts to float64 at once
 _BIN_BLOCK_BYTES = 1 << 25
 
@@ -99,7 +101,11 @@ class PackedCodes:
         return self.data.numel()        # uint8: 1 byte per element
 
     def unpack(self) -> torch.Tensor:
-        return unpack_nibbles(self.data, self.n)
+        """The plain (..., n) uint8 codes; every unpack of packed codes
+        (``as_unpacked``, ``np.asarray``, a field gather) passes here and
+        is one ``codes.unpack`` span."""
+        with obs.span(UNPACK_SPAN):
+            return unpack_nibbles(self.data, self.n)
 
     def __getitem__(self, idx) -> "PackedCodes":
         """Leading-axis selection; the packed last axis is never indexed."""

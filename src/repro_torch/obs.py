@@ -35,6 +35,9 @@ The spans of the training round (``core/gbdt.train``, ``core/tree``):
   ``gbdt.loss``        the loss, enqueued
   ``host.wait``        the host blocked on the device (a loss read)
   ``gbdt.predict``     ``GBDTModel.predict_margin``
+  ``codes.unpack``     ``PackedCodes.unpack``: 4-bit codes expanded to
+                       uint8, wherever it happens (none in a round of
+                       the card's level-wise grower)
 
 The count of ``host.wait`` spans is the host's syncs; their total is the
 time the host waited on the device.  Both registries are thread-safe

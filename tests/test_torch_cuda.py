@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import obs
 from repro_torch.api.plan import ExecutionPlan
 from repro_torch.core import binning, gbdt, splits
 from repro_torch.core import tree as tree_mod
@@ -803,6 +804,26 @@ def test_packed_slice_on_card_matches_cpu(cuda, objective, K):
     torch.testing.assert_close(margins, card.margins, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(card.model.predict_margin(data.codes),
                                margins)
+
+
+def test_packed_rounds_on_card_unpack_nothing(cuda, monkeypatch):
+    """Level-wise rounds on 4-bit packed codes at the IoT width (115
+    fields, 16 bins): the nibble kernels read the packed copies as they
+    are, so a round records no ``codes.unpack`` span."""
+    X, y, _ = make_tabular(6001, 115, 0, task="binary", seed=30)
+    data = binning.Binner(16).fit(X).transform(X)
+    assert isinstance(data.codes, PackedCodes)
+    assert isinstance(data.codes_cm, PackedCodes)
+    cfg = gbdt.GBDTConfig(n_trees=3, max_depth=6,
+                          objective="binary:logistic")
+    monkeypatch.setattr(obs, "_rows", {})
+    monkeypatch.setattr(obs, "_enabled", True)
+    _build.reset_launch_counts()
+    gbdt.train(cfg, data, y)
+    rows = obs.spans()
+    assert rows["gbdt.round"]["count"] == 3
+    assert binning.UNPACK_SPAN not in rows, rows[binning.UNPACK_SPAN]
+    assert _build.launch_counts()["histogram_nibble"] == 3 * 6
 
 
 # --------------------------------------------------------------------------

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core import binning
+from repro_torch.core import tree as tree_mod
 from repro_torch.core.gbdt import GBDTConfig, train
 from repro_torch.data import make_tabular
 from repro_torch.resilience import metrics
@@ -191,3 +192,23 @@ def test_predict_margin_is_one_span(fresh):
     model.predict_margin(data)
     obs.enable(False)
     assert obs.spans()["gbdt.predict"]["count"] == 1
+
+
+def test_every_unpack_of_packed_codes_is_one_span(fresh):
+    codes = torch.randint(0, 16, (37, 115), dtype=torch.uint8)
+    packed = binning.PackedCodes.pack(codes)
+    packed_cm = binning.PackedCodes.pack(codes.T.contiguous())
+    assert torch.equal(packed.unpack(), codes)        # tracing off
+    assert obs.spans() == {}
+    obs.enable(True)
+    assert torch.equal(packed.unpack(), codes)
+    assert torch.equal(binning.as_unpacked(packed_cm), codes.T)
+    assert np.array_equal(np.asarray(packed), codes.numpy())
+    idx = torch.tensor([3, 0])
+    assert torch.equal(tree_mod._gather_fields(packed_cm, idx), codes.T[idx])
+    assert binning.as_unpacked(codes) is codes         # plain: no unpack
+    obs.enable(False)
+    assert obs.spans()[binning.UNPACK_SPAN]["count"] == 4
+    assert set(obs.spans()) == {"codes.unpack"}
+    binning.as_unpacked(packed)
+    assert obs.spans()["codes.unpack"]["count"] == 4
