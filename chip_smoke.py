@@ -463,8 +463,9 @@ def random_trees(T: int, F: int, gen, dev):
 
 
 def hist_within_tolerance(got, want, mag) -> bool:
-    """Float atomics reorder the sums (the plain version's too): rtol 1e-5
-    plus 1e-5 of the sum of |stat| over the node's records (``mag``)."""
+    """The plain version sums in float32 record by record, the kernel on a
+    fixed-point grid: rtol 1e-5 plus 1e-5 of the sum of |stat| over the
+    node's records (``mag``)."""
     return bool(torch.all((got - want).abs() <= 1e-5 * want.abs()
                           + 1e-5 * mag))
 

@@ -40,6 +40,7 @@ from repro_torch import obs
 from repro_torch.api.plan import ExecutionPlan, resolve_plan
 from repro_torch.core import splits as splits_mod
 from repro_torch.core.binning import PackedCodes
+from repro_torch.kernels import histogram as hist_k
 from repro_torch.kernels import ops
 from repro_torch.kernels import splits as split_kernel
 from repro_torch.kernels.ref import TreeArrays
@@ -74,6 +75,15 @@ def _gather_fields(codes_cm, idx):
     if isinstance(codes_cm, PackedCodes):
         return codes_cm[idx].unpack()
     return codes_cm[idx]
+
+
+def _grid_scale(g, h, plan: ExecutionPlan):
+    """The grouped histogram kernel's fixed-point grid of the tree's g and
+    h (:func:`repro_torch.kernels.histogram.fixed_point_scale`), computed
+    once a tree on the card; None where that kernel does not run."""
+    if g.device.type != "cuda" or plan.hist_strategy != "cuda":
+        return None
+    return hist_k.fixed_point_scale(g, h)
 
 
 def fit_tree(codes, codes_cm, g, h, *, depth: int, n_bins: int,
@@ -132,6 +142,7 @@ def fit_forest(codes, codes_cm, g, h, *, depth: int, n_bins: int,
     find = (splits_mod.find_best_splits_host if plan.host_offload_split
             else splits_mod.find_best_splits)
     node_ids = torch.zeros((K, n), **i32)          # per-class vertex ids
+    scale = _grid_scale(g, h, plan)
     hist = None
     for level in range(depth):
         nn = 2 ** level
@@ -142,10 +153,11 @@ def fit_forest(codes, codes_cm, g, h, *, depth: int, n_bins: int,
             if plan.hist_subtraction and level > 0:
                 hist = _subtract_level_hist(codes, g, h, node_ids, hist,
                                             n_nodes=nn, n_bins=n_bins,
-                                            plan=plan)
+                                            plan=plan, scale=scale)
             else:
                 hist = ops.build_histogram(codes, g, h, node_ids, n_nodes=nn,
-                                           n_bins=n_bins, plan=plan)
+                                           n_bins=n_bins, plan=plan,
+                                           scale=scale)
         # step ② — split decisions + tree-table updates
         with obs.span(_SPLIT_SPANS[level]):
             state, _, _ = _decide_level(
@@ -321,7 +333,8 @@ def _node_counts(nid, n_nodes: int):
 
 
 def _subtract_level_hist(codes, g, h, node_ids, parent_hist, *,
-                         n_nodes: int, n_bins: int, plan: ExecutionPlan):
+                         n_nodes: int, n_bins: int, plan: ExecutionPlan,
+                         scale=None):
     """Step ① for one level (> 0) by smaller-child subtraction.
 
     Bins only the records that landed in the smaller child of each split
@@ -336,7 +349,8 @@ def _subtract_level_hist(codes, g, h, node_ids, parent_hist, *,
     statistics masked to zero (the counterpart of ``repro``'s Pallas
     route); everywhere else each class's smaller-child records are
     compacted into an ``n // 2`` buffer and binned by one launch a class,
-    half the record stream each.
+    half the record stream each.  ``scale``: the tree's (K, 2)
+    fixed-point grid of g and h, which also holds their masked copies.
     """
     K, n = g.shape
     nid = node_ids.long()
@@ -347,15 +361,17 @@ def _subtract_level_hist(codes, g, h, node_ids, parent_hist, *,
     if K > 1 and plan.hist_strategy in ("cuda", "cuda_packed"):
         w = sel.to(torch.float32)
         small = ops.build_histogram(codes, g * w, h * w, node_ids,
-                                    n_nodes=n_nodes, n_bins=n_bins, plan=plan)
+                                    n_nodes=n_nodes, n_bins=n_bins, plan=plan,
+                                    scale=scale)
         return _combine_sibling_hist(parent_hist, small, is_small)
     n_half = max(1, n // 2)
     smalls = []
     for k in range(K):
         ck, gk, hk, nk = _compact_selected(codes, g[k], h[k], node_ids[k],
                                            sel[k], n_half)
-        smalls.append(ops.build_histogram(ck, gk, hk, nk, n_nodes=n_nodes,
-                                          n_bins=n_bins, plan=plan))
+        smalls.append(ops.build_histogram(
+            ck, gk, hk, nk, n_nodes=n_nodes, n_bins=n_bins, plan=plan,
+            scale=None if scale is None else scale[k]))
     return _combine_sibling_hist(parent_hist, torch.stack(smalls), is_small)
 
 
@@ -535,11 +551,12 @@ def fit_tree_lossguide(codes, codes_cm, g, h, *, depth: int, n_bins: int,
     default_left = np.zeros((n_int,), np.int32)
     value_bottom = np.zeros((n_leaf_slots,), np.float32)
     root_nodes = torch.zeros((n,), dtype=torch.int32, device=device)
+    scale = _grid_scale(g, h, plan)     # holds every mask of g, h
 
     def hist_of(mask):
         return ops.build_histogram(codes, g * mask, h * mask, root_nodes,
-                                   n_nodes=1, n_bins=n_bins,
-                                   plan=plan)[0]                # (F, NB, 2)
+                                   n_nodes=1, n_bins=n_bins, plan=plan,
+                                   scale=scale)[0]              # (F, NB, 2)
 
     def best_of(hist):
         d = splits_mod.find_best_splits(hist[None], is_cat_field, field_mask,

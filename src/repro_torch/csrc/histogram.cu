@@ -17,7 +17,7 @@
 // histogram.
 //
 // Bound on the H100: bytes.  The codes (n*F bytes) and K*12 bytes of g, h
-// and node id per record must be read; the arithmetic is 2*K float adds per
+// and node id per record must be read; the arithmetic is 2*K adds per
 // (record, field).  Design of the grouped kernel (hist_grouped_kernel):
 //   * Records grouped by slot.  A counting sort of the (class, record)
 //     pairs by slot (slot_sort_kernel, slot_scan_kernel) lists the record
@@ -33,33 +33,57 @@
 //     takes an equal share of the sorted list, whatever the slots' sizes;
 //     where its share crosses into the next slot it flushes and starts
 //     again.  So each record (each (class, record) pair) is read once per
-//     level, with no per-slot test, and two or three blocks fit on an SM.
+//     level, with no per-slot test.
 //   * A warp per record, a lane per field (the paper's field -> SRAM
 //     mapping).  Lane l of a warp loads one record's index, g and h for 32
-//     sorted positions; the warp then takes those records four at a time
-//     (shuffled to every lane), each lane adding field l, l + 32, ... of
-//     each, with one add for those of the four whose codes are equal (two
-//     in three for two-category fields).  A record's row arrives in one or
-//     two sectors; no index is divided per pair.
-//   * Conflict-free bins.  The bins are [bin][field], a tile's fields
-//     padded to a multiple of 32 words (row), g sums then h sums: the lane
-//     of field f adds into bank f mod 32 whatever the code, so the 32 lanes
-//     of a warp never share a bank, let alone an address.  Shared-memory
-//     atomicAdd on float compiles to a compare-and-swap loop on sm_90a
-//     (LDS, FADD, ATOMS.CAST.SPIN), two shared accesses an add.
+//     sorted positions and stages them in shared memory; each lane then
+//     reads them back as broadcast 16-byte loads (a shuffle costs the SM
+//     twice as much), loads the codes of its field l, l + 32, ... of
+//     STEP_RECORDS records at once, and adds each.  A record's row arrives
+//     in one or two sectors; no index is divided per pair.
+//   * Fixed-point bins.  Each g (h) is rounded once, as its lane loads it,
+//     to an integer q on a power-of-two grid: q = rint(g * scale), where
+//     scale (kernels/histogram.py, fixed_point_scale, one a class and
+//     statistic, read from the device) puts the largest |g| of the tree's
+//     records in [2^30, 2^31).  The grid is at most 2^-30 of that largest
+//     |g|, 128x finer than float32's own spacing there, and every sum of
+//     the q is exact, so the histogram does not depend on the order of
+//     the adds.  A statistic's bin is two 32-bit words, the high half of
+//     q (q >> 16, signed) and the low half (q & 0xFFFF, unsigned), each
+//     added with a native shared-memory integer atomic whose result is
+//     unused (ATOMS.ADD, one a cycle an SM on sm_90a, whatever the
+//     addresses: no compare-and-swap loop, no retry); four adds a (record,
+//     field), without a branch.  The halves lie in [-2^15, 2^15) and
+//     [0, 2^16), so neither word can overflow within 2^16 positions: a
+//     block flushes its bins at each slot's edge and at least every
+//     flush_every <= 2^16 positions (kernels/histogram.py,
+//     grouped_geometry).  The adds are not what bounds the kernel (timed
+//     without them it takes as long): the instructions that address and
+//     load the codes are.
+//   * Conflict-free bins.  The bins are four [bin][field] arrays (g's high
+//     and low words, then h's), a tile's fields padded to a multiple of 32
+//     words (row): the lane of field f adds into bank f mod 32 whatever
+//     the code, so the 32 lanes of a warp never share a bank, let alone an
+//     address.  Each array has a bin NB more, into which a code outside
+//     the binning invariant adds and which no flush reads.  16 bytes a
+//     (field, bin): 128 KB for 32 fields of 256 bins, one block of
+//     GROUPED_THREADS an SM, whose 32 warps keep the gathered code loads
+//     in flight.
 //   * Blocks run in no order (the TPU grid carried its sum from step to
-//     step), so each block flushes its non-zero bins into the zeroed output
-//     with global float atomics: the cross-block reduction is explicit.
-// Float atomics reorder the sums from run to run: results are bit-equal to
-// the plain version only when every partial sum is exact (dyadic g, h).
+//     step), so each block flushes its non-zero bins, hi * 2^16 + lo, into
+//     a zeroed int64 scratch with native 64-bit global atomics: the
+//     cross-block reduction is explicit and exact.  Then one pass
+//     (hist_grouped_kernel_finish) turns the level's int64 sums into the
+//     float32 histogram, each sum rounded once and divided by its scale.
+//     A non-finite g or h gives scale 0, and its statistic's histogram is
+//     NaN throughout.
 //
 // 4-bit codes (the nibble_packed=True branch of _hist_kernel_grouped).  With
 // n_bins <= 16 the row-major copy holds two codes a byte, Fb = ceil(F/2)
 // bytes a record, the low nibble the even field; an odd F leaves one pad
 // nibble a record, which no field index reaches.  The same kernel body reads
-// the code of (record r, field f) through code_at<NIBBLE>: byte
-// codes[r * Fb + (f >> 1)], shifted by (f & 1) * 4; two lanes read one
-// byte.  Field tiles are addressed by global field index, so a tile may
+// the code of (record r, field f) from byte codes[r * Fb + (f >> 1)],
+// shifted by (f & 1) * 4 (the NIBBLE instance); two lanes read one byte.  Field tiles are addressed by global field index, so a tile may
 // start on an odd field (the TPU version had to widen its field block to
 // whole bytes).
 //
@@ -71,6 +95,11 @@
 // behind one SRAM port serialise in the paper's naive packing.  With 2*NB
 // words a field (NB a multiple of 16), field f's bin c lies on bank 2c mod
 // 32 whatever f, so lanes collide by code: that is the layout's cost here.
+// Its bins stay float32: shared-memory atomicAdd on float compiles to a
+// compare-and-swap loop on sm_90a (LDS, FADD, ATOMS.CAST.SPIN), and the
+// blocks flush their non-zero bins into the zeroed output with global
+// float atomics, so its sums are reordered from run to run: bit-equal to
+// the plain version only when every partial sum is exact (dyadic g, h).
 // Everything else is the grouped kernel's: the same counting sort and the
 // same schedule (an equal share of the sorted list a block, one slot's bins
 // at a time, non-zero bins flushed), so each (class, record) pair's g, h,
@@ -82,23 +111,21 @@
 // of two codes costs two adds a warp and not a compare-and-swap loop of 32.
 #include "launch.cuh"
 
-template <bool NIBBLE>
-__device__ __forceinline__ int code_at(const uint8_t* __restrict__ codes,
-                                       long long r, int f, int row_bytes) {
-    if (NIBBLE) {
-        const int b = codes[r * row_bytes + (f >> 1)];
-        return (b >> ((f & 1) << 2)) & 0xF;
-    }
-    return codes[r * row_bytes + f];
-}
-
 // -- the counting sort of (class, record) pairs by slot ---------------------
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int SORT_THREADS = 512;
 constexpr int SCAN_THREADS = 1024;
-constexpr int GROUPED_THREADS = 512;
-constexpr int GROUPED_BLOCKS_PER_SM = 3;   // registers for three blocks an SM
+constexpr int GROUPED_THREADS = 1024;     // one block an SM: 32 warps
+constexpr int NAIVE_THREADS = 512;
+constexpr int NAIVE_BLOCKS_PER_SM = 3;     // registers for three blocks an SM
+constexpr int FINISH_THREADS = 256;
+// Records whose codes a lane of the grouped kernel loads at once, and a
+// warp's stage of 32 positions' record index and g, h words (high and low
+// halves)
+constexpr int STEP_RECORDS = 16;
+constexpr int STAGE_INTS = 5 * 32;
+constexpr int GROUPED_STAGE_BYTES = GROUPED_THREADS / 32 * STAGE_INTS * 4;
 constexpr int SORT_NODE_BYTES = 12;        // a node's base (8 B) and counter
 
 // One pass of a block over its records [r0, r1) of one class: lanes whose
@@ -204,88 +231,111 @@ slot_scan_kernel(const unsigned long long* __restrict__ counts,
 
 // -- the grouped histogram over the sorted list ------------------------------
 
-// Add the sorted positions [a, e) of one slot into the block's bins: the g
-// sum of (field fi, code c) at bins[c * row + fi], the h sums `half` words
-// on.  row is a multiple of 32, so lane l, on fields l, l + 32, ..., always
-// hits bank l, whatever the codes are.  Without ``order`` (one slot)
+// Add the sorted positions [a, e) of one slot into the block's fixed-point
+// bins: g's high word of (field fi, code c) at bins[c * row + fi], g's low
+// word `words` on, then h's two.  row is a multiple of 32, so lane l, on
+// fields l, l + 32, ..., always hits bank l, whatever the codes are.  Lane
+// l puts the g and h of the record at position q + l on the grid of sg and
+// sh and stages the record's index and the four words it adds in the
+// warp's ``stage`` (STAGE_INTS ints); a position that adds nothing (past
+// e, of another node, or g and h both 0 on the grid) stages record 0 with
+// four zero words.  Each lane then reads the stage as broadcast 16-byte
+// loads (a shuffle costs the SM twice a shared load), issues the loads of
+// its field's codes of STEP_RECORDS records at once, and adds each
+// record's words with four atomics, without a branch: a code outside the
+// binning invariant adds into bin NB, which no flush reads.  The warp
+// issues every add whatever the codes, so summing a lane's records of
+// equal code first would save none.  Without ``order`` (one slot)
 // position p is record p, of node 0.
 template <bool NIBBLE>
 __device__ __forceinline__ void add_records(
-        float* bins, const uint8_t* __restrict__ codes,
+        unsigned* bins, int* stage, const uint8_t* __restrict__ codes,
         const float* __restrict__ gk, const float* __restrict__ hk,
-        const int32_t* __restrict__ node, const int32_t* __restrict__ order,
-        long long a, long long e, int f0, int ft, int row_bytes, int NB,
-        int row, int half) {
+        float sg, float sh, const int32_t* __restrict__ node,
+        const int32_t* __restrict__ order, long long a, long long e, int f0,
+        int ft, int row_bytes, int NB, int row, int words) {
     const int lane = threadIdx.x & 31;
     const long long step = static_cast<long long>(blockDim.x);
+    int4* adds = reinterpret_cast<int4*>(stage + 32);
+    int* g_hi = reinterpret_cast<int*>(bins);
+    unsigned* g_lo = bins + words;
+    int* h_hi = reinterpret_cast<int*>(bins + 2 * words);
+    unsigned* h_lo = bins + 3 * words;
     for (long long q = a + (threadIdx.x & ~31u); q < e; q += step) {
-        // lane l fetches the record at position q + l and its g, h
         const long long p = q + lane;
-        int r = -1;
-        float gv = 0.f, hv = 0.f;
+        int r = -1, qg = 0, qh = 0;
         if (p < e) {
             r = order != nullptr ? order[p] : static_cast<int>(p);
             if (order == nullptr && node[r] != 0) r = -1;
             if (r >= 0) {
-                gv = gk[r];
-                hv = hk[r];
+                qg = __float2int_rn(gk[r] * sg);
+                qh = __float2int_rn(hk[r] * sh);
             }
         }
-        const int cnt = static_cast<int>(min(32ll, e - q));
-        for (int j = 0; j < cnt; j += 4) {
-            // the warp takes four records at a time, a lane per field
-            int rr[4];
-            float gg[4], hh[4];
+        __syncwarp();
+        stage[lane] = max(r, 0);
+        adds[lane] = r >= 0 ? make_int4(qg >> 16, qg & 0xFFFF, qh >> 16,
+                                        qh & 0xFFFF)
+                            : make_int4(0, 0, 0, 0);
+        __syncwarp();
+        for (int fi = lane; fi < ft; fi += 32) {
+            const int f = f0 + fi;
+            const uint8_t* field = codes + (NIBBLE ? f >> 1 : f);
+            const int shift = NIBBLE ? (f & 1) << 2 : 0;
+            for (int j = 0; j < 32; j += STEP_RECORDS) {
+                int c[STEP_RECORDS];
 #pragma unroll
-            for (int u = 0; u < 4; ++u) {
-                rr[u] = __shfl_sync(FULL_MASK, r, j + u);
-                gg[u] = __shfl_sync(FULL_MASK, gv, j + u);
-                hh[u] = __shfl_sync(FULL_MASK, hv, j + u);
-            }
-            for (int fi = lane; fi < ft; fi += 32) {
-                int c[4];
+                for (int u = 0; u < STEP_RECORDS; u += 4) {
+                    const int4 rr =
+                        *reinterpret_cast<const int4*>(stage + j + u);
+                    const int ri[4] = {rr.x, rr.y, rr.z, rr.w};
 #pragma unroll
-                for (int u = 0; u < 4; ++u)
-                    c[u] = rr[u] >= 0
-                               ? code_at<NIBBLE>(codes, rr[u], f0 + fi,
-                                                 row_bytes)
-                               : NB;
-                float* b = bins + fi;
-#pragma unroll
-                for (int u = 0; u < 4; ++u) {
-                    if (c[u] >= NB) continue;   // outside the binning invariant
-                    // one add for this lane's records of equal code
-                    float sg = gg[u], sh = hh[u];
-#pragma unroll
-                    for (int v = u + 1; v < 4; ++v) {
-                        if (c[v] != c[u]) continue;
-                        sg += gg[v];
-                        sh += hh[v];
-                        c[v] = NB;
+                    for (int t = 0; t < 4; ++t) {
+                        int code = field[static_cast<unsigned long long>(
+                                             static_cast<unsigned>(ri[t]))
+                                         * static_cast<unsigned>(row_bytes)];
+                        if (NIBBLE) code = (code >> shift) & 0xF;
+                        c[u + t] = min(code, NB);
                     }
-                    atomicAdd(b + c[u] * row, sg);
-                    atomicAdd(b + half + c[u] * row, sh);
+                }
+#pragma unroll
+                for (int u = 0; u < STEP_RECORDS; ++u) {
+                    const int4 v = adds[j + u];
+                    const int w = c[u] * row + fi;
+                    atomicAdd(g_hi + w, v.x);
+                    atomicAdd(g_lo + w, static_cast<unsigned>(v.y));
+                    atomicAdd(h_hi + w, v.z);
+                    atomicAdd(h_lo + w, static_cast<unsigned>(v.w));
                 }
             }
         }
     }
 }
 
-// Add the block's bins of one slot into the output with global float
-// atomics (non-zero bins only, consecutive threads on consecutive output
-// words) and zero them for the next slot.
-__device__ __forceinline__ void flush_slot(float* bins,
-                                           float* __restrict__ out_slot,
-                                           int ft, int NB, int row,
-                                           int half) {
-    for (int i = threadIdx.x; i < ft * NB; i += blockDim.x) {
-        const int fi = i / NB;
-        float* b = bins + (i - fi * NB) * row + fi;
-        const float vg = b[0], vh = b[half];
-        if (vg != 0.f) atomicAdd(out_slot + 2 * i, vg);
-        if (vh != 0.f) atomicAdd(out_slot + 2 * i + 1, vh);
-        b[0] = 0.f;
-        b[half] = 0.f;
+// Add the block's bins of one slot, hi * 2^16 + lo a statistic, into the
+// slot's int64 sums, laid out as the bins are ([bin][field][2], all F
+// fields), with global 64-bit atomics (non-zero sums only), and zero them
+// for the next run.  Consecutive threads take consecutive fields of a bin:
+// a warp's reads of the bins never share a bank, and its atomics fall on
+// consecutive words.
+__device__ __forceinline__ void flush_slot(unsigned* bins,
+                                           unsigned long long* sums_slot,
+                                           int F, int f0, int ft, int NB,
+                                           int row, int words) {
+    for (int i = threadIdx.x; i < NB * row; i += blockDim.x) {
+        const int c = i / row, fi = i - c * row;
+        if (fi >= ft) continue;
+        unsigned* w = bins + i;
+        const long long vg = static_cast<long long>(static_cast<int>(w[0]))
+                                 * 65536 + w[words];
+        const long long vh =
+            static_cast<long long>(static_cast<int>(w[2 * words])) * 65536
+            + w[3 * words];
+        unsigned long long* out =
+            sums_slot + 2 * (static_cast<long long>(c) * F + f0 + fi);
+        if (vg != 0) atomicAdd(out, static_cast<unsigned long long>(vg));
+        if (vh != 0) atomicAdd(out + 1, static_cast<unsigned long long>(vh));
+        w[0] = w[words] = w[2 * words] = w[3 * words] = 0u;
     }
 }
 
@@ -296,17 +346,17 @@ __device__ __forceinline__ void flush_slot(float* bins,
 // its share, in order; run adds them into the bins and flushes them, which
 // zeroes them again.  Without ``order`` (one slot) the list is the n
 // records.
-template <typename Run>
+template <typename Word, typename Run>
 __device__ __forceinline__ void for_each_slot(
         const int32_t* __restrict__ order,
         const unsigned long long* __restrict__ offsets, long long n, int S,
-        long long per_block, float* bins, int words, Run run) {
+        long long per_block, Word* bins, int words, Run run) {
     const long long total =
         order != nullptr ? static_cast<long long>(offsets[S]) : n;
     long long p = static_cast<long long>(blockIdx.x) * per_block;
     const long long p_end = min(total, p + per_block);
     if (p >= p_end) return;
-    for (int i = threadIdx.x; i < words; i += blockDim.x) bins[i] = 0.f;
+    for (int i = threadIdx.x; i < words; i += blockDim.x) bins[i] = Word(0);
     // the slot of position p: the last s with offsets[s] <= p
     int s = 0;
     if (order != nullptr) {
@@ -329,30 +379,70 @@ __device__ __forceinline__ void for_each_slot(
     }
 }
 
+// scale: (K, 2) float32, the grid of each class's g and h; sums: the
+// zeroed int64 (K*NN, NB, F, 2) scratch.  A block flushes at each slot's
+// edge and every flush_every positions (<= 2^16: see the header).
 template <bool NIBBLE>
-__global__ void __launch_bounds__(GROUPED_THREADS, GROUPED_BLOCKS_PER_SM)
+__global__ void __launch_bounds__(GROUPED_THREADS, 1)
 hist_grouped_kernel(const uint8_t* __restrict__ codes,
                     const float* __restrict__ g, const float* __restrict__ h,
                     const int32_t* __restrict__ node,
                     const int32_t* __restrict__ order,
                     const unsigned long long* __restrict__ offsets,
-                    float* __restrict__ out, long long n, int F,
-                    int row_bytes, int NN, int S, int NB, int FT, int row,
-                    long long per_block) {
-    extern __shared__ float bins[];      // [2][NB][row]: g, then h sums
-    const int half = NB * row;
+                    const float* __restrict__ scale,
+                    unsigned long long* __restrict__ sums, long long n,
+                    int F, int row_bytes, int NN, int S, int NB, int FT,
+                    int row, long long per_block, long long flush_every) {
+    // [4][NB + 1][row]: g hi, lo, h hi, lo, each with bin NB for what is
+    // not added (the naive kernel's bins are float); then each warp's
+    // stage
+    extern __shared__ unsigned fixed_bins[];
+    unsigned* bins = fixed_bins;
+    const int words = (NB + 1) * row;
+    int* stage = reinterpret_cast<int*>(bins + 4 * words)
+                 + (threadIdx.x >> 5) * STAGE_INTS;
     const int f0 = blockIdx.y * FT;
     const int ft = min(FT, F - f0);
-    for_each_slot(order, offsets, n, S, per_block, bins, 2 * half,
+    for_each_slot(order, offsets, n, S, per_block, bins, 4 * words,
                   [&](int s, long long a, long long e) {
-        const long long kn = static_cast<long long>(s / NN) * n;
-        add_records<NIBBLE>(bins, codes, g + kn, h + kn, node, order, a, e,
-                            f0, ft, row_bytes, NB, row, half);
-        __syncthreads();
-        flush_slot(bins, out + (static_cast<long long>(s) * F + f0) * NB * 2,
-                   ft, NB, row, half);
-        __syncthreads();
+        const int k = s / NN;
+        const long long kn = static_cast<long long>(k) * n;
+        const float sg = scale[2 * k], sh = scale[2 * k + 1];
+        unsigned long long* sums_slot =
+            sums + static_cast<long long>(s) * NB * F * 2;
+        for (; a < e; a += flush_every) {
+            add_records<NIBBLE>(bins, stage, codes, g + kn, h + kn, sg, sh,
+                                node, order, a, min(e, a + flush_every), f0,
+                                ft, row_bytes, NB, row, words);
+            __syncthreads();
+            flush_slot(bins, sums_slot, F, f0, ft, NB, row, words);
+            __syncthreads();
+        }
     });
+}
+
+// The float32 (K*NN, F, NB, 2) histogram from the level's int64 (K*NN, NB,
+// F, 2) sums: out = sum / scale, one (g, h) pair of the output a thread.
+// scale 0 marks a non-finite statistic, whose histogram is NaN.
+__global__ void __launch_bounds__(FINISH_THREADS)
+hist_grouped_kernel_finish(const longlong2* __restrict__ sums,
+                           const float* __restrict__ scale,
+                           float2* __restrict__ out, long long pairs, int NN,
+                           int F, int NB) {
+    const int per_slot = F * NB;
+    const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+    for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x
+                       + threadIdx.x; i < pairs; i += stride) {
+        const long long s = i / per_slot;
+        const int rem = static_cast<int>(i - s * per_slot);
+        const int f = rem / NB, c = rem - f * NB;
+        const int k = static_cast<int>(s / NN);
+        const float sg = scale[2 * k], sh = scale[2 * k + 1];
+        const longlong2 v = sums[(s * NB + c) * F + f];
+        out[i] = make_float2(
+            sg > 0.f ? __ll2float_rn(v.x) / sg : __int_as_float(0x7fc00000),
+            sh > 0.f ? __ll2float_rn(v.y) / sh : __int_as_float(0x7fc00000));
+    }
 }
 
 // -- the naive-packing histogram over the sorted list ------------------------
@@ -457,7 +547,7 @@ __device__ __forceinline__ void flush_flat(float* bins,
 }
 
 template <bool WORDS>
-__global__ void __launch_bounds__(GROUPED_THREADS, GROUPED_BLOCKS_PER_SM)
+__global__ void __launch_bounds__(NAIVE_THREADS, NAIVE_BLOCKS_PER_SM)
 hist_naive_kernel(const uint8_t* __restrict__ codes,
                   const float* __restrict__ g, const float* __restrict__ h,
                   const int32_t* __restrict__ node,
@@ -511,15 +601,14 @@ static cudaError_t sort_by_slot(const int32_t* nodes, int32_t* ord,
 }
 
 // The counting sort (skipped when order is null: one slot), then a
-// histogram kernel over blocks x n_ftiles blocks, each with 8 * NB * row
-// bytes of bins (row: the fields a block's bins are laid out for).
-// Returns the first CUDA error.
+// histogram kernel over blocks x n_ftiles blocks of ``threads``, each with
+// smem bytes of bins.  Returns the first CUDA error.
 template <typename Kernel, typename... Args>
-static int launch_sorted(Kernel kernel, const void* node, void* order,
-                         void* slots, long long n, int K, int NN, int NB,
-                         int row, int n_ftiles, int blocks, int sort_blocks,
-                         long long sort_chunk, void* stream, Args... args) {
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+static int launch_sorted(Kernel kernel, int threads, int smem,
+                         const void* node, void* order, void* slots,
+                         long long n, int K, int NN, int n_ftiles,
+                         int blocks, int sort_blocks, long long sort_chunk,
+                         cudaStream_t st, Args... args) {
     if (order != nullptr) {
         const cudaError_t err = sort_by_slot(
             static_cast<const int32_t*>(node), static_cast<int32_t*>(order),
@@ -527,84 +616,130 @@ static int launch_sorted(Kernel kernel, const void* node, void* order,
             sort_chunk, st);
         if (err != cudaSuccess) return static_cast<int>(err);
     }
-    const int smem = 2 * NB * row * static_cast<int>(sizeof(float));
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<dim3(blocks, n_ftiles), GROUPED_THREADS, smem, st>>>(args...);
+    kernel<<<dim3(blocks, n_ftiles), threads, smem, st>>>(args...);
     return static_cast<int>(cudaGetLastError());
 }
 
 // What sizes a launch of either histogram kernel on ``device``
-// (kernels/histogram.py, GroupedLimits): out[0..5] = the blocks an SM the
-// kernels' launch bounds allow, the sort's shared bytes a node, then the
-// card's SMs, shared memory an SM, what the runtime keeps of it for every
-// block, and the most dynamic shared memory a block may opt into.
+// (kernels/histogram.py, GroupedLimits): out[0..6] = the blocks of the
+// grouped kernel an SM can hold by its registers and threads (the fewer of
+// its two instances), the blocks an SM the naive kernel's launch bounds
+// allow, the sort's shared bytes a node, then the card's SMs, shared
+// memory an SM, what the runtime keeps of it for every block, and the
+// most dynamic shared memory a block may opt into.
 extern "C" int hist_grouped_limits(int device, int* out) {
-    out[0] = GROUPED_BLOCKS_PER_SM;
-    out[1] = SORT_NODE_BYTES;
+    int prev = 0;
+    cudaError_t err = cudaGetDevice(&prev);
+    if (err == cudaSuccess) err = cudaSetDevice(device);
+    int byte_blocks = 0, nibble_blocks = 0;
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &byte_blocks, hist_grouped_kernel<false>, GROUPED_THREADS, 0);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &nibble_blocks, hist_grouped_kernel<true>, GROUPED_THREADS, 0);
+    const cudaError_t back = cudaSetDevice(prev);
+    if (err == cudaSuccess) err = back;
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[0] = min(byte_blocks, nibble_blocks);
+    out[1] = NAIVE_BLOCKS_PER_SM;
+    out[2] = SORT_NODE_BYTES;
     const cudaDeviceAttr attrs[] = {
         cudaDevAttrMultiProcessorCount,
         cudaDevAttrMaxSharedMemoryPerMultiprocessor,
         cudaDevAttrReservedSharedMemoryPerBlock,
         cudaDevAttrMaxSharedMemoryPerBlockOptin};
     for (int i = 0; i < 4; ++i) {
-        const cudaError_t err = cudaDeviceGetAttribute(out + 2 + i, attrs[i],
-                                                       device);
+        err = cudaDeviceGetAttribute(out + 3 + i, attrs[i], device);
         if (err != cudaSuccess) return static_cast<int>(err);
     }
     return 0;
 }
 
-// The three entries take the same arguments: codes, g, h and node ids,
-// order (K * n int32, null with one slot), slots (3 * K * NN + 1 zeroed
-// uint64, null with one slot), the zeroed output, then the shapes and the
-// geometry of kernels/histogram.py's grouped_geometry.
+// The three entries take the same arguments first: codes, g, h and node
+// ids, order (K * n int32, null with one slot), slots (3 * K * NN + 1
+// zeroed uint64, null with one slot), then the shapes and the geometry of
+// kernels/histogram.py's grouped_geometry.
 #define HIST_ENTRY_ARGS                                                     \
     const void *codes, const void *g, const void *h, const void *node,      \
-        void *order, void *slots, void *out, long long n, int F, int K,     \
-        int NN, int NB, int FT, int row, int n_ftiles, int blocks,          \
-        long long per_block, int sort_blocks, long long sort_chunk,         \
+        void *order, void *slots, long long n, int F, int K, int NN,        \
+        int NB, int FT, int row, int n_ftiles, int blocks,                  \
+        long long per_block, int sort_blocks, long long sort_chunk
+#define GROUPED_ENTRY_ARGS                                                  \
+    HIST_ENTRY_ARGS, const void *scale, void *sums, long long flush_every,  \
         void *stream
 
+// The grouped entries then take scale ((K, 2) float32), sums (the (K * NN,
+// NB, F, 2) int64 scratch, zeroed here) and flush_every, and leave the
+// level's exact sums there (hist_grouped_finish turns them into floats).
 template <bool NIBBLE>
-static int launch_grouped(HIST_ENTRY_ARGS) {
+static int launch_grouped(GROUPED_ENTRY_ARGS) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const long long pairs = static_cast<long long>(K) * NN * F * NB;
+    cudaError_t err = cudaMemsetAsync(sums, 0, pairs * 16, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
     return launch_sorted(
-        hist_grouped_kernel<NIBBLE>, node, order, slots, n, K, NN, NB, row,
-        n_ftiles, blocks, sort_blocks, sort_chunk, stream,
+        hist_grouped_kernel<NIBBLE>, GROUPED_THREADS,
+        16 * (NB + 1) * row + GROUPED_STAGE_BYTES, node, order, slots, n, K,
+        NN, n_ftiles, blocks, sort_blocks, sort_chunk, st,
         static_cast<const uint8_t*>(codes), static_cast<const float*>(g),
         static_cast<const float*>(h), static_cast<const int32_t*>(node),
         static_cast<const int32_t*>(order),
         static_cast<const unsigned long long*>(slots) + K * NN,
-        static_cast<float*>(out), n, F, NIBBLE ? (F + 1) / 2 : F, NN, K * NN,
-        NB, FT, row, per_block);
+        static_cast<const float*>(scale),
+        static_cast<unsigned long long*>(sums), n, F,
+        NIBBLE ? (F + 1) / 2 : F, NN, K * NN, NB, FT, row, per_block,
+        flush_every);
 }
 
-extern "C" int hist_grouped_launch(HIST_ENTRY_ARGS) {
-    return launch_grouped<false>(codes, g, h, node, order, slots, out, n, F,
-                                 K, NN, NB, FT, row, n_ftiles, blocks,
-                                 per_block, sort_blocks, sort_chunk, stream);
+extern "C" int hist_grouped_launch(GROUPED_ENTRY_ARGS) {
+    return launch_grouped<false>(codes, g, h, node, order, slots, n, F, K,
+                                 NN, NB, FT, row, n_ftiles, blocks,
+                                 per_block, sort_blocks, sort_chunk, scale,
+                                 sums, flush_every, stream);
 }
 
 // codes: the (n, ceil(F/2)) packed bytes of PackedCodes.data
-extern "C" int hist_nibble_launch(HIST_ENTRY_ARGS) {
-    return launch_grouped<true>(codes, g, h, node, order, slots, out, n, F,
-                                K, NN, NB, FT, row, n_ftiles, blocks,
-                                per_block, sort_blocks, sort_chunk, stream);
+extern "C" int hist_nibble_launch(GROUPED_ENTRY_ARGS) {
+    return launch_grouped<true>(codes, g, h, node, order, slots, n, F, K,
+                                NN, NB, FT, row, n_ftiles, blocks, per_block,
+                                sort_blocks, sort_chunk, scale, sums,
+                                flush_every, stream);
 }
 
-// row == FT: the naive kernel's bins are the tile's fields, unpadded.  Rows
-// are read as words where every tile starts on a multiple of 4 bytes.
-extern "C" int hist_naive_launch(HIST_ENTRY_ARGS) {
+// The float32 (S, F, NB, 2) histogram ``out`` of S = K * NN slots from
+// their (S, NB, F, 2) int64 sums on the grid ``scale`` ((K, 2) float32).
+extern "C" int hist_grouped_finish(const void* sums, const void* scale,
+                                   void* out, long long S, int NN, int F,
+                                   int NB, void* stream) {
+    const long long pairs = S * F * NB;
+    const long long blocks =
+        min((pairs + FINISH_THREADS - 1) / FINISH_THREADS, 1ll << 16);
+    hist_grouped_kernel_finish<<<static_cast<unsigned>(blocks),
+                                 FINISH_THREADS, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const longlong2*>(sums), static_cast<const float*>(scale),
+        static_cast<float2*>(out), pairs, NN, F, NB);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// out: the zeroed (K * NN, F, NB, 2) float32 histogram.  row == FT: the
+// naive kernel's bins are the tile's fields, unpadded.  Rows are read as
+// words where every tile starts on a multiple of 4 bytes.
+extern "C" int hist_naive_launch(HIST_ENTRY_ARGS, void *out, void *stream) {
     const bool words = F % 4 == 0 && FT % 4 == 0
                        && reinterpret_cast<uintptr_t>(codes) % 4 == 0;
     auto* kernel =
         words ? &hist_naive_kernel<true> : &hist_naive_kernel<false>;
     return launch_sorted(
-        kernel, node, order, slots, n, K, NN, NB, row, n_ftiles, blocks,
-        sort_blocks, sort_chunk, stream, static_cast<const uint8_t*>(codes),
-        static_cast<const float*>(g), static_cast<const float*>(h),
-        static_cast<const int32_t*>(node),
+        kernel, NAIVE_THREADS, 2 * NB * row * static_cast<int>(sizeof(float)),
+        node, order, slots, n, K, NN, n_ftiles, blocks, sort_blocks,
+        sort_chunk, static_cast<cudaStream_t>(stream),
+        static_cast<const uint8_t*>(codes), static_cast<const float*>(g),
+        static_cast<const float*>(h), static_cast<const int32_t*>(node),
         static_cast<const int32_t*>(order),
         static_cast<const unsigned long long*>(slots) + K * NN,
         static_cast<float*>(out), n, F, NN, K * NN, NB, FT, per_block);

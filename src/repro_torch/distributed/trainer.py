@@ -37,6 +37,7 @@ device list between rounds re-meshes up or down without a restore.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -56,6 +57,7 @@ from repro_torch.core.gbdt import (GBDTConfig, GBDTModel, TrainResult,
 from repro_torch.distributed import checkpoint as ckpt
 from repro_torch.distributed.sharding import (ShardedDataset, on_device,
                                               psum_parts, shard_dataset)
+from repro_torch.kernels import histogram as hist_k
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import TreeArrays
 from repro_torch.launch.mesh import (Mesh, cuda_devices, data_axes,
@@ -155,24 +157,34 @@ def _grow_forest_sharded(*, depth: int, n_bins: int, lambda_: float,
     exactly summed record counts, so every shard count picks the same
     child) with the bigger child's statistics masked to zero, and derive
     the sibling as ``parent − smaller``.
+
+    On the card the grouped histogram kernel puts every shard's g, h on
+    one fixed-point grid a tree (the finest that holds all shards'), and
+    the shards' exact int64 sums are summed before one conversion to
+    float32: the level's histogram is the single-device one, bit for bit,
+    whatever the shard count.
     """
     missing_bin = n_bins - 1
     n_int, n_leaf = 2 ** depth - 1, 2 ** depth
 
-    def acc_hist(codes, g, h, nid, nn, F):
-        if hist_slices <= 1:
-            return ops.build_histogram(codes, g, h, nid, n_nodes=nn,
-                                       n_bins=n_bins, plan=plan)
-        K, n_l = g.shape
-        acc = torch.zeros((K, nn, F, n_bins, 2), dtype=torch.float32,
-                          device=g.device)
-        size = -(-n_l // hist_slices)
-        for lo in range(0, n_l, size):
+    def acc_hist(codes, g, h, nid, nn, scale):
+        """A shard's histogram, its int64 sums on the grid ``scale``
+        (None: the float32 histogram), over ``hist_slices`` slices."""
+        if scale is not None:
+            build = functools.partial(hist_k.histogram_sums_cuda,
+                                      scale=scale)
+        else:
+            build = functools.partial(ops.build_histogram, plan=plan)
+        n_l = g.shape[1]
+        size = max(1, -(-n_l // max(hist_slices, 1)))
+        acc = None
+        for lo in range(0, max(n_l, 1), size):
             hi = min(lo + size, n_l)
-            acc = ops.accumulate_histogram(
-                acc, codes[lo:hi], g[:, lo:hi].contiguous(),
-                h[:, lo:hi].contiguous(), nid[:, lo:hi].contiguous(),
-                n_nodes=nn, n_bins=n_bins, plan=plan)
+            part = build(codes[lo:hi], g[:, lo:hi].contiguous(),
+                         h[:, lo:hi].contiguous(),
+                         nid[:, lo:hi].contiguous(), n_nodes=nn,
+                         n_bins=n_bins)
+            acc = part if acc is None else acc.add_(part)
         return acc
 
     def grow(placed: ShardedDataset, g_parts, h_parts, is_cat_field,
@@ -183,7 +195,6 @@ def _grow_forest_sharded(*, depth: int, n_bins: int, lambda_: float,
         owner = is_cat_field.device
         shards = placed.shards
         K = g_parts[0].shape[0]
-        F = int(is_cat_field.shape[0])
         i32 = dict(dtype=torch.int32, device=owner)
         state = (torch.full((K, n_int), -1, **i32),
                  torch.zeros((K, n_int), **i32),
@@ -193,6 +204,13 @@ def _grow_forest_sharded(*, depth: int, n_bins: int, lambda_: float,
                  torch.zeros((K, n_leaf), dtype=torch.bool, device=owner))
         nids = [torch.zeros(g.shape, dtype=torch.int32, device=g.device)
                 for g in g_parts]
+        # one fixed-point grid a tree for every shard: the finest scale
+        # that holds each shard's g, h
+        scale = scales = None
+        if owner.type == "cuda" and plan.hist_strategy == "cuda":
+            scale = torch.stack([hist_k.fixed_point_scale(g, h).to(owner)
+                                 for g, h in zip(g_parts, h_parts)]).amin(0)
+            scales = [scale.to(g.device) for g in g_parts]
         hist = None
         for level in range(depth):
             nn = 2 ** level
@@ -202,14 +220,19 @@ def _grow_forest_sharded(*, depth: int, n_bins: int, lambda_: float,
                                      for nid in nids], owner)
                 is_small = tree_mod._child_is_smaller(
                     counts[:, 0::2] <= counts[:, 1::2])
-            for s, g, h, nid in zip(shards, g_parts, h_parts, nids):
+            for i, (s, g, h, nid) in enumerate(zip(shards, g_parts, h_parts,
+                                                   nids)):
                 with on_device(g.device):
                     if plan.hist_subtraction and level > 0:
                         w = torch.gather(is_small.to(g.device), 1,
                                          nid.long()).to(torch.float32)
                         g, h = g * w, h * w
-                    parts.append(acc_hist(s.codes, g, h, nid, nn, F))
+                    parts.append(acc_hist(
+                        s.codes, g, h, nid, nn,
+                        None if scales is None else scales[i]))
             small = psum_parts(parts, owner)
+            if scale is not None:
+                small = hist_k.histogram_from_sums(small, scale)
             hist = (tree_mod._combine_sibling_hist(hist, small, is_small)
                     if plan.hist_subtraction and level > 0 else small)
             state, _, _ = tree_mod._decide_level(

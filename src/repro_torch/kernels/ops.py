@@ -134,13 +134,17 @@ _PLAIN_HIST = {"scatter": _ref.histogram_ref,
 
 
 def build_histogram(codes, g, h, node_ids, *, n_nodes: int, n_bins: int,
-                    plan: Optional[ExecutionPlan] = None) -> torch.Tensor:
+                    plan: Optional[ExecutionPlan] = None,
+                    scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(n, F) codes -> (n_nodes, F, n_bins, 2) float32 histogram.
 
     Class-batched form: g, h and node_ids (K, n) — every class has its own
     node partition over the shared codes — give (K, n_nodes, F, n_bins, 2)
     from one launch.  ``PackedCodes`` feed the nibble kernel under
-    ``"cuda"``; every other strategy unpacks them first.
+    ``"cuda"``; every other strategy unpacks them first.  ``scale``: the
+    grouped kernel's fixed-point grid
+    (:func:`repro_torch.kernels.histogram.fixed_point_scale`), which no
+    other strategy reads; the kernel computes it when None.
     """
     strategy = resolve_plan(plan).hist_strategy
     if strategy == "reference":
@@ -157,7 +161,7 @@ def build_histogram(codes, g, h, node_ids, *, n_nodes: int, n_bins: int,
                                    n_bins) for k in range(g.shape[0])])
         return fn(codes, g, h, node_ids, n_nodes, n_bins)
     return _hist_k.histogram_cuda(codes, g, h, node_ids, n_nodes=n_nodes,
-                                  n_bins=n_bins)
+                                  n_bins=n_bins, scale=scale)
 
 
 def accumulate_histogram(hist, codes, g, h, node_ids, *, n_nodes: int,

@@ -245,6 +245,158 @@ def test_naive_histogram_refuses_more_nodes_than_the_sort_holds(cuda):
     assert _build.launch_counts() == before
 
 
+# The grouped kernel's fixed-point cases at the cells' shapes, with
+# non-dyadic g and h (on no float32 grid a float sum keeps exact):
+# name -> (n, F, NB, K, codes).
+FIXED_POINT_CASES = {
+    "higgs": (2_000_000, 28, 256, 1, "random"),
+    # Covertype: K = 7, 10 numeric fields and 44 of two categories
+    "covertype": (581_012, 54, 256, 7, "two"),
+    # IoT: 115 fields of 16 bins, 4-bit packed (the nibble entry)
+    "iot": (2_000_000, 115, 16, 1, "nibble"),
+}
+
+# The float-atomic grouped kernel's (the float32 bins that the fixed-point
+# bins replaced) largest error over the bins against the float64 sum of
+# the same float32 g (h), at each case and level: the least of 20
+# launches, so the smallest it reached, rounded down (measured on an
+# NVIDIA H100 80GB HBM3 at 700 W with scripts/hist_accuracy.py).
+FLOAT_ATOMIC_MAX_ERR = {
+    ("higgs", 1): (2.09e-4, 1.26e-3), ("higgs", 32): (1.05e-5, 9.70e-6),
+    ("covertype", 1): (7.54e-4, 3.02e-2),
+    ("covertype", 32): (2.63e-4, 4.80e-3),
+    ("iot", 1): (2.66e-4, 2.02e-2), ("iot", 32): (3.79e-5, 2.42e-4),
+}
+
+
+def fixed_point_case(name, NN, device):
+    """(codes, g, h, node ids, NB) of one of FIXED_POINT_CASES at NN nodes
+    a class, made with numpy from one seed (the same on every machine):
+    normal g and uniform h at Higgs, softmax-like g in (-1, 1) and h =
+    p(1 - p) at Covertype and IoT."""
+    n, F, NB, K, kind = FIXED_POINT_CASES[name]
+    rng = np.random.default_rng(31)
+    codes = rng.integers(0, NB, (n, F), dtype=np.uint8)
+    if kind == "two":
+        codes[:, 10:] = rng.integers(0, 2, (n, F - 10), dtype=np.uint8)
+    shape = (n,) if K == 1 else (K, n)
+    if name == "higgs":
+        g = rng.normal(size=shape)
+        h = rng.uniform(0.05, 0.25, shape)
+    else:
+        p = rng.uniform(0.0, 1.0, shape)
+        g = p - (rng.uniform(size=shape) < p)
+        h = p * (1.0 - p)
+    nid = rng.integers(0, NN, shape).astype(np.int32)
+    codes = torch.from_numpy(codes).to(device)
+    if kind == "nibble":
+        codes = PackedCodes.pack(codes)
+    return (codes, torch.from_numpy(g.astype(np.float32)).to(device),
+            torch.from_numpy(h.astype(np.float32)).to(device),
+            torch.from_numpy(nid).to(device), NB)
+
+
+def float64_histogram(codes, g, h, nid, NN, NB):
+    """The histogram of float32 g, h summed in float64 (the order of the
+    adds moves it by float64 ulps only): (K, NN, F, NB, 2)."""
+    codes = codes.unpack() if isinstance(codes, PackedCodes) else codes
+    g, h, nid = (t.reshape(-1, t.shape[-1]) for t in (g, h, nid))
+    K, n = g.shape
+    F = codes.shape[1]
+    idx = ((torch.arange(K, device=g.device)[:, None] * NN + nid.long())
+           [:, :, None] * F + torch.arange(F, device=g.device)) * NB \
+        + codes.long()[None]
+    size = K * NN * F * NB
+
+    def total(w):
+        return torch.bincount(idx.reshape(-1), minlength=size,
+                              weights=w.double()[:, :, None]
+                              .expand(K, n, F).reshape(-1))
+
+    return torch.stack([total(g), total(h)], -1).reshape(K, NN, F, NB, 2)
+
+
+@pytest.mark.parametrize("NN", [1, 32])
+@pytest.mark.parametrize("name", sorted(FIXED_POINT_CASES))
+def test_fixed_point_histogram_is_the_same_every_launch(cuda, name, NN):
+    """Integer sums do not depend on their order: 20 launches on
+    non-dyadic g, h at the cells' shapes give one histogram, bit for
+    bit."""
+    codes, g, h, nid, NB = fixed_point_case(name, NN, cuda)
+    first = hist_k.histogram_cuda(codes, g, h, nid, n_nodes=NN, n_bins=NB)
+    for _ in range(19):
+        again = hist_k.histogram_cuda(codes, g, h, nid, n_nodes=NN,
+                                      n_bins=NB)
+        assert torch.equal(again, first)
+
+
+@pytest.mark.parametrize("NN", [1, 32])
+@pytest.mark.parametrize("name", sorted(FIXED_POINT_CASES))
+def test_fixed_point_histogram_no_less_exact_than_float_atomics(cuda, name,
+                                                                NN):
+    """Against the float64 sum of the same float32 g, h, the largest error
+    over the bins is no larger than the float-atomic kernel's least
+    (FLOAT_ATOMIC_MAX_ERR), and each bin is within its records' rounding
+    to the grid (half a step each) and half a float32 ulp of the exact
+    sum of the rounded records."""
+    codes, g, h, nid, NB = fixed_point_case(name, NN, cuda)
+    got = hist_k.histogram_cuda(codes, g, h, nid, n_nodes=NN, n_bins=NB)
+    want = float64_histogram(codes, g, h, nid, NN, NB).reshape(got.shape)
+    err = (got.double() - want).abs()
+    count = float64_histogram(codes, torch.ones_like(g), torch.ones_like(h),
+                              nid, NN, NB).reshape(got.shape)
+    scale = hist_k.fixed_point_scale(g, h)
+    step = scale.double().reciprocal().reshape(scale.shape[:-1]
+                                               + (1, 1, 1, 2))
+    top = got.abs()
+    ulp = torch.nextafter(top, torch.full_like(top, float("inf"))) - top
+    assert torch.all(err <= count * step / 2 + ulp.double() / 2)
+    for i, parent in enumerate(FLOAT_ATOMIC_MAX_ERR[(name, NN)]):
+        assert float(err[..., i].max()) <= parent
+
+
+@pytest.mark.parametrize("NN", [1, 2])
+def test_fixed_point_words_do_not_overflow_at_the_extremes(cuda, NN):
+    """20 M records of one code in one slot, each g the largest value of
+    its grid (2^31 - 128 steps) and each h its negative: a block's share
+    passes 2^16 positions, and the sums are exact, so the histogram is the
+    float32 rounding of n·g and n·h."""
+    n, v = 20_000_000, 1.9999999
+    codes = torch.zeros((n, 3), dtype=torch.uint8, device=cuda)
+    g = torch.full((n,), v, device=cuda)
+    nid = torch.full((n,), NN - 1, dtype=torch.int32, device=cuda)
+    geo = hist_k.grouped_geometry(n, 1, NN, 3, 2,
+                                  hist_k.grouped_limits(cuda))
+    assert geo.per_block > 2 ** 16 == geo.flush_every
+    got = hist_k.histogram_cuda(codes, g, -g, nid, n_nodes=NN, n_bins=2)
+    want = torch.zeros((NN, 3, 2, 2), dtype=torch.float64)
+    total = n * float(torch.tensor(v, dtype=torch.float32))
+    want[NN - 1, :, 0, 0], want[NN - 1, :, 0, 1] = total, -total
+    assert torch.equal(got.cpu(), want.float())
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_fixed_point_histogram_of_non_finite_stats(cuda, packed):
+    """A NaN or infinite g (h) of a class makes that statistic's histogram
+    NaN, never finite; the class's other statistic and the other class
+    are as the plain version's (dyadic)."""
+    rng = np.random.default_rng(5)
+    n, F, NN, K = 3000, 9, 4, 3
+    codes = torch.from_numpy(_codes(n, F, 16, rng)).to(cuda)
+    if packed:
+        codes = PackedCodes.pack(codes)
+    g, h, nid = _dyadic_stats(K, n, NN, rng, cuda)
+    g[0, 17] = float("nan")
+    h[1, 5] = float("inf")
+    got = hist_k.histogram_cuda(codes, g, h, nid, n_nodes=NN, n_bins=16)
+    assert torch.isnan(got[0, ..., 0]).all()
+    assert torch.isnan(got[1, ..., 1]).all()
+    want = hist_k.histogram_plain(codes, g, h, nid, NN, 16)
+    assert torch.equal(got[0, ..., 1], want[0, ..., 1])
+    assert torch.equal(got[1, ..., 0], want[1, ..., 0])
+    assert torch.equal(got[2], want[2])
+
+
 @pytest.mark.parametrize("n,K,nn", [(3001, 1, 16), (3001, 7, 32),
                                     (2, 3, 4)])
 def test_nibble_partition_kernel_matches_plain(cuda, n, K, nn):
@@ -676,8 +828,11 @@ def test_grouped_limits_read_from_the_card(cuda):
     assert limits.blocks_per_sm >= 1 and limits.sort_node_bytes == 12
     assert 0 < limits.block_reserved < limits.block_shared \
         <= limits.sm_shared
-    # Higgs's 28 fields of 256 bins fit one block (padded to 32 fields)
-    assert 8 * 256 * 32 <= limits.budget
+    assert limits.naive_blocks_per_sm == 3
+    # Higgs's 28 fields of 256 bins fit one block (padded to 32 fields),
+    # the grouped kernel's fixed-point bins and the naive kernel's floats
+    assert 16 * 256 * 32 <= limits.grouped_budget
+    assert 8 * 256 * 28 <= limits.budget
     assert limits.max_sort_nodes >= 2 ** 14
     assert hist_k.grouped_limits(cuda) is limits     # read once a device
 

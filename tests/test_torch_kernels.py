@@ -86,46 +86,57 @@ def test_histogram_wrapper_takes_plain_version_on_cpu():
     assert _build.launch_counts()["histogram"] == 0
 
 
-# What csrc/histogram.cu's launch bounds and an H100 SXM give
-# (hist_grouped_limits): 3 blocks an SM, 12 sort bytes a node, 132 SMs,
-# 228 KB an SM, 1 KB of it kept a block, 227 KB a block at most.
-H100 = hist_k.GroupedLimits(blocks_per_sm=3, sort_node_bytes=12, sms=132,
-                            sm_shared=233_472, block_reserved=1_024,
-                            block_shared=232_448)
+# What csrc/histogram.cu's kernels and an H100 SXM give
+# (hist_grouped_limits): one block of 1,024 threads of the grouped kernel
+# an SM (its registers), three of the naive kernel (its launch bounds), 12
+# sort bytes a node, 132 SMs, 228 KB an SM, 1 KB of it kept a block, 227 KB
+# a block at most.
+H100 = hist_k.GroupedLimits(blocks_per_sm=1, naive_blocks_per_sm=3,
+                            sort_node_bytes=12, sms=132, sm_shared=233_472,
+                            block_reserved=1_024, block_shared=232_448)
 
 
 def test_grouped_limits_budget():
-    """Two blocks' bins an SM; a sort block's counters for 19,370 nodes."""
+    """Two naive blocks' bins an SM, one grouped block's; a sort block's
+    counters for 19,370 nodes."""
     assert H100.budget == 233_472 // 2 - 1_024
+    assert H100.grouped_budget == 232_448
     assert H100.max_sort_nodes == 232_448 // 12
     small = H100._replace(sm_shared=100_000, block_shared=40_000)
-    assert small.budget == 40_000
+    assert small.budget == small.grouped_budget == 40_000
 
 
 @pytest.mark.parametrize("n,K,NN,F,NB", [
     (10_000_000, 1, 1, 28, 256), (10_000_000, 1, 32, 28, 256),
     (581_012, 7, 32, 54, 256), (581_012, 7, 1, 54, 256),
     (2_000_000, 1, 32, 115, 16), (3000, 1, 8, 115, 256),
-    (3000, 3, 512, 3, 256), (1, 1, 1, 1, 2), (777, 2, 3, 13, 15)])
+    (3000, 3, 512, 3, 256), (1, 1, 1, 1, 2), (777, 2, 3, 13, 15),
+    # a block's share past 2^16 positions many times over
+    (50_000_000, 1, 1, 28, 256)])
 def test_grouped_geometry_covers_every_slot_and_field(n, K, NN, F, NB):
     geo = hist_k.grouped_geometry(n, K, NN, F, NB, H100)
-    # bins [bin][field], a tile's fields padded to a multiple of 32 (lane l
-    # always on bank l), g and h; within 227 KB
+    # bins: four [bin][field] word arrays, a tile's fields padded to a
+    # multiple of 32 (lane l always on bank l); within 227 KB, one block an
+    # SM
     assert geo.row % 32 == 0 and geo.field_tile <= geo.row < \
         geo.field_tile + 32
-    assert geo.smem == 8 * NB * geo.row
+    assert geo.smem == 16 * (NB + 1) * geo.row + 20_480   # and the stages
     assert geo.smem <= 227 * 1024
-    assert 2 * (geo.smem + H100.block_reserved) <= H100.sm_shared \
+    assert geo.smem + H100.block_reserved <= H100.sm_shared \
         or geo.n_ftiles == 1
     # the field tiles cover every field once, none empty
     assert (geo.n_ftiles - 1) * geo.field_tile < F <= \
         geo.n_ftiles * geo.field_tile
-    assert geo.n_ftiles == 1 or geo.smem <= H100.budget
+    assert geo.n_ftiles == 1 or geo.smem <= H100.grouped_budget
     # the blocks' shares cover every sorted (class, record) position, and
     # the blocks fit the card at once
     assert geo.blocks * geo.per_block >= K * n
     assert (geo.blocks - 1) * geo.per_block < K * n
     assert geo.blocks * geo.n_ftiles <= H100.blocks_per_sm * H100.sms
+    # a block flushes at least every 2^16 positions, so no bin word
+    # overflows, and not more often than that asks
+    assert 1 <= geo.flush_every <= 2 ** 16
+    assert geo.flush_every == min(geo.per_block, 2 ** 16)
     # the sort's blocks cover every record of a class; none at one slot
     if K * NN == 1:
         assert geo.sort_blocks == geo.sort_chunk == 0
@@ -137,20 +148,125 @@ def test_grouped_geometry_covers_every_slot_and_field(n, K, NN, F, NB):
 
 
 def test_grouped_geometry_at_the_paths_shapes():
-    """Higgs's 28 fields of 256 bins sit in one block (64 KB, three blocks
-    an SM); Covertype's 54 pad to 64 and would pass the budget, so they
-    take two tiles of 27; IoT's 115 fields of 16 bins one; 115 fields of
-    256 bins four tiles of 29."""
+    """Higgs's 28 fields of 256 bins sit in one block (128 KB and 20 KB of
+    stages, one block an SM, one wave of 132) whose share of 75,758
+    positions passes 2^16, so it flushes every 2^16; Covertype's 54 pad to
+    64 and would pass the budget, so they take two tiles of 27 (66 blocks
+    each, shares of 61,623 positions: no flush but at slots' edges); IoT's
+    115 fields of 16 bins one (32 KB and the stages); 115 fields of 256 bins
+    four tiles of 29."""
     higgs = hist_k.grouped_geometry(10_000_000, 1, 32, 28, 256, H100)
     cover = hist_k.grouped_geometry(581_012, 7, 32, 54, 256, H100)
     iot = hist_k.grouped_geometry(2_000_000, 1, 32, 115, 16, H100)
     wide = hist_k.grouped_geometry(3000, 1, 8, 115, 256, H100)
-    assert (higgs.n_ftiles, higgs.row, higgs.smem) == (1, 32, 65536)
-    assert higgs.blocks == 3 * 132                  # one wave
+    assert (higgs.n_ftiles, higgs.row, higgs.smem) == (1, 32, 152_064)
+    assert (higgs.blocks, higgs.per_block) == (132, 75_758)
+    assert higgs.flush_every == 2 ** 16
     assert (cover.n_ftiles, cover.field_tile, cover.row) == (2, 27, 32)
-    assert cover.blocks == 3 * 132 // 2
-    assert (iot.n_ftiles, iot.row, iot.smem) == (1, 128, 16384)
+    assert (cover.blocks, cover.per_block) == (66, 61_623)
+    assert cover.flush_every == cover.per_block
+    assert (iot.n_ftiles, iot.row, iot.smem) == (1, 128, 55_296)
+    assert iot.blocks == 132
     assert (wide.n_ftiles, wide.field_tile) == (4, 29)
+
+
+def _flush_runs(offsets, per_block, flush_every, block):
+    """The runs of sorted positions that block ``block`` adds between two
+    flushes, walked as ``csrc/histogram.cu``'s ``for_each_slot`` and
+    ``hist_grouped_kernel`` walk them: its share of the list cut at each
+    slot's edge (``offsets``: the slots' exclusive scan, the total last),
+    then every ``flush_every`` positions.  (slot, first, end) each."""
+    p = block * per_block
+    end = min(offsets[-1], p + per_block)
+    runs, s = [], 0
+    while p < end:
+        while offsets[s + 1] <= p:
+            s += 1
+        e = min(end, offsets[s + 1])
+        runs += [(s, a, min(e, a + flush_every))
+                 for a in range(p, e, flush_every)]
+        p = e
+    return runs
+
+
+@pytest.mark.parametrize("n,K,NN", [
+    # one slot, shares past 2^16 positions; Higgs's deepest level; one
+    # slot holding nearly every record; Covertype's classes
+    (20_000_000, 1, 1), (10_000_000, 1, 32), (12_000_000, 1, 8),
+    (581_012, 7, 32)])
+def test_grouped_blocks_flush_every_2_16_positions(n, K, NN):
+    """No block adds more than 2^16 sorted positions between two flushes,
+    where its share holds more, and each run lies in one slot: the blocks'
+    runs cover the sorted list once."""
+    geo = hist_k.grouped_geometry(n, K, NN, 28, 256, H100)
+    rng = np.random.default_rng(n + NN)
+    sizes = rng.multinomial(K * n, rng.dirichlet(np.ones(K * NN) / 4))
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+    runs = [r for b in range(geo.blocks)
+            for r in _flush_runs(offsets, geo.per_block, geo.flush_every, b)]
+    assert max(e - a for _, a, e in runs) <= 2 ** 16
+    assert all(offsets[s] <= a < e <= offsets[s + 1] for s, a, e in runs)
+    assert [a for _, a, _ in runs] == [0] + [e for _, _, e in runs][:-1]
+    assert runs[-1][2] == K * n
+    if n > 2 ** 16 * geo.blocks:
+        assert geo.per_block > 2 ** 16 == geo.flush_every
+
+
+@pytest.mark.parametrize("K", [None, 3])
+@pytest.mark.parametrize("magnitude", [1e-25, 3e-4, 0.25, 1.0, 7.5, 2e20])
+def test_fixed_point_scale_is_a_power_of_two_at_2_30(K, magnitude):
+    """Each class's scale of g and of h is a power of two that puts the
+    largest |g| (|h|) in [2^30, 2^31): the grid is at most 2^-30 of it and
+    every record's value lands on an int32."""
+    rng = np.random.default_rng(int(magnitude * 1e3) % 997 + (K or 0))
+    shape = (1000,) if K is None else (K, 1000)
+    g = torch.from_numpy(rng.normal(size=shape) * magnitude).float()
+    h = torch.from_numpy(rng.uniform(0, 1, shape) * magnitude / 7).float()
+    scale = hist_k.fixed_point_scale(g, h)
+    assert scale.dtype == torch.float32
+    assert scale.shape == shape[:-1] + (2,)
+    mant, _ = torch.frexp(scale)
+    assert torch.all(mant == 0.5)
+    for i, stat in enumerate((g, h)):
+        top = stat.abs().amax(-1).double() * scale[..., i].double()
+        assert torch.all((2.0 ** 30 <= top) & (top < 2.0 ** 31))
+        q = torch.round(stat.double() * scale[..., i, None].double())
+        assert q.abs().max() < 2 ** 31
+
+
+def test_fixed_point_scale_of_zero_nan_and_inf():
+    """All-zero g gets a finite grid on which every record is 0; a NaN or
+    infinite g gets scale 0, which the kernel turns into a NaN histogram;
+    the other statistic and the other classes keep their grids."""
+    g = torch.tensor([[0.0, -0.0, 0.0], [1.0, float("nan"), 0.5],
+                      [2.0, float("inf"), 1.0], [1e-40, 0.0, -1e-42]])
+    h = torch.tensor([[0.5, 0.25, 0.75]] * 4)
+    scale = hist_k.fixed_point_scale(g, h)
+    assert scale[0, 0] == 2.0 ** 126 and torch.all(g[0] * scale[0, 0] == 0)
+    assert scale[1, 0] == scale[2, 0] == 0.0
+    assert scale[3, 0] == 2.0 ** 126          # subnormal g: a coarse grid
+    assert torch.all(torch.abs(g[3] * scale[3, 0]) < 1)
+    assert torch.all(scale[:, 1] == 2.0 ** 31)
+    one = hist_k.fixed_point_scale(g[1], h[1])
+    assert one.shape == (2,) and torch.equal(one, scale[1])
+
+
+def test_fixed_point_words_hold_2_16_extreme_adds():
+    """The kernel's words at their extremes: 2^16 adds of the largest q of
+    either sign (2^31 - 128 on the grid) keep the signed high word within
+    int32 and the low word within uint32, and hi·2^16 + lo gives back the
+    exact sum."""
+    g = torch.tensor([1.9999999, -1.9999999], dtype=torch.float32)
+    scale = hist_k.fixed_point_scale(g, g.abs())
+    q = torch.round(g.double() * scale[0].double()).long()
+    assert q.tolist() == [2 ** 31 - 128, -(2 ** 31 - 128)]
+    hi, lo = q >> 16, q & 0xFFFF
+    assert hi.tolist() == [2 ** 15 - 1, -2 ** 15] and lo.max() < 2 ** 16
+    n = 2 ** 16
+    hi_sum, lo_sum = hi * n, lo * n
+    assert torch.all((-2 ** 31 <= hi_sum) & (hi_sum < 2 ** 31))
+    assert torch.all((0 <= lo_sum) & (lo_sum < 2 ** 32))
+    assert torch.equal(hi_sum * 2 ** 16 + lo_sum, q * n)
 
 
 def _check_naive_geometry(n, K, NN, F, NB, limits):
@@ -167,7 +283,9 @@ def _check_naive_geometry(n, K, NN, F, NB, limits):
         geo.n_ftiles * geo.field_tile
     assert geo.blocks * geo.per_block >= K * n
     assert (geo.blocks - 1) * geo.per_block < K * n
-    assert geo.blocks * geo.n_ftiles <= limits.blocks_per_sm * limits.sms
+    assert geo.blocks * geo.n_ftiles <= \
+        limits.naive_blocks_per_sm * limits.sms
+    assert geo.flush_every == geo.per_block    # flushed at slots' edges
     grouped = hist_k.grouped_geometry(n, K, NN, F, NB, limits)
     assert (geo.sort_blocks, geo.sort_chunk) == (grouped.sort_blocks,
                                                  grouped.sort_chunk)

@@ -146,10 +146,11 @@ def test_class_slot_naive_geometry(K, NN, F, NB):
     grouped kernel does: one slot's bins at a time, whatever K·NN, so its
     shared memory holds one slot's fields and K only lengthens the sorted
     list that the blocks share."""
-    # what csrc/histogram.cu's launch bounds and an H100 SXM give
-    limits = hist_k.GroupedLimits(blocks_per_sm=3, sort_node_bytes=12,
-                                  sms=132, sm_shared=233_472,
-                                  block_reserved=1_024, block_shared=232_448)
+    # what csrc/histogram.cu's kernels and an H100 SXM give
+    limits = hist_k.GroupedLimits(blocks_per_sm=1, naive_blocks_per_sm=3,
+                                  sort_node_bytes=12, sms=132,
+                                  sm_shared=233_472, block_reserved=1_024,
+                                  block_shared=232_448)
     n = 581_012
     geo = hist_k.grouped_geometry(n, K, NN, F, NB, limits, naive=True)
     one = hist_k.grouped_geometry(n, 1, 1, F, NB, limits, naive=True)
