@@ -71,7 +71,7 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    paths (Higgs: 32 nodes x 28 fields x 256 bins; Covertype: 7 x 32 = 224
    nodes x 54 fields, 44 of them categorical): bit-equal to its plain
    version on dyadic histograms, search and fused fold (the six tree
-   tables after ``_decide_level``); on real statistics the largest gain
+   tables after ``decide_level``); on real statistics the largest gain
    difference; its device time (``torch.profiler``), the plain version's,
    the bound, and the host time a level of both (the kernel's wrapper and
    the plain search with its fold), without a sync.
@@ -1561,17 +1561,17 @@ def split_parity(seed: int, dev) -> dict:
                                device=dev)) for _ in range(2)]
         fold = dict(is_cat_field=is_cat, field_mask=mask, lambda_=1.0,
                     gamma=0.0, min_child_weight=1.0)
-        fused, _, _ = tree_mod._decide_level(dy, DEPTH - 1, DEPTH, states[0],
-                                             *fold.values())
-        plain, _, _ = tree_mod._decide_level(
+        fused, _, _ = tree_mod.decide_level(dy, DEPTH - 1, DEPTH, states[0],
+                                            *fold.values())
+        plain, _, _ = tree_mod.decide_level(
             dy, DEPTH - 1, DEPTH, states[1], *fold.values(),
             find=splits_mod.find_best_splits_plain)
         check(all(torch.equal(a, b) for a, b in zip(fused, plain)),
               f"split_level{sfx} fold: the six tables bit-equal")
         args = (real.reshape(K * nn, F, NB, 2), is_cat, mask, 1.0, 0.0, 1.0)
-        level = lambda: tree_mod._decide_level(real, DEPTH - 1, DEPTH,
-                                               fused, *fold.values())
-        plain_level = lambda: tree_mod._decide_level(
+        level = lambda: tree_mod.decide_level(real, DEPTH - 1, DEPTH,
+                                              fused, *fold.values())
+        plain_level = lambda: tree_mod.decide_level(
             real, DEPTH - 1, DEPTH, plain, *fold.values(),
             find=splits_mod.find_best_splits_plain)
         KNN = K * nn
@@ -2206,6 +2206,15 @@ def subtraction_levels(data, K: int, gen, dev, label: str) -> dict:
     n = data.n_records
     g, h = exact_grid((K, n), gen, dev)
     _, ids = level_ids(data.codes, data.codes_cm, g, h, data, plan)
+
+    def resident(nid, plan):
+        """The grower's in-memory records, at the node ids ``nid``."""
+        records = tree_mod.ResidentRecords(
+            data.codes, data.codes_cm, g, h, n_bins=data.n_bins,
+            missing_bin=data.missing_bin, plan=plan)
+        records.node_ids = nid
+        return records
+
     levels = []
     parent = ops.build_histogram(data.codes, g, h,
                                  torch.zeros((K, n), dtype=torch.int32,
@@ -2215,17 +2224,15 @@ def subtraction_levels(data, K: int, gen, dev, label: str) -> dict:
         nid, nn = ids[level - 1], 2 ** level
         direct_fn = lambda: ops.build_histogram(
             data.codes, g, h, nid, n_nodes=nn, n_bins=data.n_bins, plan=plan)
-        sub_fn = lambda: tree_mod._subtract_level_hist(
-            data.codes, g, h, nid, parent, n_nodes=nn, n_bins=data.n_bins,
-            plan=plan)
+        records = resident(nid, plan)
+        sub_fn = lambda: tree_mod.subtract_level_hist(records, parent, nn)
         direct, sub = direct_fn(), sub_fn()
         check(torch.equal(sub, direct),
               f"{label} level {level}: subtraction bit-equal to the direct "
               "pass (exact-grid stats)")
         if level == 3:
-            want = tree_mod._subtract_level_hist(
-                data.codes, g, h, nid, parent, n_nodes=nn,
-                n_bins=data.n_bins, plan=plain)
+            want = tree_mod.subtract_level_hist(resident(nid, plain),
+                                                parent, nn)
             check(torch.equal(sub, want), f"{label} level 3: subtraction "
                   "bit-equal to its plain version")
             del want
@@ -2898,6 +2905,11 @@ def pass_breakdown(label: str, src, binner, K: int, model, dev,
     off = nn - 1
     tables = [t[:K, off:off + nn].contiguous() for t in model.trees[:4]]
     kplan = plan.without_chunking().resolved()
+    # the chunked grower's step ③ for one chunk, through this level's tables
+    chunked = tree_mod.ChunkedRecords(
+        None, g, h, n_fields=F, n_bins=binner.max_bins,
+        missing_bin=binner.max_bins - 1, plan=kplan, device=dev)
+    chunked.partition(tables, None, None)
 
     def grow(codes, lo, hi, hist):
         up = [torch.empty((K, hi - lo), dtype=a.dtype, device=dev)
@@ -2908,9 +2920,7 @@ def pass_breakdown(label: str, src, binner, K: int, model, dev,
         hist = ops.accumulate_histogram(hist, codes, up[0], up[1], up[2],
                                         n_nodes=nn, n_bins=binner.max_bins,
                                         plan=kplan)
-        tree_mod._partition_chunk(codes, up[2], *tables,
-                                  missing_bin=binner.max_bins - 1,
-                                  plan=kplan)
+        chunked.route(codes, up[2])
         return hist
 
     def new_hist():
@@ -3286,7 +3296,7 @@ def dist_level(data, D: int, dev, smi: str) -> dict:
         mark(1)
         hist = sharding.psum_parts(parts, dev)
         mark(2)
-        st, _, _ = tree_mod._decide_level(
+        st, _, _ = tree_mod.decide_level(
             hist, level, DEPTH, state(), kw["is_cat_field"],
             kw["field_mask"], 1.0, 0.0, 1.0)
         mark(3)

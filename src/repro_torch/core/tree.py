@@ -2,30 +2,32 @@
 
 The counterpart of :mod:`repro.core.tree`'s in-memory growers:
 
-  * :func:`fit_forest` / :func:`fit_tree` — the level-by-level grower,
-    class-batched.  K trees (one per class of a multi-class objective,
-    K = 1 otherwise) grow level-synchronously over the same records; every
-    record carries one level-local node id per class.  One histogram
-    launch per level covers every vertex of every class, step ② picks the
-    splits with the class axis folded into the node axis (on the card one
-    launch of the split-search kernel, which also writes the level into
-    the tree tables; on the host under ``plan.host_offload_split``), and
-    one partition launch routes every class's records straight from the
-    column-major copy.  With ``plan.hist_subtraction``, levels > 0 bin
-    only the smaller child of every split parent and derive the sibling as
-    ``parent − smaller`` (paper §II-A).  Nothing in the level loop reads
-    the host (the host offload apart), so a CUDA graph can capture it.
+  * :func:`grow_levels` — the level-by-level grower, class-batched.  K
+    trees (one per class of a multi-class objective, K = 1 otherwise) grow
+    level-synchronously over the same records; every record carries one
+    level-local node id per class.  One histogram of every vertex of
+    every class a level (step ①), step ② picks the splits with the class
+    axis folded into the node axis (on the card one launch of the
+    split-search kernel, which also writes the level into the tree
+    tables; on the host under ``plan.host_offload_split``), and step ③
+    routes every class's records.  With ``plan.hist_subtraction``, levels
+    > 0 bin only the smaller child of every split parent and derive the
+    sibling as ``parent − smaller`` (paper §II-A).  Where the records lie
+    is the loop's one variable: :func:`fit_forest` / :func:`fit_tree` hold
+    them on the device (:class:`ResidentRecords`: one histogram and one
+    partition launch a level; nothing reads the host, the host offload
+    apart, so a CUDA graph can capture the loop), :func:`fit_forest_chunked`
+    streams them as chunks, one pass a level (:class:`ChunkedRecords`),
+    and ``distributed.sharding.ShardedRecords`` spreads them over a mesh's
+    data shards, one histogram sum a level.
+
   * :func:`fit_tree_lossguide` — the vertex-by-vertex (best-first)
     grower: a gain heap on the host, one histogram of the smaller child a
     split on the device, its sibling ``parent − child``.
-  * :func:`fit_forest_chunked` — the out-of-core twin of
-    :func:`fit_forest`: the same levels over a stream of chunks, one pass a
-    level, each chunk's histogram accumulated into the level's and its node
-    ids kept chunk by chunk.
 
 Each returns a fixed-shape ``TreeArrays`` (complete binary tree with
-pass-through nodes), with a leading (K, ...) axis from :func:`fit_forest`
-and :func:`fit_forest_chunked`.
+pass-through nodes), with a leading (K, ...) axis from :func:`grow_levels`,
+:func:`fit_forest` and :func:`fit_forest_chunked`.
 """
 from __future__ import annotations
 
@@ -77,13 +79,34 @@ def _gather_fields(codes_cm, idx):
     return codes_cm[idx]
 
 
-def _grid_scale(g, h, plan: ExecutionPlan):
-    """The grouped histogram kernel's fixed-point grid of the tree's g and
-    h (:func:`repro_torch.kernels.histogram.fixed_point_scale`), computed
-    once a tree on the card; None where that kernel does not run."""
-    if g.device.type != "cuda" or plan.hist_strategy != "cuda":
+def tree_tables(K: int, depth: int, device):
+    """The (K, ...) tables a depth-``depth`` tree grows into, a level at a
+    time (:func:`decide_level`): split feature (-1 where a node does not
+    split), threshold, is_cat and default_left of the 2^depth − 1
+    internal nodes, then the value of each of the 2^depth bottom slots and
+    whether a level has settled it."""
+    n_int, n_leaf = 2 ** depth - 1, 2 ** depth
+    i32 = dict(dtype=torch.int32, device=device)
+    return (torch.full((K, n_int), -1, **i32),                 # feature
+            torch.zeros((K, n_int), **i32),                    # threshold
+            torch.zeros((K, n_int), **i32),                    # is_cat
+            torch.zeros((K, n_int), **i32),                    # default_left
+            torch.zeros((K, n_leaf), dtype=torch.float32, device=device),
+            torch.zeros((K, n_leaf), dtype=torch.bool, device=device))
+
+
+def fixed_point_grid(parts, plan: ExecutionPlan):
+    """The grouped histogram kernel's fixed-point grid of a tree's g and h
+    (:func:`repro_torch.kernels.histogram.fixed_point_scale`), once a tree
+    on the card: the finest that holds every (g, h) pair of ``parts`` (one
+    in memory, one a shard), on the first's device; None off that kernel."""
+    g0 = parts[0][0]
+    if g0.device.type != "cuda" or plan.hist_strategy != "cuda":
         return None
-    return hist_k.fixed_point_scale(g, h)
+    if len(parts) == 1:
+        return hist_k.fixed_point_scale(*parts[0])
+    return torch.stack([hist_k.fixed_point_scale(g, h).to(g0.device)
+                        for g, h in parts]).amin(0)
 
 
 def fit_tree(codes, codes_cm, g, h, *, depth: int, n_bins: int,
@@ -120,7 +143,8 @@ def fit_forest(codes, codes_cm, g, h, *, depth: int, n_bins: int,
                partition_strategy: Optional[str] = None,
                host_offload_split: Optional[bool] = None) -> TreeArrays:
     """Grow K depth-``depth`` trees level-synchronously, one per class,
-    over a shared code stream.
+    over a shared code stream held on the device
+    (:class:`ResidentRecords`).
 
     g, h: (K, n) float32 contiguous per-class statistics.  Returns
     TreeArrays with leading (K, ...) axes.  The legacy per-step keywords
@@ -129,20 +153,37 @@ def fit_forest(codes, codes_cm, g, h, *, depth: int, n_bins: int,
     plan = _lift_loose_kwargs(plan, hist_strategy=hist_strategy,
                               partition_strategy=partition_strategy,
                               host_offload_split=host_offload_split)
-    K, n = g.shape
-    device = codes.device
-    n_int, n_leaf = 2 ** depth - 1, 2 ** depth
-    i32 = dict(dtype=torch.int32, device=device)
-    state = (torch.full((K, n_int), -1, **i32),                # feature
-             torch.zeros((K, n_int), **i32),                   # threshold
-             torch.zeros((K, n_int), **i32),                   # is_cat
-             torch.zeros((K, n_int), **i32),                   # default_left
-             torch.zeros((K, n_leaf), dtype=torch.float32, device=device),
-             torch.zeros((K, n_leaf), dtype=torch.bool, device=device))
+    records = ResidentRecords(codes, codes_cm, g, h, n_bins=n_bins,
+                              missing_bin=missing_bin, plan=plan)
+    return grow_levels(records, depth=depth, is_cat_field=is_cat_field,
+                       field_mask=field_mask, lambda_=lambda_, gamma=gamma,
+                       min_child_weight=min_child_weight)
+
+
+def grow_levels(records, *, depth: int, is_cat_field, field_mask,
+                lambda_: float, gamma: float,
+                min_child_weight: float) -> TreeArrays:
+    """The depthwise grower: K depth-``depth`` trees, a level at a time,
+    over ``records``, a record layout (:class:`ResidentRecords`,
+    :class:`ChunkedRecords`, ``distributed.sharding.ShardedRecords``).
+
+    A layout holds the records, their (K, ·) statistics and node ids
+    (``node_ids``, the final leaf slots after the last level) and gives
+    ``K``, the kernels' ``plan``, the ``device`` of the tables and step ②,
+    and four steps: ``histogram(n_nodes, is_small=None)``, step ①, the
+    (K, n_nodes, F, n_bins, 2) level histogram on ``device``, with
+    ``is_small`` that of the marked children only; ``smaller_is_left
+    (n_nodes)``, the (K, n_nodes / 2) choice of the child to bin
+    (:func:`subtract_level_hist`); ``partition(tables, best, do_split)``,
+    step ③ through the level's (K, n_nodes) split tables (views of the
+    tree tables, feature -1 where a node does not split) and decision;
+    ``bottom_sums(n_leaf)``, the (2, K·n_leaf) G and H sums of the bottom
+    slots.  Returns TreeArrays with leading (K, ...) axes on ``device``.
+    """
+    plan = records.plan
+    state = tree_tables(records.K, depth, records.device)
     find = (splits_mod.find_best_splits_host if plan.host_offload_split
             else splits_mod.find_best_splits)
-    node_ids = torch.zeros((K, n), **i32)          # per-class vertex ids
-    scale = _grid_scale(g, h, plan)
     hist = None
     for level in range(depth):
         nn = 2 ** level
@@ -151,43 +192,30 @@ def fit_forest(codes, codes_cm, g, h, *, depth: int, n_bins: int,
         # each parent and derive the sibling from the last level's hist
         with obs.span(_HIST_SPANS[level]):
             if plan.hist_subtraction and level > 0:
-                hist = _subtract_level_hist(codes, g, h, node_ids, hist,
-                                            n_nodes=nn, n_bins=n_bins,
-                                            plan=plan, scale=scale)
+                hist = subtract_level_hist(records, hist, nn)
             else:
-                hist = ops.build_histogram(codes, g, h, node_ids, n_nodes=nn,
-                                           n_bins=n_bins, plan=plan,
-                                           scale=scale)
+                hist = records.histogram(nn)
         # step ② — split decisions + tree-table updates
         with obs.span(_SPLIT_SPANS[level]):
-            state, _, _ = _decide_level(
+            state, best, do_split = decide_level(
                 hist, level, depth, state, is_cat_field, field_mask, lambda_,
                 gamma, min_child_weight, find)
-        # step ③ — route every class's records to children, reading the
-        # chosen fields straight from the column-major copy; the level's
-        # splits are handed over as views of the tree tables, where step ②
-        # wrote them (feature -1 where a node does not split)
+        # step ③ — the level's splits handed over as views of the tree
+        # tables, where step ② wrote them
         off = nn - 1
         with obs.span(_PARTITION_SPANS[level]):
-            node_ids = ops.partition_level_cm(
-                node_ids, codes_cm,
-                *[table[:, off:off + nn] for table in state[:4]],
-                missing_bin=missing_bin, plan=plan)
-
-    feature, threshold, is_cat, default_left, value_bottom, value_set = state
+            records.partition([table[:, off:off + nn] for table in state[:4]],
+                              best, do_split)
     with obs.span("tree.leaves"):
-        value_bottom = _settle_bottom_leaves(g, h, node_ids, value_bottom,
-                                             value_set, n_leaf, lambda_)
-    return TreeArrays(feature=feature, threshold=threshold, is_cat=is_cat,
-                      default_left=default_left, leaf_value=value_bottom)
+        return settle_leaves(state, records.bottom_sums(2 ** depth), lambda_)
 
 
-def _decide_level(hist, level, depth, state, is_cat_field, field_mask,
-                  lambda_, gamma, min_child_weight,
-                  find=splits_mod.find_best_splits):
+def decide_level(hist, level, depth, state, is_cat_field, field_mask,
+                 lambda_, gamma, min_child_weight,
+                 find=splits_mod.find_best_splits):
     """Step ② for one level: pick splits from the (K, nn, F, NB, 2) level
     histogram with ``find`` (on the device, or the host offload) and fold
-    them into the (K, ...) tree-table ``state``.
+    them into the (K, ...) tree-table ``state`` (:func:`tree_tables`).
 
     On the card, with the default ``find``, the search and the fold are
     one launch of the split-search kernel, which updates every table of
@@ -232,7 +260,7 @@ def _decide_level(hist, level, depth, state, is_cat_field, field_mask,
 LEAF_SUM_BLOCK = 4096      # records a block-private leaf accumulator sums
 
 
-def _bottom_sums(g, h, node_ids, n_leaf: int) -> torch.Tensor:
+def bottom_sums(g, h, node_ids, n_leaf: int) -> torch.Tensor:
     """(2, K·n_leaf) G and H sums of the bottom slots of (K, n) statistics
     and leaf slots.
 
@@ -262,19 +290,33 @@ def _bottom_sums(g, h, node_ids, n_leaf: int) -> torch.Tensor:
     return acc.view(2, n_blocks, S).sum(1)
 
 
-def _settle_bottom_leaves(g, h, node_ids, value_bottom, value_set, n_leaf,
-                          lambda_):
-    """Leaf weights for every bottom slot not settled by an earlier level;
-    g, h, node_ids (K, n), the slots' sums by :func:`_bottom_sums`."""
-    K = g.shape[0]
-    Gb, Hb = _bottom_sums(g, h, node_ids, n_leaf).to(torch.float32)
-    wb = splits_mod.leaf_weight(Gb, Hb, lambda_).reshape(K, n_leaf)
-    return torch.where(value_set, value_bottom, wb)
+def settle_leaves(state, sums, lambda_: float) -> TreeArrays:
+    """The grown (K, ...) tree from its tables ``state``
+    (:func:`tree_tables`): every bottom slot that no level settled takes
+    its leaf weight from ``sums``, the (2, K·n_leaf) G and H sums of the
+    bottom slots (:func:`bottom_sums`, or the shards' sum of theirs)."""
+    feature, threshold, is_cat, default_left, value_bottom, value_set = state
+    Gb, Hb = sums.to(torch.float32)
+    wb = splits_mod.leaf_weight(Gb, Hb, lambda_).reshape(value_set.shape)
+    return TreeArrays(feature=feature, threshold=threshold, is_cat=is_cat,
+                      default_left=default_left,
+                      leaf_value=torch.where(value_set, value_bottom, wb))
 
 
 # --------------------------------------------------------------------------
 # histogram subtraction (paper §II-A) for the level-wise grower
 # --------------------------------------------------------------------------
+def subtract_level_hist(records, parent_hist, n_nodes: int):
+    """Step ① for one level (> 0) by smaller-child subtraction: the layout
+    ``records`` (:func:`grow_levels`) bins only the child of each split
+    parent that its own rule calls the smaller, and every sibling is
+    derived as ``parent − smaller`` from the last level's histogram
+    ``parent_hist``."""
+    is_small = _child_is_smaller(records.smaller_is_left(n_nodes))
+    return _combine_sibling_hist(
+        parent_hist, records.histogram(n_nodes, is_small), is_small)
+
+
 def _child_is_smaller(smaller_is_left):
     """(K, NN/2) per-parent 'left child is smaller' -> (K, NN) per-child
     'this node is the smaller sibling' (children of parent p sit at slots
@@ -321,63 +363,75 @@ def _compact_selected(codes, g, h, nid, sel, n_half: int):
             torch.where(valid, nid[take], 0))
 
 
-def _node_counts(nid, n_nodes: int):
-    """(K, n_nodes) records a node of (K, n) node ids, exact (float64): a
-    histogram over the (class, node) slots, which sums a block's records
-    in shared memory first, where a scatter-add of ones into so few slots
-    would serialize on their addresses."""
+def node_counts(nid, n_nodes: int):
+    """(K, n_nodes) records a node of (K, n) node ids (int32 or int64),
+    exact (float64): a histogram over the (class, node) slots, which sums
+    a block's records in shared memory first, where a scatter-add of ones
+    into so few slots would serialize on their addresses."""
     K = nid.shape[0]
     slot = nid + torch.arange(K, device=nid.device)[:, None] * n_nodes
     return torch.histc(slot.to(torch.float64), bins=K * n_nodes, min=0,
                        max=K * n_nodes).reshape(K, n_nodes)
 
 
-def _subtract_level_hist(codes, g, h, node_ids, parent_hist, *,
-                         n_nodes: int, n_bins: int, plan: ExecutionPlan,
-                         scale=None):
-    """Step ① for one level (> 0) by smaller-child subtraction.
+# --------------------------------------------------------------------------
+# the record layouts of this module
+# --------------------------------------------------------------------------
+class ResidentRecords:
+    """Every record on the grower's device: the layout of
+    :func:`fit_forest` (see :func:`grow_levels`), its arguments as it
+    takes them.  Step ① bins on the tree's fixed-point grid
+    (:func:`fixed_point_grid`, which holds the masked g, h too).
 
-    Bins only the records that landed in the smaller child of each split
-    parent and derives every sibling as ``parent − smaller``.  Per-node
-    record counts come from an on-device scatter-add of the freshly
-    partitioned node ids (:func:`_node_counts`; no host read in the level
-    loop).
-
-    Class handling, as ``repro``'s: the class-batched CUDA kernels
+    The smaller child has fewer records (:func:`node_counts`, on the
+    device).  As in ``repro``, the class-batched CUDA kernels
     (``"cuda"``, ``"cuda_packed"``) read the codes once for all K classes,
-    so at K > 1 they keep one class-batched launch with the bigger child's
-    statistics masked to zero (the counterpart of ``repro``'s Pallas
-    route); everywhere else each class's smaller-child records are
-    compacted into an ``n // 2`` buffer and binned by one launch a class,
-    half the record stream each.  ``scale``: the tree's (K, 2)
-    fixed-point grid of g and h, which also holds their masked copies.
+    so at K > 1 they keep one launch with the bigger child's statistics
+    masked to zero (``repro``'s Pallas route); everywhere else each
+    class's smaller-child records are compacted into an ``n // 2`` buffer
+    and binned by one launch a class, half the record stream each.
     """
-    K, n = g.shape
-    nid = node_ids.long()
-    counts = _node_counts(nid, n_nodes)
-    smaller_is_left = counts[:, 0::2] <= counts[:, 1::2]       # (K, NN/2)
-    is_small = _child_is_smaller(smaller_is_left)              # (K, NN)
-    sel = torch.gather(is_small, 1, nid)                       # (K, n)
-    if K > 1 and plan.hist_strategy in ("cuda", "cuda_packed"):
-        w = sel.to(torch.float32)
-        small = ops.build_histogram(codes, g * w, h * w, node_ids,
-                                    n_nodes=n_nodes, n_bins=n_bins, plan=plan,
-                                    scale=scale)
-        return _combine_sibling_hist(parent_hist, small, is_small)
-    n_half = max(1, n // 2)
-    smalls = []
-    for k in range(K):
-        ck, gk, hk, nk = _compact_selected(codes, g[k], h[k], node_ids[k],
-                                           sel[k], n_half)
-        smalls.append(ops.build_histogram(
-            ck, gk, hk, nk, n_nodes=n_nodes, n_bins=n_bins, plan=plan,
-            scale=None if scale is None else scale[k]))
-    return _combine_sibling_hist(parent_hist, torch.stack(smalls), is_small)
+
+    def __init__(self, codes, codes_cm, g, h, *, n_bins: int,
+                 missing_bin: int, plan: ExecutionPlan):
+        self.codes, self.codes_cm, self.g, self.h = codes, codes_cm, g, h
+        self.n_bins, self.missing_bin, self.plan = n_bins, missing_bin, plan
+        self.K = g.shape[0]
+        self.device = codes.device
+        self.node_ids = torch.zeros(g.shape, dtype=torch.int32,
+                                    device=self.device)
+        self.scale = fixed_point_grid([(g, h)], plan)
+
+    def histogram(self, n_nodes: int, is_small=None):
+        kw = dict(n_nodes=n_nodes, n_bins=self.n_bins, plan=self.plan)
+        if is_small is None:
+            return ops.build_histogram(self.codes, self.g, self.h,
+                                       self.node_ids, scale=self.scale, **kw)
+        sel = torch.gather(is_small, 1, self.node_ids.long())      # (K, n)
+        if self.K > 1 and self.plan.hist_strategy in ("cuda", "cuda_packed"):
+            w = sel.to(torch.float32)
+            return ops.build_histogram(self.codes, self.g * w, self.h * w,
+                                       self.node_ids, scale=self.scale, **kw)
+        n_half = max(1, self.g.shape[1] // 2)
+        return torch.stack([ops.build_histogram(
+            *_compact_selected(self.codes, self.g[k], self.h[k],
+                               self.node_ids[k], sel[k], n_half),
+            scale=None if self.scale is None else self.scale[k], **kw)
+            for k in range(self.K)])
+
+    def smaller_is_left(self, n_nodes: int):
+        counts = node_counts(self.node_ids, n_nodes)
+        return counts[:, 0::2] <= counts[:, 1::2]
+
+    def partition(self, tables, best, do_split):
+        self.node_ids = ops.partition_level_cm(
+            self.node_ids, self.codes_cm, *tables,
+            missing_bin=self.missing_bin, plan=self.plan)
+
+    def bottom_sums(self, n_leaf: int):
+        return bottom_sums(self.g, self.h, self.node_ids, n_leaf)
 
 
-# --------------------------------------------------------------------------
-# out-of-core grower: chunk-accumulated histograms, chunk-local node ids
-# --------------------------------------------------------------------------
 def _column_major(codes):
     """A chunk's (F, rows) column-major copy, chunk-local: the paper's
     redundant representation kept to one chunk's footprint; a packed chunk
@@ -387,16 +441,95 @@ def _column_major(codes):
     return codes.T.contiguous()
 
 
-def _partition_chunk(codes, node_ids, feature, threshold, is_cat,
-                     default_left, *, missing_bin: int,
-                     plan: ExecutionPlan) -> torch.Tensor:
-    """Step ③ for one chunk: route its (K, rows) node ids through one
-    level's (K, NN) split tables, read from the chunk's column-major copy.
-    ``feature`` holds -1 where a node does not split, which is ``repro``'s
-    ``do_split`` mask."""
-    return ops.partition_level_cm(node_ids, _column_major(codes), feature,
-                                  threshold, is_cat, default_left,
-                                  missing_bin=missing_bin, plan=plan)
+class ChunkedRecords:
+    """Records streamed as chunks, their state on the host: the layout of
+    :func:`fit_forest_chunked`, whose passes it makes (see
+    :func:`grow_levels`).
+
+    ``chunks``, g, h: as :func:`fit_forest_chunked` takes them;
+    ``n_fields`` the chunks' F, ``device`` the grower's.  Step ③ only
+    records the level's tables as pending, for the next pass to apply to
+    each chunk first; ``node_ids`` ends as the (K, n) final leaf slots on
+    the device.
+    """
+
+    def __init__(self, chunks, g, h, *, n_fields: int, n_bins: int,
+                 missing_bin: int, plan: ExecutionPlan, device):
+        cuda = device.type == "cuda"
+        g = torch.as_tensor(g, dtype=torch.float32)
+        h = torch.as_tensor(h, dtype=torch.float32)
+        if cuda:
+            g = g if g.is_pinned() else g.pin_memory()
+            h = h if h.is_pinned() else h.pin_memory()
+        self.chunks, self.g, self.h = chunks, g, h
+        self.n_fields, self.n_bins, self.missing_bin = (n_fields, n_bins,
+                                                        missing_bin)
+        self.plan, self.device = plan, device
+        self.K = g.shape[0]
+        self.node_ids = torch.zeros(g.shape, dtype=torch.int32,
+                                    pin_memory=cuda)
+        self._pending = None          # the last level's split tables
+        self._decision = None         # and its (best, do_split)
+
+    def _upload(self, a, lo, hi, rows):
+        """(K, rows) slice of a host array on the device, zero-padded (pad
+        rows carry zero statistics and node 0)."""
+        out = torch.empty((self.K, rows), dtype=a.dtype, device=self.device)
+        for k in range(self.K):      # contiguous rows: asynchronous copies
+            out[k, :hi - lo].copy_(a[k, lo:hi], non_blocking=True)
+        out[:, hi - lo:].zero_()
+        return out
+
+    def route(self, codes, node_ids):
+        """Step ③ for one chunk: its (K, rows) node ids through the pending
+        level's (K, NN) split tables, read from the chunk's column-major
+        copy."""
+        return ops.partition_level_cm(node_ids, _column_major(codes),
+                                      *self._pending,
+                                      missing_bin=self.missing_bin,
+                                      plan=self.plan)
+
+    def _apply_pending(self, codes, lo, hi):
+        nid = self._upload(self.node_ids, lo, hi, codes.shape[0])
+        if self._pending is None:
+            return nid
+        nid = self.route(codes, nid)
+        for k in range(self.K):
+            self.node_ids[k, lo:hi].copy_(nid[k, :hi - lo], non_blocking=True)
+        return nid
+
+    def histogram(self, n_nodes: int, is_small=None):
+        hist = torch.zeros((self.K, n_nodes, self.n_fields, self.n_bins, 2),
+                           dtype=torch.float32, device=self.device)
+        for lo, hi, codes in self.chunks():
+            rows = codes.shape[0]
+            nid = self._apply_pending(codes, lo, hi)
+            gc = self._upload(self.g, lo, hi, rows)
+            hc = self._upload(self.h, lo, hi, rows)
+            if is_small is not None:
+                w = torch.gather(is_small, 1, nid.long()).to(torch.float32)
+                gc, hc = gc * w, hc * w
+            hist = ops.accumulate_histogram(hist, codes, gc, hc, nid,
+                                            n_nodes=n_nodes,
+                                            n_bins=self.n_bins,
+                                            plan=self.plan)
+        self._pending = None
+        return hist
+
+    def smaller_is_left(self, n_nodes: int):
+        best, do_split = self._decision
+        return torch.where(do_split, 2.0 * best.left_h <= best.node_h, False)
+
+    def partition(self, tables, best, do_split):
+        self._pending, self._decision = tables, (best, do_split)
+
+    def bottom_sums(self, n_leaf: int):
+        for lo, hi, codes in self.chunks():   # the last level's partition
+            self._apply_pending(codes, lo, hi)
+        self.node_ids = self.node_ids.to(self.device, non_blocking=True)
+        return bottom_sums(self.g.to(self.device, non_blocking=True),
+                           self.h.to(self.device, non_blocking=True),
+                           self.node_ids, n_leaf)
 
 
 def fit_forest_chunked(chunks, g, h, *, depth: int, n_bins: int,
@@ -404,7 +537,7 @@ def fit_forest_chunked(chunks, g, h, *, depth: int, n_bins: int,
                        lambda_: float, gamma: float, min_child_weight: float,
                        plan: Optional[ExecutionPlan] = None):
     """Out-of-core twin of :func:`fit_forest`: the same math over chunked
-    scans.
+    scans (:class:`ChunkedRecords`).
 
     ``chunks`` is a zero-argument callable returning a fresh iterator of
     ``(lo, hi, codes)``: ``codes`` a (rows, F) uint8 chunk, or
@@ -433,89 +566,13 @@ def fit_forest_chunked(chunks, g, h, *, depth: int, n_bins: int,
     n records at once, as ``repro`` settles them.
     """
     plan = resolve_plan(plan).without_chunking()
-    device = is_cat_field.device
-    cuda = device.type == "cuda"
-    g = torch.as_tensor(g, dtype=torch.float32)
-    h = torch.as_tensor(h, dtype=torch.float32)
-    if cuda:
-        g = g if g.is_pinned() else g.pin_memory()
-        h = h if h.is_pinned() else h.pin_memory()
-    K, n = g.shape
-    F = int(is_cat_field.shape[0])
-    n_int, n_leaf = 2 ** depth - 1, 2 ** depth
-    i32 = dict(dtype=torch.int32, device=device)
-    state = (torch.full((K, n_int), -1, **i32),                # feature
-             torch.zeros((K, n_int), **i32),                   # threshold
-             torch.zeros((K, n_int), **i32),                   # is_cat
-             torch.zeros((K, n_int), **i32),                   # default_left
-             torch.zeros((K, n_leaf), dtype=torch.float32, device=device),
-             torch.zeros((K, n_leaf), dtype=torch.bool, device=device))
-    node_ids = torch.zeros((K, n), dtype=torch.int32, pin_memory=cuda)
-    find = (splits_mod.find_best_splits_host if plan.host_offload_split
-            else splits_mod.find_best_splits)
-    pending = None                # the previous level's split tables
-
-    def upload(a, lo, hi, rows):
-        """(K, rows) slice of a host array on the device, zero-padded (pad
-        rows carry zero statistics and node 0)."""
-        out = torch.empty((K, rows), dtype=a.dtype, device=device)
-        for k in range(K):      # contiguous rows: asynchronous copies
-            out[k, :hi - lo].copy_(a[k, lo:hi], non_blocking=True)
-        out[:, hi - lo:].zero_()
-        return out
-
-    def apply_pending(codes, lo, hi, rows):
-        nid = upload(node_ids, lo, hi, rows)
-        if pending is None:
-            return nid
-        nid = _partition_chunk(codes, nid, *pending, missing_bin=missing_bin,
-                               plan=plan)
-        for k in range(K):
-            node_ids[k, lo:hi].copy_(nid[k, :hi - lo], non_blocking=True)
-        return nid
-
-    use_sub = bool(plan.hist_subtraction)
-    prev_hist = None
-    smaller_is_left = None            # (K, nn) hessian-based, per level
-    for level in range(depth):
-        nn = 2 ** level
-        sub_level = use_sub and level > 0
-        is_small = _child_is_smaller(smaller_is_left) if sub_level else None
-        hist = torch.zeros((K, nn, F, n_bins, 2), dtype=torch.float32,
-                           device=device)
-        for lo, hi, codes in chunks():
-            rows = codes.shape[0]
-            nid = apply_pending(codes, lo, hi, rows)
-            gc, hc = upload(g, lo, hi, rows), upload(h, lo, hi, rows)
-            if sub_level:
-                w = torch.gather(is_small, 1, nid.long()).to(torch.float32)
-                gc, hc = gc * w, hc * w
-            hist = ops.accumulate_histogram(hist, codes, gc, hc, nid,
-                                            n_nodes=nn, n_bins=n_bins,
-                                            plan=plan)
-        if sub_level:
-            hist = _combine_sibling_hist(prev_hist, hist, is_small)
-        prev_hist = hist
-        state, best, do_split = _decide_level(
-            hist, level, depth, state, is_cat_field, field_mask, lambda_,
-            gamma, min_child_weight, find)
-        smaller_is_left = torch.where(do_split,
-                                      2.0 * best.left_h <= best.node_h,
-                                      False)
-        off = nn - 1
-        pending = tuple(table[:, off:off + nn] for table in state[:4])
-
-    for lo, hi, codes in chunks():        # final pass: the last partition
-        apply_pending(codes, lo, hi, codes.shape[0])
-
-    feature, threshold, is_cat, default_left, value_bottom, value_set = state
-    ids = node_ids.to(device, non_blocking=True)
-    value_bottom = _settle_bottom_leaves(
-        g.to(device, non_blocking=True), h.to(device, non_blocking=True),
-        ids, value_bottom, value_set, n_leaf, lambda_)
-    tree = TreeArrays(feature=feature, threshold=threshold, is_cat=is_cat,
-                      default_left=default_left, leaf_value=value_bottom)
-    return tree, ids
+    records = ChunkedRecords(chunks, g, h, n_fields=int(is_cat_field.shape[0]),
+                             n_bins=n_bins, missing_bin=missing_bin,
+                             plan=plan, device=is_cat_field.device)
+    tree = grow_levels(records, depth=depth, is_cat_field=is_cat_field,
+                       field_mask=field_mask, lambda_=lambda_, gamma=gamma,
+                       min_child_weight=min_child_weight)
+    return tree, records.node_ids
 
 
 # --------------------------------------------------------------------------
@@ -551,7 +608,7 @@ def fit_tree_lossguide(codes, codes_cm, g, h, *, depth: int, n_bins: int,
     default_left = np.zeros((n_int,), np.int32)
     value_bottom = np.zeros((n_leaf_slots,), np.float32)
     root_nodes = torch.zeros((n,), dtype=torch.int32, device=device)
-    scale = _grid_scale(g, h, plan)     # holds every mask of g, h
+    scale = fixed_point_grid([(g, h)], plan)  # holds every mask of g, h
 
     def hist_of(mask):
         return ops.build_histogram(codes, g * mask, h * mask, root_nodes,

@@ -26,17 +26,20 @@ counts its operand twice: reduce and broadcast).
 
 :func:`distributed_histogram`, :func:`distributed_split_combine`,
 :func:`distributed_partition_bits` and :func:`distributed_fit_tree` spell
-the schedule out on a ``("data", "model")`` mesh; :func:`pjit_fit_tree`
-runs the unmodified level loop of ``core.tree.fit_forest`` with the
+the schedule out on a ``("data", "model")`` mesh; :class:`ShardedRecords`
+is the record layout that runs the level loop of ``core.tree``
+(:func:`~repro_torch.core.tree.grow_levels`) over data shards, the
 histogram sum inserted at step ①, the placement GSPMD infers for
-``repro``'s version.  Growing on field shards unpacks 4-bit codes: a
-packed field axis cannot be split mid-byte.
+``repro``'s version (:func:`pjit_fit_tree`, ``trainer.train_distributed``).
+Growing on field shards unpacks 4-bit codes: a packed field axis cannot be
+split mid-byte.
 """
 from __future__ import annotations
 
 import contextlib
 import copy
 import dataclasses
+import functools
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -45,7 +48,9 @@ import torch
 
 from repro_torch.api.plan import ExecutionPlan, resolve_plan
 from repro_torch.core import splits as splits_mod
+from repro_torch.core import tree as tree_mod
 from repro_torch.core.binning import BinnedDataset, PackedCodes, as_unpacked
+from repro_torch.kernels import histogram as hist_k
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import TreeArrays
 from repro_torch.launch.mesh import Mesh, data_axes, n_data_shards
@@ -150,9 +155,11 @@ def all_gather(parts: Sequence[torch.Tensor],
     return out
 
 
-def _shard_plan(plan: Optional[ExecutionPlan]) -> ExecutionPlan:
+def shard_plan(plan: Optional[ExecutionPlan]) -> ExecutionPlan:
     """The kernels' plan inside a shard: no mesh, no chunking, step ② on
-    the device."""
+    the device, as ``repro``'s trainer plan.  Unlike ``repro``, which pins
+    the reference partition inside ``shard_map``, the CUDA partition
+    kernel runs on each shard."""
     return resolve_plan(plan).replace(mesh=None, data_axes=None,
                                       chunk_bytes=None,
                                       host_offload_split=False)
@@ -237,6 +244,103 @@ def shard_dataset(data: BinnedDataset, mesh: Mesh) -> ShardedDataset:
     return ShardedDataset(shards, bounds, n, n_pad, cm_packed)
 
 
+class ShardedRecords:
+    """A :class:`ShardedDataset`'s records, each data shard's on its
+    device: the record layout of ``core.tree.grow_levels`` over a mesh
+    (:func:`pjit_fit_tree`, ``trainer.train_distributed``), the tables and
+    step ② on the first shard's device; ``plan`` a :func:`shard_plan`.
+
+    ``g``, ``h``: the (K, n) statistics of all n records, padded with zero
+    statistics to ``n_pad`` (+0.0 a histogram cell) and split into each
+    shard's (K, n_l) part.  Step ① bins a shard in ``hist_slices`` record
+    slices in turn (the device-OOM knob), then sums the shards in rank
+    order on the first device.  On the card every shard bins on the
+    tree's one fixed-point grid (``core.tree.fixed_point_grid``) and their
+    exact int64 sums are summed before one conversion to float32: the
+    single-device histogram, bit for bit, at any shard count.  The smaller
+    child is picked by record counts summed exactly over the shards, the
+    bigger child's statistics masked to zero.  ``node_ids``: each shard's
+    (K, n_l) node ids.
+    """
+
+    def __init__(self, placed: ShardedDataset, g, h, *, plan: ExecutionPlan,
+                 hist_slices: int = 1):
+        self.shards = placed.shards
+        self.device = placed.devices[0]
+        self.n_bins = placed.shards[0].n_bins
+        self.plan, self.hist_slices = plan, hist_slices
+        self.K = g.shape[0]
+        padded = [torch.nn.functional.pad(
+            x.to(torch.float32), (0, placed.n_pad - placed.n_records))
+            for x in (g, h)]
+        self.g, self.h = ([x[:, lo:hi].to(s.codes.device).contiguous()
+                           for s, (lo, hi) in zip(placed.shards,
+                                                  placed.bounds)]
+                          for x in padded)
+        self.node_ids = [torch.zeros(g.shape, dtype=torch.int32,
+                                     device=g.device) for g in self.g]
+        self.scale = tree_mod.fixed_point_grid(list(zip(self.g, self.h)),
+                                               plan)
+        self.scales = (None if self.scale is None
+                       else [self.scale.to(g.device) for g in self.g])
+
+    def _shard_hist(self, i, g, h, nid, n_nodes: int):
+        """Shard i's step ①: its int64 sums on the grid (off the grid, the
+        float32 histogram), over ``hist_slices`` slices."""
+        if self.scales is not None:
+            build = functools.partial(hist_k.histogram_sums_cuda,
+                                      scale=self.scales[i])
+        else:
+            build = functools.partial(ops.build_histogram, plan=self.plan)
+        codes = self.shards[i].codes
+        n_l = g.shape[1]
+        size = max(1, -(-n_l // max(self.hist_slices, 1)))
+        acc = None
+        for lo in range(0, max(n_l, 1), size):
+            hi = min(lo + size, n_l)
+            part = build(codes[lo:hi], g[:, lo:hi].contiguous(),
+                         h[:, lo:hi].contiguous(),
+                         nid[:, lo:hi].contiguous(), n_nodes=n_nodes,
+                         n_bins=self.n_bins)
+            acc = part if acc is None else acc.add_(part)
+        return acc
+
+    def histogram(self, n_nodes: int, is_small=None):
+        parts = []
+        for i, (g, h, nid) in enumerate(zip(self.g, self.h, self.node_ids)):
+            with on_device(g.device):
+                if is_small is not None:
+                    w = torch.gather(is_small.to(g.device), 1,
+                                     nid.long()).to(torch.float32)
+                    g, h = g * w, h * w
+                parts.append(self._shard_hist(i, g, h, nid, n_nodes))
+        hist = psum_parts(parts, self.device)
+        if self.scale is None:
+            return hist
+        return hist_k.histogram_from_sums(hist, self.scale)
+
+    def smaller_is_left(self, n_nodes: int):
+        counts = psum_parts([tree_mod.node_counts(nid, n_nodes)
+                             for nid in self.node_ids], self.device)
+        return counts[:, 0::2] <= counts[:, 1::2]
+
+    def partition(self, tables, best, do_split):
+        for i, s in enumerate(self.shards):
+            dev = self.node_ids[i].device
+            with on_device(dev):
+                self.node_ids[i] = ops.partition_level_cm(
+                    self.node_ids[i], s.codes_cm,
+                    *[t if t.device == dev else t.to(dev) for t in tables],
+                    missing_bin=self.n_bins - 1, plan=self.plan)
+
+    def bottom_sums(self, n_leaf: int):
+        sums = []
+        for g, h, nid in zip(self.g, self.h, self.node_ids):
+            with on_device(g.device):
+                sums.append(tree_mod.bottom_sums(g, h, nid, n_leaf))
+        return psum_parts(sums, self.device)
+
+
 def gbdt_shardings(mesh: Mesh) -> Dict[str, Tuple]:
     """How each training input lies on ``mesh``, as ``repro``'s partition
     specs: ``None`` for a replicated dimension, else the axes that shard
@@ -308,7 +412,7 @@ def distributed_histogram(mesh: Mesh, codes, g, h, node_ids, *,
     ``hist_dtype`` when set, as :func:`distributed_fit_tree` sums them).
     Returns the float32 (n_nodes, F, n_bins, 2) histogram (the field blocks
     of model shards side by side) on the mesh's first device."""
-    plan = _shard_plan(plan)
+    plan = shard_plan(plan)
     codes = as_unpacked(codes)      # the field axis is sharded mid-byte
     grid, rows, _, n_l, _ = _field_blocks(mesh, codes, None, codes.shape[1])
     parts = _local_hists(grid, rows, *(_per_record(grid, x, n_l)
@@ -435,9 +539,7 @@ def distributed_fit_tree(mesh: Mesh, codes, codes_cm, g, h, *, depth: int,
     ``TreeArrays`` as ``core.tree.fit_tree``, on the mesh's first device,
     and with ``return_node_ids`` also the records' final leaf slots.
     """
-    from repro_torch.core import tree as tree_mod
-
-    plan = _shard_plan(plan)
+    plan = shard_plan(plan)
     codes, codes_cm = as_unpacked(codes), as_unpacked(codes_cm)
     n, F = codes.shape
     grid, rows, cols, n_l, f_l = _field_blocks(mesh, codes, codes_cm, F)
@@ -448,12 +550,7 @@ def distributed_fit_tree(mesh: Mesh, codes, codes_cm, g, h, *, depth: int,
     gs, hs = _per_record(grid, g, n_l), _per_record(grid, h, n_l)
     nid = [[torch.zeros((n_l,), dtype=torch.int32, device=grid[d, m])
             for m in range(M)] for d in range(D)]
-    n_int, n_leaf = 2 ** depth - 1, 2 ** depth
-    i32 = dict(dtype=torch.int32, device=owner)
-    state = (torch.full((1, n_int), -1, **i32), torch.zeros((1, n_int), **i32),
-             torch.zeros((1, n_int), **i32), torch.zeros((1, n_int), **i32),
-             torch.zeros((1, n_leaf), dtype=torch.float32, device=owner),
-             torch.zeros((1, n_leaf), dtype=torch.bool, device=owner))
+    state = tree_mod.tree_tables(1, depth, owner)
 
     def level_hist(parts):
         summed = psum(mesh, parts, data_axes(mesh))
@@ -468,7 +565,7 @@ def distributed_fit_tree(mesh: Mesh, codes, codes_cm, g, h, *, depth: int,
                         gamma, min_child_weight, f_l)
         # fold the combined decision into the tree tables as fit_forest
         # does (only the histogram's node axis and device are read there)
-        state, best, do_split = tree_mod._decide_level(
+        state, best, do_split = tree_mod.decide_level(
             hists[0][None], level, depth, state, is_cat_field, field_mask,
             lambda_, gamma, min_child_weight, find=lambda *a: cand)
         feat = torch.where(do_split[0], best.feature[0], -1)
@@ -501,19 +598,14 @@ def distributed_fit_tree(mesh: Mesh, codes, codes_cm, g, h, *, depth: int,
         if M > 1:       # one gather a card: its (nn, n_l) split columns
             _record("all-gather", _nbytes(lvl))
 
-    feature, threshold, is_cat, default_left, value_bottom, value_set = state
     # the bottom leaves from per-shard G, H sums, one sum over the data axes
     sums = []
     for d in range(D):
         with on_device(grid[d, 0]):
-            sums.append(tree_mod._bottom_sums(gs[d][0][None], hs[d][0][None],
-                                              nid[d][0][None], n_leaf))
-    Gb, Hb = psum_parts(sums, owner).to(torch.float32)
-    wb = splits_mod.leaf_weight(Gb, Hb, lambda_)
-    tree = TreeArrays(feature=feature[0], threshold=threshold[0],
-                      is_cat=is_cat[0], default_left=default_left[0],
-                      leaf_value=torch.where(value_set[0], value_bottom[0],
-                                             wb))
+            sums.append(tree_mod.bottom_sums(gs[d][0][None], hs[d][0][None],
+                                             nid[d][0][None], 2 ** depth))
+    tree = TreeArrays(*[a[0] for a in tree_mod.settle_leaves(
+        state, psum_parts(sums, owner), lambda_)])
     if return_node_ids:
         return tree, _gather_records(grid, nid)
     return tree
@@ -522,34 +614,24 @@ def distributed_fit_tree(mesh: Mesh, codes, codes_cm, g, h, *, depth: int,
 def pjit_fit_tree(mesh: Mesh, *, depth: int, n_bins: int, missing_bin: int,
                   lambda_: float, gamma: float, min_child_weight: float,
                   plan: Optional[ExecutionPlan] = None):
-    """The unmodified level loop of ``core.tree.fit_forest`` on ``mesh``,
+    """The level loop of ``core.tree`` on ``mesh`` (:class:`ShardedRecords`),
     with the histogram sum over the data axes inserted at step ①: where
     GSPMD places ``repro``'s collectives.  Records shard over the data
     axes; the model axis holds replicas (step ② runs once, on the first
     device).  Returns ``fn(codes, codes_cm, g, h, is_cat_field,
     field_mask) -> TreeArrays``."""
-    from repro_torch.distributed.trainer import _grow_forest_sharded
-
-    plan = _shard_plan(plan)
-    grow = _grow_forest_sharded(depth=depth, n_bins=n_bins, lambda_=lambda_,
-                                gamma=gamma,
-                                min_child_weight=min_child_weight, plan=plan)
+    plan = shard_plan(plan)
 
     def fn(codes, codes_cm, g, h, is_cat_field, field_mask):
-        n = codes.shape[0]
         data = BinnedDataset(codes, codes_cm, is_cat_field, n_bins,
                              None, None)
-        placed = shard_dataset(data, mesh)
-        stats = [torch.nn.functional.pad(x.to(torch.float32)[None],
-                                         (0, placed.n_pad - n))
-                 for x in (g, h)]
-        gp = [stats[0][:, lo:hi].to(s.codes.device).contiguous()
-              for s, (lo, hi) in zip(placed.shards, placed.bounds)]
-        hp = [stats[1][:, lo:hi].to(s.codes.device).contiguous()
-              for s, (lo, hi) in zip(placed.shards, placed.bounds)]
-        owner = placed.devices[0]
-        tree, _ = grow(placed, gp, hp, is_cat_field.to(owner),
-                       field_mask.to(owner))
+        records = ShardedRecords(shard_dataset(data, mesh), g[None], h[None],
+                                 plan=plan)
+        owner = records.device
+        tree = tree_mod.grow_levels(
+            records, depth=depth, is_cat_field=is_cat_field.to(owner),
+            field_mask=field_mask.to(owner), lambda_=lambda_, gamma=gamma,
+            min_child_weight=min_child_weight)
         return TreeArrays(*[a[0] for a in tree])
 
     return fn

@@ -37,7 +37,6 @@ device list between rounds re-meshes up or down without a restore.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import os
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -46,19 +45,16 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.api.plan import ExecutionPlan, resolve_plan
+from repro_torch.api.plan import ExecutionPlan
 from repro_torch.core import gbdt as gbdt_mod
 from repro_torch.core import losses as losses_mod
-from repro_torch.core import splits as splits_mod
 from repro_torch.core import tree as tree_mod
 from repro_torch.core.binning import BinnedDataset
 from repro_torch.core.gbdt import (GBDTConfig, GBDTModel, TrainResult,
                                    _as_model, _model_rounds, model_from_meta)
 from repro_torch.distributed import checkpoint as ckpt
-from repro_torch.distributed.sharding import (ShardedDataset, on_device,
-                                              psum_parts, shard_dataset)
-from repro_torch.kernels import histogram as hist_k
-from repro_torch.kernels import ops
+from repro_torch.distributed.sharding import (ShardedRecords, shard_dataset,
+                                              shard_plan)
 from repro_torch.kernels.ref import TreeArrays
 from repro_torch.launch.mesh import (Mesh, cuda_devices, data_axes,
                                      make_mesh, n_data_shards)
@@ -118,153 +114,6 @@ def _check_data_parallel(mesh: Mesh) -> None:
             "distributed_fit_tree for field sharding)")
     if not data_axes(mesh):
         raise ValueError("mesh has no data axes to shard records over")
-
-
-def _trainer_kernel_plan(plan: ExecutionPlan) -> ExecutionPlan:
-    """The plan the kernels of a shard see: the mesh routing and chunking
-    stripped and step ② on the device, as ``repro``'s trainer plan.  Unlike
-    ``repro``, which pins the reference partition inside ``shard_map``, the
-    CUDA partition kernel runs on each shard."""
-    return resolve_plan(plan).replace(mesh=None, data_axes=None,
-                                      chunk_bytes=None,
-                                      host_offload_split=False)
-
-
-# --------------------------------------------------------------------------
-# the sharded grower: per-shard histograms + one sum a level
-# --------------------------------------------------------------------------
-def _grow_forest_sharded(*, depth: int, n_bins: int, lambda_: float,
-                         gamma: float, min_child_weight: float,
-                         plan: ExecutionPlan, cm_packed: bool = False,
-                         hist_slices: int = 1):
-    """The level-wise grower over a mesh's data shards.
-
-    Returns ``grow(placed, g_parts, h_parts, is_cat_field, field_mask) ->
-    (TreeArrays with (K, ...) axes on the first device, node-id parts)``:
-    ``placed`` a :class:`ShardedDataset`, ``g_parts``/``h_parts`` each
-    shard's (K, n_l) float32 statistics on its device (padding rows zero).
-    The model is ``core.tree.fit_forest_chunked``'s: a shard is a chunk on
-    its own device, its histogram accumulated, then one sum a level over
-    the shards (in rank order, on the first device).  ``cm_packed`` says
-    the shards' column-major copies are 4-bit ``PackedCodes``, which the
-    partition kernel reads in place.  The returned node ids are the
-    records' final leaf slots (K, n_l) a shard.
-
-    ``hist_slices`` is the device-OOM knob: each shard's step ① runs over
-    that many record slices accumulated in turn, so only one slice's
-    intermediates are live at a time.  With ``plan.hist_subtraction``,
-    levels > 0 bin only the smaller child of each split parent (picked by
-    exactly summed record counts, so every shard count picks the same
-    child) with the bigger child's statistics masked to zero, and derive
-    the sibling as ``parent − smaller``.
-
-    On the card the grouped histogram kernel puts every shard's g, h on
-    one fixed-point grid a tree (the finest that holds all shards'), and
-    the shards' exact int64 sums are summed before one conversion to
-    float32: the level's histogram is the single-device one, bit for bit,
-    whatever the shard count.
-    """
-    missing_bin = n_bins - 1
-    n_int, n_leaf = 2 ** depth - 1, 2 ** depth
-
-    def acc_hist(codes, g, h, nid, nn, scale):
-        """A shard's histogram, its int64 sums on the grid ``scale``
-        (None: the float32 histogram), over ``hist_slices`` slices."""
-        if scale is not None:
-            build = functools.partial(hist_k.histogram_sums_cuda,
-                                      scale=scale)
-        else:
-            build = functools.partial(ops.build_histogram, plan=plan)
-        n_l = g.shape[1]
-        size = max(1, -(-n_l // max(hist_slices, 1)))
-        acc = None
-        for lo in range(0, max(n_l, 1), size):
-            hi = min(lo + size, n_l)
-            part = build(codes[lo:hi], g[:, lo:hi].contiguous(),
-                         h[:, lo:hi].contiguous(),
-                         nid[:, lo:hi].contiguous(), n_nodes=nn,
-                         n_bins=n_bins)
-            acc = part if acc is None else acc.add_(part)
-        return acc
-
-    def grow(placed: ShardedDataset, g_parts, h_parts, is_cat_field,
-             field_mask):
-        if placed.cm_packed != cm_packed:
-            raise ValueError("the shards' column-major layout is not the "
-                             "grower's (cm_packed)")
-        owner = is_cat_field.device
-        shards = placed.shards
-        K = g_parts[0].shape[0]
-        i32 = dict(dtype=torch.int32, device=owner)
-        state = (torch.full((K, n_int), -1, **i32),
-                 torch.zeros((K, n_int), **i32),
-                 torch.zeros((K, n_int), **i32),
-                 torch.zeros((K, n_int), **i32),
-                 torch.zeros((K, n_leaf), dtype=torch.float32, device=owner),
-                 torch.zeros((K, n_leaf), dtype=torch.bool, device=owner))
-        nids = [torch.zeros(g.shape, dtype=torch.int32, device=g.device)
-                for g in g_parts]
-        # one fixed-point grid a tree for every shard: the finest scale
-        # that holds each shard's g, h
-        scale = scales = None
-        if owner.type == "cuda" and plan.hist_strategy == "cuda":
-            scale = torch.stack([hist_k.fixed_point_scale(g, h).to(owner)
-                                 for g, h in zip(g_parts, h_parts)]).amin(0)
-            scales = [scale.to(g.device) for g in g_parts]
-        hist = None
-        for level in range(depth):
-            nn = 2 ** level
-            parts = []
-            if plan.hist_subtraction and level > 0:
-                counts = psum_parts([tree_mod._node_counts(nid.long(), nn)
-                                     for nid in nids], owner)
-                is_small = tree_mod._child_is_smaller(
-                    counts[:, 0::2] <= counts[:, 1::2])
-            for i, (s, g, h, nid) in enumerate(zip(shards, g_parts, h_parts,
-                                                   nids)):
-                with on_device(g.device):
-                    if plan.hist_subtraction and level > 0:
-                        w = torch.gather(is_small.to(g.device), 1,
-                                         nid.long()).to(torch.float32)
-                        g, h = g * w, h * w
-                    parts.append(acc_hist(
-                        s.codes, g, h, nid, nn,
-                        None if scales is None else scales[i]))
-            small = psum_parts(parts, owner)
-            if scale is not None:
-                small = hist_k.histogram_from_sums(small, scale)
-            hist = (tree_mod._combine_sibling_hist(hist, small, is_small)
-                    if plan.hist_subtraction and level > 0 else small)
-            state, _, _ = tree_mod._decide_level(
-                hist, level, depth, state, is_cat_field, field_mask,
-                lambda_, gamma, min_child_weight)
-            off = nn - 1
-            tables = [t[:, off:off + nn] for t in state[:4]]
-            for i, s in enumerate(shards):
-                dev = nids[i].device
-                with on_device(dev):
-                    nids[i] = ops.partition_level_cm(
-                        nids[i], s.codes_cm,
-                        *[t if t.device == dev else t.to(dev)
-                          for t in tables],
-                        missing_bin=missing_bin, plan=plan)
-
-        feature, threshold, is_cat, default_left, value_bottom, value_set \
-            = state
-        # the bottom leaves from the shards' float64 G, H sums, one sum
-        sums = []
-        for g, h, nid in zip(g_parts, h_parts, nids):
-            with on_device(g.device):
-                sums.append(tree_mod._bottom_sums(g, h, nid, n_leaf))
-        Gb, Hb = psum_parts(sums, owner).to(torch.float32)
-        wb = splits_mod.leaf_weight(Gb, Hb, lambda_).reshape(K, n_leaf)
-        tree = TreeArrays(feature=feature, threshold=threshold,
-                          is_cat=is_cat, default_left=default_left,
-                          leaf_value=torch.where(value_set, value_bottom,
-                                                 wb))
-        return tree, nids
-
-    return grow
 
 
 # --------------------------------------------------------------------------
@@ -376,7 +225,7 @@ def train_distributed(config: GBDTConfig, data: BinnedDataset, y, *,
         raise ValueError(f"the trainer shards records over every data axis "
                          f"of the mesh ({data_axes(mesh)}), not "
                          f"{plan.data_axes}")
-    kernel_plan = _trainer_kernel_plan(plan)
+    kernel_plan = shard_plan(plan)
     dist = dist or DistributedConfig()
     if (recovery is not None and recovery.checkpoint_dir is not None
             and dist.checkpoint_dir is None):
@@ -505,26 +354,19 @@ def train_distributed(config: GBDTConfig, data: BinnedDataset, y, *,
                     if verbose:
                         print(f"[dist] {kind} -> {n_data_shards(mesh)} "
                               f"shards at round {t_idx}")
-            grow = _grow_forest_sharded(
-                depth=depth, n_bins=data.n_bins,
-                lambda_=config.lambda_, gamma=config.gamma,
-                min_child_weight=config.min_child_weight, plan=kernel_plan,
-                cm_packed=placed.cm_packed, hist_slices=hist_slices)
             g, h = loss.grad_hess(margins, y)
             g, h, field_mask = gbdt_mod._round_stats(
                 round_config, gbdt_mod._round_generator(config, t_idx,
                                                         owner),
                 g, h, n, F, K)
-            # padding rows carry zero statistics: +0.0 a histogram cell
-            stats = [torch.nn.functional.pad(
-                (x.T if K is not None else x[None]).to(torch.float32),
-                (0, placed.n_pad - n)) for x in (g, h)]
-            g_parts, h_parts = ([x[:, lo:hi].to(s.codes.device).contiguous()
-                                 for s, (lo, hi) in zip(placed.shards,
-                                                        placed.bounds)]
-                                for x in stats)
-            forest, leaf_ids = grow(placed, g_parts, h_parts, is_cat,
-                                    field_mask)
+            records = ShardedRecords(
+                placed, *[x.T if K is not None else x[None] for x in (g, h)],
+                plan=kernel_plan, hist_slices=hist_slices)
+            forest = tree_mod.grow_levels(
+                records, depth=depth, is_cat_field=is_cat,
+                field_mask=field_mask, lambda_=config.lambda_,
+                gamma=config.gamma, min_child_weight=config.min_child_weight)
+            leaf_ids = records.node_ids
             forest = forest._replace(
                 leaf_value=forest.leaf_value * round_config.learning_rate)
             # step ⑤ without a pass: the final node ids are leaf slots

@@ -14,7 +14,7 @@ field and a shared-memory argmax over fields (the source's head note).
 
 Its plain version is :func:`repro_torch.core.splits.find_best_splits_plain`
 (and, for the fold, the plain tail of
-:func:`repro_torch.core.tree._decide_level`), which a CPU histogram takes;
+:func:`repro_torch.core.tree.decide_level`), which a CPU histogram takes;
 on dyadic statistics the kernel's decisions are bit-equal to it.  The
 wrapper launches on the current stream, never synchronises and reads
 nothing back, so a CUDA graph can capture it.
@@ -69,7 +69,7 @@ def split_level_cuda(hist: torch.Tensor, is_cat_field: torch.Tensor,
     ``tables``: the grower's (K, 2^depth - 1) int32 feature, threshold,
     is_cat and default_left tables and its (K, 2^depth) float32
     value_bottom and bool value_set tables, which the launch updates in
-    place at ``level`` as :func:`repro_torch.core.tree._decide_level` does;
+    place at ``level`` as :func:`repro_torch.core.tree.decide_level` does;
     ``do_split`` is then the (K, nn) bool split mask.
     """
     if hist.device.type != "cuda":

@@ -1167,16 +1167,20 @@ def test_subtraction_level_on_card_bit_equal_to_direct(cuda, K, monkeypatch):
         seen.append((codes.shape[0], tuple(g.shape)))
         return real(codes, g, *a, **kw)
 
+    def level(codes, g, h, child, parent_hist):
+        records = tree_mod.ResidentRecords(codes, None, g, h, n_bins=256,
+                                           missing_bin=255, plan=plan)
+        records.node_ids = child
+        return tree_mod.subtract_level_hist(records, parent_hist, 16)
+
     monkeypatch.setattr(hist_k, "histogram_cuda", spy)
-    got = tree_mod._subtract_level_hist(codes, g, h, child, parent_hist,
-                                        n_nodes=16, n_bins=256, plan=plan)
+    got = level(codes, g, h, child, parent_hist)
     assert seen == ([(n, (K, n))] if K > 1 else [(n // 2, (n // 2,))])
     direct = ops.build_histogram(codes, g, h, child, n_nodes=16, n_bins=256,
                                  plan=plan)
     assert torch.equal(got, direct)
-    plain = tree_mod._subtract_level_hist(
-        codes.cpu(), g.cpu(), h.cpu(), child.cpu(), parent_hist.cpu(),
-        n_nodes=16, n_bins=256, plan=plan)
+    plain = level(codes.cpu(), g.cpu(), h.cpu(), child.cpu(),
+                  parent_hist.cpu())
     assert torch.equal(got.cpu(), plain)
 
 
@@ -1343,7 +1347,7 @@ def _fresh_state(K, depth, device):
 @pytest.mark.parametrize("K,F,NB", [(1, 28, 256), (7, 54, 256),
                                     (3, 115, 16)])
 def test_split_fold_leaves_the_plain_tables(cuda, K, F, NB):
-    """The fused search and fold of ``_decide_level`` leave the same six
+    """The fused search and fold of ``decide_level`` leave the same six
     tables, decisions and split mask as the plain search and fold, level
     after level (resolved nodes included), one launch a level."""
     depth = 5
@@ -1355,10 +1359,10 @@ def test_split_fold_leaves_the_plain_tables(cuda, K, F, NB):
     for level, hist in enumerate(hists):
         hist = hist.to(cuda)
         before = _build.launch_counts()["split_level"]
-        fused, best, split = tree_mod._decide_level(
+        fused, best, split = tree_mod.decide_level(
             hist, level, depth, fused, is_cat, mask, 1.0, 0.0, 0.5)
         assert _build.launch_counts()["split_level"] == before + 1
-        plain, want, want_split = tree_mod._decide_level(
+        plain, want, want_split = tree_mod.decide_level(
             hist, level, depth, plain, is_cat, mask, 1.0, 0.0, 0.5,
             find=splits.find_best_splits_plain)
         assert torch.equal(split, want_split), level
@@ -1383,13 +1387,13 @@ def test_split_kernel_replays_from_a_cuda_graph(cuda):
     side = torch.cuda.Stream(cuda)
     side.wait_stream(torch.cuda.current_stream(cuda))
     with torch.cuda.stream(side):       # warm: the library loads eagerly
-        tree_mod._decide_level(hist, level, depth,
-                               _fresh_state(K, depth, cuda), is_cat, mask,
-                               1.0, 0.0, 0.5)
+        tree_mod.decide_level(hist, level, depth,
+                              _fresh_state(K, depth, cuda), is_cat, mask,
+                              1.0, 0.0, 0.5)
     torch.cuda.current_stream(cuda).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        _, best, split = tree_mod._decide_level(
+        _, best, split = tree_mod.decide_level(
             hist, level, depth, state, is_cat, mask, 1.0, 0.0, 0.5)
         search = splits.find_best_splits(hist.reshape(-1, F, NB, 2), is_cat,
                                          mask, 1.0, 0.0, 0.5)
@@ -1402,7 +1406,7 @@ def test_split_kernel_replays_from_a_cuda_graph(cuda):
             t.copy_(f)
         graph.replay()
         torch.cuda.synchronize()
-        want_state, want, want_split = tree_mod._decide_level(
+        want_state, want, want_split = tree_mod.decide_level(
             hist, level, depth, fresh, is_cat, mask, 1.0, 0.0, 0.5,
             find=splits.find_best_splits_plain)
         assert torch.equal(split, want_split), trial

@@ -684,15 +684,12 @@ def test_grower_packed_layouts_and_hist_slices_bit_equal():
     """At 16 bins the shards' column-major copies ship packed (even shard
     sizes) or unpacked (odd); either, and step ① in 3 slices, grows the
     uint8, one-slice trees bit for bit on dyadic statistics."""
-    from repro_torch.distributed.trainer import _grow_forest_sharded
-
     rng = np.random.default_rng(9)
     codes = rng.integers(0, 15, (1201, 7))
     g = torch.from_numpy((rng.integers(-64, 65, 1201) / 64).astype(
         np.float32))
     h = torch.ones(1201)
-    kw = dict(depth=4, n_bins=16, lambda_=1.0, gamma=0.0,
-              min_child_weight=1.0, plan=ExecutionPlan().resolved())
+    plan = ExecutionPlan().resolved()
     out = []
     for packed, D, slices in ((False, 2, 1), (True, 2, 1), (True, 3, 3)):
         data = dataset_from_codes(codes, n_bins=16, packed=packed,
@@ -700,12 +697,11 @@ def test_grower_packed_layouts_and_hist_slices_bit_equal():
         mesh = _cpu_mesh((D,))
         placed = sharding.shard_dataset(data, mesh)
         assert placed.cm_packed == (packed and (placed.n_pad // D) % 2 == 0)
-        grow = _grow_forest_sharded(cm_packed=placed.cm_packed,
-                                    hist_slices=slices, **kw)
-        gp = torch.nn.functional.pad(g[None], (0, placed.n_pad - 1201))
-        hp = torch.nn.functional.pad(h[None], (0, placed.n_pad - 1201))
-        tree, _ = grow(placed, [gp[:, lo:hi] for lo, hi in placed.bounds],
-                       [hp[:, lo:hi] for lo, hi in placed.bounds],
-                       data.is_categorical, torch.ones(7, dtype=torch.bool))
+        records = sharding.ShardedRecords(placed, g[None], h[None],
+                                          plan=plan, hist_slices=slices)
+        tree = tree_mod.grow_levels(
+            records, depth=4, is_cat_field=data.is_categorical,
+            field_mask=torch.ones(7, dtype=torch.bool), lambda_=1.0,
+            gamma=0.0, min_child_weight=1.0)
         out.append(tree)
     assert all(torch.equal(a, b) for t in out[1:] for a, b in zip(t, out[0]))

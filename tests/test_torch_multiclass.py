@@ -334,7 +334,7 @@ def test_decide_level_folds_classes_into_nodes_like_jax():
     is_cat = np.array([0, 1, 0, 0, 1], bool)
     mask = np.ones(F, bool)
     kw = dict(lambda_=1.0, gamma=0.0, min_child_weight=1.0)
-    got_state, got_best, got_split = tree._decide_level(
+    got_state, got_best, got_split = tree.decide_level(
         _t(hist), level, depth, tuple(_t(a.copy()) for a in state),
         _t(is_cat), _t(mask), **kw)
     want_state, want_best, want_split = jax_tree._decide_level(

@@ -47,7 +47,10 @@ from repro_torch.api import (ArraySource, BoosterClassifier,
 from repro_torch.core import binning, gbdt, tree
 from repro_torch.core.binning import Binner, PackedCodes, StreamingBinner
 from repro_torch.data import make_tabular, pipeline
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import TreeArrays
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.resilience import ShardCorruptionError, corrupt_file
 
 SCATTER = JaxPlan(hist_strategy="scatter")
@@ -448,16 +451,23 @@ def test_fit_forest_chunked_matches_jax(K, packed, sub):
     assert ids.shape == (K, 500) and ids.dtype == torch.int32
 
 
+@pytest.mark.parametrize("sub", [False, True], ids=["direct", "subtraction"])
 @pytest.mark.parametrize("K", [1, 3])
-def test_fit_forest_chunked_equals_fit_forest(K):
-    """On exact-grid statistics the chunked grower is the in-memory
-    grower: the same trees and the same final node ids (on the card this
-    is phase 7's gate (a))."""
+def test_fit_forest_chunked_equals_fit_forest(K, sub):
+    """On exact-grid statistics the three record layouts of the level loop
+    grow one tree: chunked, in memory and sharded over a 2-shard mesh give
+    the same trees and the same final node ids, with and without
+    histogram subtraction, though each picks the smaller child by its own
+    rule (on the card the first two are phase 7's gate (a))."""
     codes, is_cat, g, h = _grower_inputs(600, 5, K, 32, 20 + K)
-    chunked, ids = _port_chunked(codes, is_cat, g, h, 128, False, False,
+    chunked, ids = _port_chunked(codes, is_cat, g, h, 128, False, sub,
                                  depth=4, n_bins=32)
     data = binning.dataset_from_codes(codes, is_cat, n_bins=32,
                                       packed=False, device="cpu")
+    plan = ExecutionPlan(hist_subtraction=sub).resolved()
+    grow = dict(depth=4, is_cat_field=data.is_categorical,
+                field_mask=torch.ones(5, dtype=torch.bool), lambda_=1.0,
+                gamma=0.0, min_child_weight=1.0)
     seen = []
     real = ops.partition_level_cm
 
@@ -469,14 +479,26 @@ def test_fit_forest_chunked_equals_fit_forest(K):
     try:
         whole = tree.fit_forest(
             data.codes, data.codes_cm, torch.from_numpy(g),
-            torch.from_numpy(h), depth=4, n_bins=32, missing_bin=31,
-            is_cat_field=data.is_categorical,
-            field_mask=torch.ones(5, dtype=torch.bool), lambda_=1.0,
-            gamma=0.0, min_child_weight=1.0)
+            torch.from_numpy(h), n_bins=32, missing_bin=31, plan=plan,
+            **grow)
     finally:
         ops.partition_level_cm = real
     _assert_trees(chunked, whole)
     assert torch.equal(ids, seen[-1])
+    mesh = make_mesh((2,), ("data",), devices=["cpu"] * 2)
+    sharded = sharding.ShardedRecords(
+        sharding.shard_dataset(data, mesh), torch.from_numpy(g),
+        torch.from_numpy(h), plan=plan)
+    _assert_trees(chunked, tree.grow_levels(sharded, **grow))
+    assert torch.equal(ids, torch.cat(sharded.node_ids, dim=1))
+    if K == 1:
+        pjit = sharding.pjit_fit_tree(
+            mesh, depth=4, n_bins=32, missing_bin=31, lambda_=1.0,
+            gamma=0.0, min_child_weight=1.0, plan=plan)(
+                data.codes, data.codes_cm, torch.from_numpy(g[0]),
+                torch.from_numpy(h[0]), data.is_categorical,
+                torch.ones(5, dtype=torch.bool))
+        _assert_trees(chunked, TreeArrays(*[a[None] for a in pjit]))
 
 
 # --------------------------------------------------------------------------

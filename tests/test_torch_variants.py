@@ -7,7 +7,7 @@ plain versions):
 * the plain histogram strategies (``scatter``, ``scatter_private``,
   ``sort``, ``onehot``) and ``accumulate_histogram``: bit-equal on dyadic
   g, h (every order of summation is exact);
-* histogram subtraction: ``_subtract_level_hist`` bit-equal to ``repro``'s
+* histogram subtraction: ``subtract_level_hist`` bit-equal to ``repro``'s
   and to the direct pass on dyadic stats, within rtol 1e-4 plus 1e-5 of
   the parent's largest bin on real stats; the subtraction grower's trees;
 * the lossguide grower (``max_leaves``), the host split offload, the
@@ -149,6 +149,14 @@ def _level_inputs(K, seed, dyadic):
     return codes, g, h, parent, child
 
 
+def _resident(codes, g, h, node_ids, plan, n_bins=16):
+    """The in-memory record layout with its records at ``node_ids``."""
+    records = tree.ResidentRecords(codes, None, g, h, n_bins=n_bins,
+                                   missing_bin=n_bins - 1, plan=plan)
+    records.node_ids = node_ids
+    return records
+
+
 @pytest.mark.parametrize("K", [1, 3])
 @pytest.mark.parametrize("strategy", ["reference", "scatter", "cuda"])
 def test_subtract_level_hist_matches_jax(strategy, K):
@@ -158,8 +166,8 @@ def test_subtract_level_hist_matches_jax(strategy, K):
         t = [torch.from_numpy(a) for a in (codes, g, h, parent, child)]
         parent_hist = ops.build_histogram(t[0], t[1], t[2], t[3], n_nodes=2,
                                           n_bins=16, plan=plan)
-        ours = tree._subtract_level_hist(t[0], t[1], t[2], t[4], parent_hist,
-                                         n_nodes=4, n_bins=16, plan=plan)
+        ours = tree.subtract_level_hist(
+            _resident(t[0], t[1], t[2], t[4], plan), parent_hist, 4)
         direct = ops.build_histogram(t[0], t[1], t[2], t[4], n_nodes=4,
                                      n_bins=16, plan=plan)
         if not dyadic:
@@ -192,9 +200,9 @@ def test_compaction_carries_half_the_records():
     t = [torch.from_numpy(a) for a in (codes, g, h, child)]
     ops.build_histogram = spy
     try:
-        tree._subtract_level_hist(t[0], t[1], t[2], t[3],
-                                  torch.zeros((1, 2, 4, 16, 2)), n_nodes=4,
-                                  n_bins=16, plan=ExecutionPlan().resolved())
+        tree.subtract_level_hist(
+            _resident(t[0], t[1], t[2], t[3], ExecutionPlan().resolved()),
+            torch.zeros((1, 2, 4, 16, 2)), 4)
     finally:
         ops.build_histogram = real
     assert seen == [(450, (450,))]
