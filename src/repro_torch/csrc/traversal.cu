@@ -2,12 +2,12 @@
 // kernel body, ensemble_kernel.
 //
 // Replaces the TPU kernels src/repro/kernels/traversal.py::_traverse_kernel
-// and ::_ensemble_kernel (both via _walk_levels).  A node is one packed
-// int32 word ((feature+1) << 16) | (thr << 8) | (is_cat << 1) | default_left
-// (pack_node_table), children are implicit (2*node + 2 - go_left), and a
+// and ::_ensemble_kernel (both via _walk_levels).  A node comes as one
+// packed int32 word ((feature+1) << 16) | (thr << 8) | (is_cat << 1) |
+// default_left (pack_node_table), children are implicit (heap order), and a
 // depth-D walk is D dependent hops.  In shared memory each tree is laid out
-// as [node words | leaf values], so the node index a walk ends on is also
-// the index of its leaf value.
+// as [decoded nodes | leaf values] (decode_node), so the heap index a walk
+// ends on also gives its leaf value.
 //
 // ensemble_launch — the sum over T trees, tree t into margin column t % K.
 // Step ⑤ is its T = K case: one round's K class trees (the TPU build vmaps
@@ -26,13 +26,22 @@
 //     never read, as field ids are checked < F).  R is a multiple of 32, so
 //     the lanes of a warp, which walk consecutive records, hit bank r mod 32
 //     whatever fields they want: a hop is two conflict-free shared loads
-//     (node word, code word) and the integer decision, not a gather over
-//     ~7 L1 lines as a global read of row[f] is.  The decision is written
-//     without branches (goes_left), so a warp never splits at a node.
+//     (the decoded node, the code), not a gather over ~7 L1 lines as a
+//     global read of row[f] is.
+//   * Each node is decoded once, as its tree block is staged, into the 8
+//     bytes a hop reads (decode_node): where its field's code lies, R folded
+//     in, and its decision as a float bound and a missing code (uint8) or a
+//     16-code mask (4-bit).  A hop then spends no instruction unpacking a
+//     word: a uint8 hop is the node's 8-byte load, one shift-add, the
+//     code's byte load, two shifts, three float compares and the child's
+//     select and multiply-add: 12.1 SASS instructions on an H100, 5 of them
+//     on the integer pipe (which issues the float compares too).  The
+//     decision is written without branches, so a warp never splits at a
+//     node.
 //   * Rows of uint8 codes hold field f at byte f.  Rows of 4-bit packed
 //     codes (PackedCodes over the field axis, two fields a byte, F odd: a
 //     pad nibble) are staged as they lie, ceil(F/2) bytes a record, and a
-//     hop decodes field f's nibble from its word (f >> 3), bits 4 * (f & 7):
+//     hop shifts field f's nibble out of its word (f >> 3), bits 4 * (f & 7):
 //     the card never unpacks them.
 //   * A thread walks U records, interleaved hop by hop over the same tree:
 //     U independent chains of dependent loads hide each other's latency,
@@ -54,9 +63,9 @@
 // Code rows that do not fit — 32 records' padded rows plus one tree past a
 // block's shared memory (F in the thousands) — take the wide entry, the same
 // body reading row[f] from global memory, one record a thread
-// (ensemble_kernel<D, 1, false, NIBBLE>).  kernels/traversal.py:
-// ensemble_geometry chooses the entry, R and TB from ensemble_limits before
-// the launch.
+// (ensemble_kernel<D, 1, false, NIBBLE>), with the same decoded decision.
+// kernels/traversal.py: ensemble_geometry chooses the entry, R and TB from
+// ensemble_limits before the launch.
 #include "launch.cuh"
 
 constexpr int ENSEMBLE_THREADS = 256;           // threads a block at most
@@ -130,25 +139,71 @@ __device__ __forceinline__ void stage_rows(const uint8_t* __restrict__ codes,
     }
 }
 
-// go_left_of's decision written without branches, so that a warp never
-// splits at a node and the U records' hops interleave: 1 (left) or 0 for
-// the packed node word p (feature (p >> 16) - 1, -1: pass-through, left).
-__device__ __forceinline__ int goes_left(int p, int code, int missing_bin) {
-    const int thr = (p >> 8) & 255;
-    const int cmp = (p & 2) ? code == thr : code <= thr;
-    const int decided = code == missing_bin ? (p & 1) : cmp;
-    return (p < 0x10000) | decided;
-}
+// A node as a hop reads it: decoded once from its packed word p
+// ((feature+1) << 16 | thr << 8 | is_cat << 1 | default_left) while its
+// tree block is staged, into NODE_BYTES = 8 that one 8-byte shared load
+// brings, so that a hop spends no instruction unpacking a word.  Word 0 is
+// (offset << 14) | low: a hop's code lies offset (word 0 >> 14) bytes past
+// the record's own place, and low tells how to read or check it.
+//   uint8 codes: offset, staged, the byte (f >> 2) * R * 4 + (f & 3) of the
+//        rows, to which a record adds 4 * its slot (R folded in); wide,
+//        byte f of the record's row; a pass-through node (f = -1) reads
+//        byte 0, whatever it holds.  low = miss, the missing bin where its
+//        code would otherwise go against default_left, else 0x3FFF (no
+//        code).  Word 1 = w, a float whose bits are thr, its sign set on a
+//        numeric node: the code c, an int in [0, 255] from one byte load,
+//        read as a float is a denormal (+0.0 for 0), and such floats order
+//        as their integers do, since the build does not flush denormals
+//        (no -ftz).  The node goes left iff (w <= c <= |w|) != (c == miss):
+//        numeric [-thr, thr], categorical [thr, thr], pass-through
+//        [-256, 256]; c == miss compares c << 18 with word 0 << 18, which
+//        keeps low alone, as floats.
+//   4-bit codes: offset, staged, the byte (f >> 3) * R * 4 of the rows'
+//        word that holds field f; wide, byte f >> 1 of the row.  low = the
+//        nibble's shift, 4 * (f & 7) staged, 4 * (f & 1) wide, which a
+//        funnel shift by word 0 takes as its low 5 bits.  Word 1 = the
+//        node's 16 decisions, bit (c + 3) mod 16 set where code c goes
+//        right, in both halves.  Rotated right by the code word shifted
+//        (whose low 5 bits are c plus 16 times the next nibble's low bit),
+//        its bit 3 is 8 x (c goes right).
+// A walk tracks X = NODE_BYTES * q + base, q the node's heap index from 1
+// (root 1, children 2q and 2q + 1), base the shared offset of its tree
+// less NODE_BYTES (even): X is where node q lies, and its child is 2X -
+// base + NODE_BYTES * (goes right).
+constexpr int NODE_BYTES = 8;
+constexpr unsigned NO_CODE = 0x3FFF;
 
-// Field f's code in a staged row: byte f of the uint8 row, nibble f of the
-// packed one (f = -1 reads an unused byte or nibble of the first word).
-template <bool NIBBLE>
-__device__ __forceinline__ int staged_code(const uint32_t* __restrict__ rows,
-                                           int f, int R, int slot) {
-    if (NIBBLE)
-        return (rows[(max(f, 0) >> 3) * R + slot] >> ((f & 7) << 2)) & 0xF;
-    return __byte_perm(rows[(max(f, 0) >> 2) * R + slot], 0,
-                       0x4440 | (f & 3));
+template <bool STAGED, bool NIBBLE>
+__device__ __forceinline__ uint2 decode_node(int p, int R, int missing_bin) {
+    const int f = (p >> 16) - 1;
+    const int thr = (p >> 8) & 255;
+    const bool cat = (p & 2) != 0, default_left = (p & 1) != 0;
+    const unsigned g = max(f, 0);
+    if (NIBBLE) {
+        unsigned left = 0xFFFF;                          // pass-through
+        if (f >= 0) {
+            left = cat ? (thr < 16 ? 1u << thr : 0u)
+                       : (thr >= 15 ? 0xFFFFu : (2u << thr) - 1u);
+            if (0 <= missing_bin && missing_bin < 16)
+                left = default_left ? left | (1u << missing_bin)
+                                    : left & ~(1u << missing_bin);
+        }
+        const unsigned right = ~left & 0xFFFF;
+        const unsigned mask = ((right << 3) | (right >> 13)) & 0xFFFF;
+        const unsigned at = STAGED ? (((g >> 3) * R * 4) << 14) | ((g & 7) << 2)
+                                   : ((g >> 1) << 14) | ((g & 1) << 2);
+        return make_uint2(at, mask | (mask << 16));
+    }
+    if (f < 0)
+        return make_uint2(NO_CODE, 0x80000100u);         // [-256, 256]
+    const bool in = cat ? missing_bin == thr
+                        : 0 <= missing_bin && missing_bin <= thr;
+    const unsigned miss =
+        0 <= missing_bin && missing_bin < 256 && in != default_left
+            ? static_cast<unsigned>(missing_bin) : NO_CODE;
+    const unsigned off = STAGED ? (g >> 2) * R * 4 + (g & 3) : g;
+    return make_uint2((off << 14) | miss,
+                      (cat ? 0u : 0x80000000u) | static_cast<unsigned>(thr));
 }
 
 template <int DEPTH, int U, bool STAGED, bool NIBBLE>
@@ -157,26 +212,29 @@ ensemble_kernel(const uint8_t* __restrict__ codes,
                 const int32_t* __restrict__ tables,
                 const float* __restrict__ leaves, float* __restrict__ out,
                 long long n, int F, int T, int K, int missing_bin, int TB) {
-    // STAGED: [ceil(RB/4) x R code words | TB x [node words | leaves]]
-    extern __shared__ int smem[];
+    // STAGED: [ceil(RB/4) x R code words | TB x [decoded nodes | leaves]]
+    extern __shared__ int4 smem_words[];
+    char* smem = reinterpret_cast<char*>(smem_words);
     constexpr int n_int = (1 << DEPTH) - 1;
-    constexpr int words = 2 * n_int + 1;
+    constexpr int items = 2 * n_int + 1;           // nodes and leaves a tree
+    constexpr int NB = NODE_BYTES;
+    constexpr int TREE_BYTES = NB * n_int + 4 * (n_int + 1);
     const int RB = NIBBLE ? (F + 1) >> 1 : F;       // bytes a code row
     const int R = U * blockDim.x;
     const long long r0 = static_cast<long long>(blockIdx.x) * R;
     const int live = static_cast<int>(min(static_cast<long long>(R), n - r0));
-    const uint32_t* rows = reinterpret_cast<const uint32_t*>(smem);
-    int* trees = smem + (STAGED ? ((RB + 3) >> 2) * R : 0);
+    const int trees = STAGED ? ((RB + 3) >> 2) * R * 4 : 0;
     if (STAGED)
         stage_rows(codes, reinterpret_cast<uint32_t*>(smem), r0, live, RB,
                    R);
-    int slot[U];
+    int slot4[U];                         // 4 x the record's slot
     const uint8_t* row[U];
     float* o[U];                          // zeros or margins (the wrapper's)
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-        slot[u] = u * blockDim.x + threadIdx.x;
-        const long long r = slot[u] < live ? r0 + slot[u] : 0;
+        const int slot = u * blockDim.x + threadIdx.x;
+        slot4[u] = 4 * slot;
+        const long long r = slot < live ? r0 + slot : 0;
         row[u] = codes + r * RB;
         o[u] = out + r * K;
     }
@@ -184,15 +242,21 @@ ensemble_kernel(const uint8_t* __restrict__ codes,
         const int tb = min(TB, T - t0);
         if (t0 > 0)
             __syncthreads();             // the previous tree block walked
-        // the first tree block loads while the rows' loads are in flight
-        for (int i = threadIdx.x; i < tb * words; i += blockDim.x) {
-            const long long t = t0 + i / words;
-            const int w = i % words;
-            trees[i] = w < n_int ? tables[t * n_int + w]
-                                 : __float_as_int(leaves[t * (n_int + 1)
-                                                         + w - n_int]);
+        // the first tree block decodes while the rows' loads are in flight
+        for (int i = threadIdx.x; i < tb * items; i += blockDim.x) {
+            const int t = i / items, w = i - t * items;
+            const long long g = t0 + t;
+            char* tree = smem + trees + t * TREE_BYTES;
+            if (w < n_int)
+                *reinterpret_cast<uint2*>(tree + w * NB) =
+                    decode_node<STAGED, NIBBLE>(tables[g * n_int + w], R,
+                                                missing_bin);
+            else
+                *reinterpret_cast<float*>(tree + NB * n_int
+                                          + 4 * (w - n_int)) =
+                    leaves[g * (n_int + 1) + w - n_int];
         }
-        __syncthreads();                 // rows staged, trees loaded
+        __syncthreads();                 // rows staged, trees decoded
         for (int c = 0; c < K; ++c) {
             // first staged tree of class c: (t0 + t) % K == c
             const int first = ((c - t0 % K) + K) % K;
@@ -201,36 +265,54 @@ ensemble_kernel(const uint8_t* __restrict__ codes,
 #pragma unroll
             for (int u = 0; u < U; ++u) acc[u] = o[u][c];
             for (int t = first; t < tb; t += K) {
-                const int* tree = trees + t * words;
-                int node[U];
+                // node q at X = base + NB * q, its child at 2X + step
+                const int base = trees + t * TREE_BYTES - NB;
+                const int left = -base, right = NB - base;
+                int X[U];
 #pragma unroll
-                for (int u = 0; u < U; ++u) node[u] = 0;
+                for (int u = 0; u < U; ++u) X[u] = base + NB;   // the root
 #pragma unroll
                 for (int d = 0; d < DEPTH; ++d) {
 #pragma unroll
                     for (int u = 0; u < U; ++u) {
-                        const int p = tree[node[u]];
-                        const int f = (p >> 16) - 1;
-                        int code;
-                        if (STAGED)
-                            code = staged_code<NIBBLE>(rows, f, R, slot[u]);
-                        else if (NIBBLE)
-                            code = f >= 0 ? (row[u][f >> 1] >> ((f & 1) << 2))
-                                                & 0xF
-                                          : 0;
-                        else
-                            code = f >= 0 ? row[u][f] : 0;
-                        node[u] = 2 * node[u] + 2
-                                  - goes_left(p, code, missing_bin);
+                        const uint2 node =
+                            *reinterpret_cast<const uint2*>(smem + X[u]);
+                        if (NIBBLE) {
+                            const unsigned word =
+                                STAGED ? *reinterpret_cast<const uint32_t*>(
+                                             smem + slot4[u] + (node.x >> 14))
+                                       : row[u][node.x >> 14];
+                            const unsigned code =
+                                __funnelshift_r(word, 0u, node.x);
+                            X[u] = 2 * X[u] + left
+                                   + (__funnelshift_r(node.y, node.y, code)
+                                      & NB);
+                        } else {
+                            const unsigned code =
+                                STAGED ? reinterpret_cast<const uint8_t*>(
+                                             smem)[slot4[u] + (node.x >> 14)]
+                                       : row[u][node.x >> 14];
+                            const float c = __uint_as_float(code);
+                            const float w = __uint_as_float(node.y);
+                            const bool in = (c >= w) & (c <= fabsf(w));
+                            const bool miss =
+                                __uint_as_float(code << 18)
+                                == __uint_as_float(node.x << 18);
+                            X[u] = 2 * X[u] + (in != miss ? left : right);
+                        }
                     }
                 }
+                // the leaf of heap index q = (X - base) / NB lies q -
+                // 2^DEPTH floats past the nodes: at X / 2 + leaf (NB = 8)
+                const int leaf = base / 2 + NB * (n_int + 1) - 4 * (n_int + 1);
 #pragma unroll
                 for (int u = 0; u < U; ++u)
-                    acc[u] += __int_as_float(tree[node[u]]);
+                    acc[u] += *reinterpret_cast<const float*>(
+                        smem + leaf + (X[u] >> 1));
             }
 #pragma unroll
             for (int u = 0; u < U; ++u)
-                if (slot[u] < live) o[u][c] = acc[u];
+                if (slot4[u] < 4 * live) o[u][c] = acc[u];
         }
     }
 }

@@ -8,8 +8,10 @@ K > 1).
 Nodes are packed into one int32 word each (:func:`pack_node_table`).  One
 kernel body walks T trees over n records and sums tree t into margin
 column t % K: a block stages its R records' code rows in shared memory in
-a bank-free layout, then blocks of TB trees in turn; a thread walks U
-records hop by hop (:func:`ensemble_geometry` sizes it).  Leaves sum in a
+a bank-free layout, then blocks of TB trees in turn, each node decoded as
+it is staged into the 8 bytes a hop reads (:func:`decode_node_table`
+mirrors it); a thread walks U records hop by hop (:func:`ensemble_geometry`
+sizes it).  Leaves sum in a
 register per record in tree order, class by class, starting from what the
 output holds; :func:`predict_ensemble_plain` adds in the same order, so
 the two agree bit for bit.  Rows too wide to
@@ -119,13 +121,20 @@ def row_bytes(F: int, packed: bool) -> int:
     return (F + 1) // 2 if packed else F
 
 
+def tree_bytes(depth: int) -> int:
+    """Shared bytes of one staged tree of depth ``depth``: its nodes as
+    the kernel decodes them, 8 bytes each (:func:`decode_node_table`),
+    then its 2^depth float leaves."""
+    n_int = (1 << depth) - 1
+    return 8 * n_int + 4 * (n_int + 1)
+
+
 def max_staged_fields(depth: int, limits: EnsembleLimits,
                       packed: bool = False) -> int:
     """The widest code row, in fields, the staged entry takes: 32 records'
     rows (padded to 4 bytes) and one depth-``depth`` tree in a block's
     shared memory."""
-    tree_bytes = 4 * ((2 << depth) - 1)
-    top = (limits.block_shared - tree_bytes) // 32 // 4 * 4
+    top = (limits.block_shared - tree_bytes(depth)) // 32 // 4 * 4
     return 2 * top if packed else top
 
 
@@ -137,34 +146,34 @@ def ensemble_geometry(n: int, F: int, T: int, depth: int,
 
     Staged entry (F up to :func:`max_staged_fields`): a block holds R
     records' code rows, :func:`row_bytes` padded to 4 bytes each, then TB
-    trees.  R is the largest of U·threads, U·threads − 32U, ..., 32U, 32 (a
-    multiple of 32, so lane l reads bank l) whose rows leave room for
-    ``min(T, MIN_STAGED_TREES)`` trees, else for one, within
-    ``limits.budget`` (``blocks_per_sm`` blocks an SM), or within the
-    block's whole shared memory where not even 32 rows fit the budget; no
-    larger than n needs.  TB fills the rest.  Wide entry: one record a
-    thread, ``limits.threads`` threads, TB trees within the budget.
+    trees of :func:`tree_bytes`.  R is the largest of U·threads,
+    U·threads − 32U, ..., 32U, 32 (a multiple of 32, so lane l reads bank
+    l) whose rows leave room for ``min(T, MIN_STAGED_TREES)`` trees, else
+    for one, within ``limits.budget`` (``blocks_per_sm`` blocks an SM), or
+    within the block's whole shared memory where not even 32 rows fit the
+    budget; no larger than n needs.  TB fills the rest.  Wide entry: one
+    record a thread, ``limits.threads`` threads, TB trees within the
+    budget.
     """
-    tree_bytes = 4 * ((2 << depth) - 1)
+    tree = tree_bytes(depth)
     if F > max_staged_fields(depth, limits, packed):
-        tb = max(1, min(T, limits.budget // tree_bytes))
-        return EnsembleGeometry(limits.threads, 1, tb, tb * tree_bytes,
-                                "wide")
+        tb = max(1, min(T, limits.budget // tree))
+        return EnsembleGeometry(limits.threads, 1, tb, tb * tree, "wide")
     row = 4 * math.ceil(row_bytes(F, packed) / 4)
     U = limits.per_thread
     step = 32 * U
     budget = limits.budget
-    if 32 * row + tree_bytes > budget:
+    if 32 * row + tree > budget:
         budget = limits.block_shared
     top = min(U * limits.threads, step * max(1, math.ceil(n / step)))
     cands = list(range(top, 0, -step)) + [32]
     for need in (min(T, MIN_STAGED_TREES), 1):
-        fits = [r for r in cands if r * row + need * tree_bytes <= budget]
+        fits = [r for r in cands if r * row + need * tree <= budget]
         if fits:
             R = fits[0]
             break
-    tb = min(T, (budget - R * row) // tree_bytes)
-    return EnsembleGeometry(R, U, tb, R * row + tb * tree_bytes, "staged")
+    tb = min(T, (budget - R * row) // tree)
+    return EnsembleGeometry(R, U, tb, R * row + tb * tree, "staged")
 
 
 def pack_node_table(tree: TreeArrays) -> torch.Tensor:
@@ -174,6 +183,77 @@ def pack_node_table(tree: TreeArrays) -> torch.Tensor:
             | (tree.threshold.to(torch.int32) << 8)
             | (tree.is_cat.to(torch.int32) << 1)
             | tree.default_left.to(torch.int32))
+
+
+NO_CODE = 0x3FFF            # a decoded node's missing code that none equals
+
+
+def _int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values of 32 bits as the int32 words that hold them."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def decode_node_table(tables: torch.Tensor, missing_bin: int,
+                      records=None, packed: bool = False) -> torch.Tensor:
+    """Plain mirror of the kernel's ``decode_node``: each packed node word
+    of :func:`pack_node_table` as a hop reads it, two int32 words, so
+    (..., N_int, 2).  ``records`` is R, the records of a staged block
+    (``None``: the wide entry, which reads the row in global memory).
+
+    Word 0 is (offset << 14) | low.  uint8 codes: field f's code at byte
+    offset of the staged rows past 4 x the record's slot ((f >> 2)·R·4 +
+    (f & 3)), or of the row (f); low the missing bin where its code would
+    go against default_left, else ``NO_CODE``; word 1 a float whose bits
+    are the threshold, negative on a numeric node (a pass-through node:
+    -256, so every code).  4-bit codes: the word (staged, (f >> 3)·R·4) or
+    byte (wide, f >> 1) that holds field f's nibble, low its shift
+    (4·(f & 7), 4·(f & 1)); word 1 the codes that go right, code c at bit
+    (c + 3) mod 16, in both halves.  :func:`decoded_goes_left` is the
+    decision a hop takes from it."""
+    p = tables.to(torch.int64)
+    f, thr = (p >> 16) - 1, (p >> 8) & 255
+    cat, dl, g = (p & 2) != 0, (p & 1) != 0, f.clamp(min=0)
+    if packed:
+        c = torch.arange(16, device=p.device)
+        left = torch.where(cat[..., None], c == thr[..., None],
+                           c <= thr[..., None])
+        if 0 <= missing_bin < 16:
+            left[..., missing_bin] = dl
+        left |= (f < 0)[..., None]
+        right = ((~left).long() << c).sum(-1)
+        mask = ((right << 3) | (right >> 13)) & 0xFFFF
+        at = ((((g >> 3) * records * 4) << 14) | ((g & 7) << 2)
+              if records else ((g >> 1) << 14) | ((g & 1) << 2))
+        return _int32(torch.stack([at, mask | (mask << 16)], -1))
+    off = (g >> 2) * records * 4 + (g & 3) if records else g
+    inside = torch.where(cat, thr == missing_bin,
+                         (0 <= missing_bin) & (missing_bin <= thr))
+    flip = (inside != dl) & (0 <= missing_bin < 256)
+    node = torch.stack([(off << 14) | torch.where(flip, missing_bin, NO_CODE),
+                        torch.where(cat, thr, thr | (1 << 31))], -1)
+    through = torch.tensor([NO_CODE, (1 << 31) | 256], device=p.device)
+    return _int32(torch.where((f < 0)[..., None], through, node))
+
+
+def decoded_goes_left(nodes: torch.Tensor, loaded: torch.Tensor,
+                      packed: bool = False) -> torch.Tensor:
+    """Plain mirror of a hop's decision from nodes of
+    :func:`decode_node_table` and what it loaded through them: the code
+    byte (uint8) or the code word or byte (4-bit).  uint8: the code c and
+    word 1 w read as float32s, left iff (w <= c <= |w|) != (c == the
+    missing code); 4-bit: word 1 rotated right by the loaded word shifted
+    right by word 0's low 5 bits, left iff its bit 3 is clear."""
+    at = nodes[..., 0].long() & 0xFFFFFFFF
+    if packed:
+        mask = nodes[..., 1].long() & 0xFFFFFFFF
+        s = ((loaded.long() & 0xFFFFFFFF) >> (at & 31)) & 31
+        rot = ((mask >> s) | (mask << (32 - s))) & 0xFFFFFFFF
+        return (rot & 8) == 0
+    code = loaded.to(torch.int32)
+    c, w = code.view(torch.float32), nodes[..., 1].view(torch.float32)
+    miss = (_int32(code.long() << 18 & 0xFFFFFFFF).view(torch.float32)
+            == _int32(at << 18 & 0xFFFFFFFF).view(torch.float32))
+    return ((c >= w) & (c <= w.abs())) != miss
 
 
 def traverse_forest_plain(forest: TreeArrays, codes,

@@ -64,6 +64,36 @@ def _trees(T, depth, C, n_bins, rng, device):
         rng.normal(size=(T, 2 ** depth)).astype(np.float32))])
 
 
+def _edge_trees(depth, C, n_bins, rng, device):
+    """Trees whose roots take every decoded form's edge, each root seeing
+    every record: numeric roots at every threshold from 0 to the missing
+    bin's (n_bins - 1) and one past it, missing codes going left and
+    right; categorical roots at code 0 and at the top value bin, both
+    ways; pass-through roots; two padding trees (every node feature -1,
+    zero leaves).  Deeper nodes are drawn as ``_trees`` draws them."""
+    mb = n_bins - 1
+    roots = [(f, t, 0, dl) for t in range(mb + 1) for f, dl in
+             ((t % C, t % 2), ((t + 1) % C, 1 - t % 2))]
+    roots += [(f, t, 1, dl) for t in (0, mb - 1) for dl in (0, 1)
+              for f in (0, C - 1)]
+    roots += [(-1, 0, 0, 0), (-1, mb, 1, 1)]
+    trees = _trees(len(roots) + 2, depth, C, n_bins, rng, "cpu")
+    for i, root in enumerate(roots):
+        for a, v in zip(trees[:4], root):
+            a[i, 0] = v
+    for a in trees[:4]:
+        a[len(roots):] = -1 if a is trees.feature else 0
+    trees.leaf_value[len(roots):] = 0.0
+    return ref.TreeArrays(*[a.to(device) for a in trees])
+
+
+def _edge_codes(n, C, n_bins, rng):
+    """Codes in which every field takes every code, the missing bin (the
+    last) among them."""
+    return np.stack([rng.permutation(n) % n_bins for _ in range(C)],
+                    1).astype(np.uint8)
+
+
 def _layout(layout, n, F, NB, NN, shape, rng):
     """Codes and node ids of one test layout: ``random`` (10 % missing,
     nodes uniform), ``two`` (every code on bins 0-1, as two-category fields
@@ -653,18 +683,28 @@ def _ensemble_matches_plain(trees, codes, K, missing_bin, counter):
     (2999, 28, 9, 1, 1),         # depth 1
     (2999, 54, 16, 3, 1),
     (1025, 28, "TB+3", 1, 10),   # depth 10: 2047-word trees
-    (1025, 54, 11, 7, 10)])
+    (1025, 54, 11, 7, 10),
+    (1001, 28, "edges", 1, 6),   # every decoded form's edge (_edge_trees)
+    (1001, 54, "edges", 7, 6),
+    (777, 115, "edges", 7, 3)])
 def test_staged_ensemble_kernel_matches_plain(cuda, n, F, T, K, depth):
     """The staged entry (code rows in shared memory) at the edges of its
-    geometry: partial record blocks, odd widths, partial tree blocks."""
+    geometry: partial record blocks, odd widths, partial tree blocks; and
+    at the edges of the decoded nodes, code 255 the missing bin."""
     limits = trav_k.ensemble_limits(cuda)
     if T == "TB+3":
         T = trav_k.ensemble_geometry(n, F, 100_000, depth, limits).trees + 3
+    rng = np.random.default_rng(n + F + K + depth
+                                + (T if isinstance(T, int) else 0))
+    if T == "edges":
+        trees = _edge_trees(depth, F, 256, rng, cuda)
+        codes = torch.from_numpy(_edge_codes(n, F, 256, rng)).to(cuda)
+        T = trees.feature.shape[0]
+    else:
+        trees = _trees(T, depth, F, 256, rng, cuda)
+        codes = torch.from_numpy(_codes(n, F, 256, rng)).to(cuda)
     geo = trav_k.ensemble_geometry(n, F, T, depth, limits)
     assert geo.entry == "staged" and geo.records % 32 == 0
-    rng = np.random.default_rng(n + F + T + K + depth)
-    trees = _trees(T, depth, F, 256, rng, cuda)
-    codes = torch.from_numpy(_codes(n, F, 256, rng)).to(cuda)
     _ensemble_matches_plain(trees, codes, K, 255, "ensemble")
 
 
@@ -684,19 +724,29 @@ def test_wide_ensemble_entry_past_the_staged_limit(cuda, K):
 
 
 @pytest.mark.parametrize("n,F,T,K", [(2053, 115, 40, 1), (2053, 115, 40, 7),
-                                     (5, 9, 13, 3), (3001, 28, "TB+3", 1)])
+                                     (5, 9, 13, 3), (3001, 28, "TB+3", 1),
+                                     (1001, 115, "edges", 1),
+                                     (1001, 115, "edges", 7),
+                                     (333, 9, "edges", 7)])
 def test_nibble_ensemble_entry_matches_plain(cuda, n, F, T, K):
     """4-bit packed rows staged as they lie (F odd: a pad nibble a row),
-    bit-equal on dyadic leaves to the uint8 entry on the same codes."""
+    bit-equal on dyadic leaves to the uint8 entry on the same codes; and
+    at the edges of the decoded nodes (``_edge_trees``: codes 0-15, 15 the
+    missing bin)."""
     limits = trav_k.ensemble_limits(cuda)
     if T == "TB+3":
         T = trav_k.ensemble_geometry(n, F, 100_000, 6, limits,
                                      packed=True).trees + 3
+    rng = np.random.default_rng(n + F + K + (T if isinstance(T, int) else 0))
+    if T == "edges":
+        trees = _edge_trees(6, F, 16, rng, cuda)
+        codes = torch.from_numpy(_edge_codes(n, F, 16, rng)).to(cuda)
+        T = trees.feature.shape[0]
+    else:
+        trees = _trees(T, 6, F, 16, rng, cuda)
+        codes = torch.from_numpy(_codes(n, F, 16, rng)).to(cuda)
     assert trav_k.ensemble_geometry(n, F, T, 6, limits,
                                     packed=True).entry == "staged"
-    rng = np.random.default_rng(n + F + T + K)
-    trees = _trees(T, 6, F, 16, rng, cuda)
-    codes = torch.from_numpy(_codes(n, F, 16, rng)).to(cuda)
     packed = PackedCodes.pack(codes)
     _ensemble_matches_plain(trees, packed, K, 15, "ensemble")
     dyadic = trees._replace(leaf_value=torch.round(trees.leaf_value * 64) / 64)
@@ -705,6 +755,23 @@ def test_nibble_ensemble_entry_matches_plain(cuda, n, F, T, K):
                                      n_classes=K),
         trav_k.predict_ensemble_cuda(dyadic, codes, missing_bin=15,
                                      n_classes=K))
+
+
+@pytest.mark.parametrize("K", [1, 7])
+@pytest.mark.parametrize("packed", [False, True])
+def test_wide_ensemble_entry_decodes_every_edge(cuda, packed, K):
+    """The wide entry (code rows read from global memory) at the edges of
+    its decoded nodes (``_edge_trees``), uint8 and 4-bit packed rows."""
+    limits = trav_k.ensemble_limits(cuda)
+    F = trav_k.max_staged_fields(6, limits, packed) + 1
+    NB = 16 if packed else 256
+    rng = np.random.default_rng(F + K)
+    trees = _edge_trees(6, F, NB, rng, cuda)
+    codes = torch.from_numpy(_edge_codes(300, F, NB, rng)).to(cuda)
+    assert trav_k.ensemble_geometry(300, F, trees.feature.shape[0], 6,
+                                    limits, packed).entry == "wide"
+    _ensemble_matches_plain(trees, PackedCodes.pack(codes) if packed
+                            else codes, K, NB - 1, "ensemble_wide")
 
 
 @pytest.mark.parametrize("F,packed", [(28, False), (54, False),

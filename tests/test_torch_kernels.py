@@ -20,6 +20,7 @@ from repro.kernels import ref as jax_ref
 from repro.kernels import traversal as jax_trav
 
 from repro_torch.api.plan import ExecutionPlan
+from repro_torch.core.binning import PackedCodes
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import histogram as hist_k
 from repro_torch.kernels import partition as part_k
@@ -337,7 +338,7 @@ def test_ensemble_geometry_fits_shared_memory(n, F, T, depth):
     an SM wherever 32 rows fit it; R and TB no larger than n and T need."""
     L = H100_ENSEMBLE
     geo = trav_k.ensemble_geometry(n, F, T, depth, L)
-    tree_bytes = 4 * ((2 << depth) - 1)
+    tree_bytes = trav_k.tree_bytes(depth)
     row = 4 * -(-F // 4)
     assert geo.entry == "staged"
     assert geo.records % 32 == 0 and geo.records % geo.per_thread == 0
@@ -354,8 +355,10 @@ def test_ensemble_geometry_fits_shared_memory(n, F, T, depth):
 @pytest.mark.parametrize("F", [28, 54])
 def test_ensemble_geometry_keeps_three_blocks_an_sm(F):
     """At the Higgs and Covertype widths a block stages 512 records (256
-    threads of 2) and at least 16 trees, and four blocks fit an SM."""
+    threads of 2) and at least 16 trees of 63 decoded 8-byte nodes and 64
+    leaves, and four blocks fit an SM."""
     L = H100_ENSEMBLE
+    assert trav_k.tree_bytes(6) == 8 * 63 + 4 * 64
     geo = trav_k.ensemble_geometry(10_000_000, F, 500, 6, L)
     assert (geo.records, geo.per_thread, geo.threads) == (512, 2, 256)
     assert geo.trees >= trav_k.MIN_STAGED_TREES
@@ -369,7 +372,7 @@ def test_ensemble_geometry_wide_entry_exactly_past_the_staged_limit(depth):
     """32 records' rows plus one tree fill a block at the limit; one field
     more takes the wide entry (one record a thread, trees only)."""
     L = H100_ENSEMBLE
-    tree_bytes = 4 * ((2 << depth) - 1)
+    tree_bytes = trav_k.tree_bytes(depth)
     top = trav_k.max_staged_fields(depth, L)
     assert 32 * top + tree_bytes <= L.block_shared \
         < 32 * (top + 4) + tree_bytes
@@ -477,6 +480,79 @@ def test_pack_node_table_matches_jax():
     got = trav_k.pack_node_table(_as(trees, ref, _t))
     want = jax_trav.pack_node_table(_as(trees, jax_ref, jnp.asarray))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _node_grid(C):
+    """Every (field, threshold, is_cat, default_left) with fields -1..C-1
+    and every 8-bit threshold, as one flat tree table."""
+    grid = torch.meshgrid(torch.arange(-1, C), torch.arange(256),
+                          torch.arange(2), torch.arange(2), indexing="ij")
+    return ref.TreeArrays(*[a.reshape(-1).int() for a in grid], None)
+
+
+@pytest.mark.parametrize("records", [None, 96])
+@pytest.mark.parametrize("packed,missing_bin", [
+    (False, 255), (False, 0), (False, 100), (False, 256), (False, -1),
+    (False, -2 ** 31), (True, 15), (True, 0), (True, 7), (True, 16)])
+def test_decoded_node_decides_as_goes_left(packed, missing_bin, records):
+    """Every (node, code) pair of the grid: the decision the kernel's
+    decoded node implies (``decode_node_table``, ``decoded_goes_left``)
+    is go_left's rule, staged (R = 96) and wide (``None``); a 4-bit word
+    holds random nibbles around the code."""
+    nodes = _node_grid(10)
+    decoded = trav_k.decode_node_table(trav_k.pack_node_table(nodes),
+                                       missing_bin, records, packed)
+    assert decoded.dtype == torch.int32 and decoded.shape[-1] == 2
+    n_codes = 16 if packed else 256
+    code = torch.arange(n_codes)[None, :]
+    want = ref._decide_go_left(code, nodes.feature[:, None],
+                               nodes.threshold[:, None],
+                               nodes.is_cat[:, None],
+                               nodes.default_left[:, None], missing_bin)
+    loaded = code.expand(want.shape)
+    if packed:
+        g = nodes.feature.clamp(min=0).long()[:, None]
+        shift = 4 * (g & 7) if records else 4 * (g & 1)
+        noise = torch.randint(0, 2 ** 32, want.shape,
+                              generator=torch.Generator().manual_seed(0))
+        loaded = (noise & ~(15 << shift)) | (loaded << shift)
+    got = trav_k.decoded_goes_left(decoded[:, None, :].expand(
+        *want.shape, 2), loaded, packed)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_decoded_node_offsets_read_the_staged_rows(packed):
+    """A decoded node's offset, past 4 x a record's slot, reads its
+    field's code out of the rows as the kernel stages them (word
+    (b >> 2)·R + slot, byte b & 3); in the wide form, out of the row."""
+    R, n, F = 64, 50, 13
+    rng = np.random.default_rng(packed)
+    codes = _t(rng.integers(0, 16 if packed else 256, (n, F)).astype(
+        np.uint8))
+    data = PackedCodes.pack(codes).data if packed else codes
+    RB = data.shape[1]
+    staged = torch.zeros(-(-RB // 4) * R * 4, dtype=torch.uint8)
+    b = torch.arange(RB)
+    for r in range(n):
+        staged[((b >> 2) * R + r) * 4 + (b & 3)] = data[r]
+    tables = trav_k.pack_node_table(ref.TreeArrays(
+        torch.arange(F).int(), torch.zeros(F).int(), torch.zeros(F).int(),
+        torch.zeros(F).int(), None))
+    for records in (R, None):
+        at = trav_k.decode_node_table(tables, 15, records,
+                                      packed)[:, 0].long() & 0xFFFFFFFF
+        slot = torch.arange(n)[:, None]
+        if records is None:
+            got = data.long()[slot, at >> 14]
+        elif packed:
+            pos = 4 * slot + (at >> 14)
+            got = sum(staged[pos + k].long() << 8 * k for k in range(4))
+        else:
+            got = staged[4 * slot + (at >> 14)].long()
+        if packed:
+            got = (got >> (at & 31)) & 15
+        assert torch.equal(got, codes.long()), records
 
 
 @pytest.mark.parametrize("n,depth,C,n_bins", [

@@ -215,7 +215,7 @@ def test_staged_geometry_at_t_equals_k(name, n, F, K, packed):
     assert geo.entry == "staged"
     assert (geo.records, geo.per_thread, geo.threads) == (512, 2, 256)
     assert geo.trees == K
-    assert geo.smem == 512 * row + K * 4 * (2 ** 7 - 1)
+    assert geo.smem == 512 * row + K * trav_k.tree_bytes(6)
     assert H100.sm_shared // (geo.smem + H100.block_reserved) >= 4
 
 
