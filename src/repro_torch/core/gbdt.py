@@ -630,14 +630,23 @@ def train(config: GBDTConfig, data: BinnedDataset, y,
                       f"(best {best_round}: {best_eval:.6f})")
             break
 
-    return TrainResult(model=model(), history=history, step_times=step_times,
-                       stats={"n_rows": n}, margins=margins)
+    return _fit_end(TrainResult(model=model(), history=history,
+                                step_times=step_times, stats={"n_rows": n},
+                                margins=margins))
+
+
+def _fit_end(result: TrainResult) -> TrainResult:
+    """A fit's result after its last round, its splits counted
+    (:func:`repro_torch.core.tree.record_splits`)."""
+    tree_mod.record_splits(result.model.trees)
+    return result
 
 
 def _interrupt(shutdown: GracefulShutdown, t_idx: int,
                partial: TrainResult) -> None:
     """Raise the typed resumable interrupt after round ``t_idx``
-    committed."""
+    committed, the fit's splits counted."""
+    _fit_end(partial)
     raise TrainingInterrupted(
         f"shutdown ({shutdown.signal_name}) after round {t_idx}",
         rounds_done=partial.model.n_rounds, signal_name=shutdown.signal_name,
@@ -993,7 +1002,7 @@ def _train_fused(config, plan, loss, data, y, ev_data, ev_y, trees, margins,
             _interrupt(shutdown, t_idx, result(interrupted=True))
         t_idx += 1
     _sync(device)
-    return result()
+    return _fit_end(result())
 
 
 def _as_model(trees, base_margin, config, missing_bin, F) -> GBDTModel:

@@ -303,6 +303,26 @@ def settle_leaves(state, sums, lambda_: float) -> TreeArrays:
                       leaf_value=torch.where(value_set, value_bottom, wb))
 
 
+# the fit-end counters of the splits grown (``repro_torch.obs``): all of
+# them, the categorical ones ("code == t"), and those that send the
+# missing bin left
+SPLIT_COUNTERS = ("tree.splits", "tree.splits_categorical",
+                  "tree.splits_default_left")
+
+
+def record_splits(trees: TreeArrays) -> None:
+    """Add a fit's splits, from its stacked tree tables, to the
+    ``SPLIT_COUNTERS``, once a fit, after its last round: the three
+    tables are copied to the host and counted there, so the device runs
+    no kernel for it."""
+    feature, is_cat, default_left = (
+        t.cpu() for t in (trees.feature, trees.is_cat, trees.default_left))
+    split = feature >= 0
+    for name, n in zip(SPLIT_COUNTERS, (split, split & (is_cat != 0),
+                                        split & (default_left != 0))):
+        obs.record(name, int(n.sum()))
+
+
 # --------------------------------------------------------------------------
 # histogram subtraction (paper §II-A) for the level-wise grower
 # --------------------------------------------------------------------------

@@ -6,6 +6,11 @@ take a :func:`snapshot` before a region and read :func:`delta` after it.
 
   * ``"recoveries"`` — a trainer recovery branch fired (a divergence
     rollback of the fused trainer).
+  * ``"tree.splits"``, ``"tree.splits_categorical"``,
+    ``"tree.splits_default_left"`` — the splits a fit of
+    ``core/gbdt.train`` grew, those on a categorical field, and those
+    that send the missing bin left; added once a fit, after its last
+    round, from its tree tables (``core/tree.record_splits``).
 
 Counters are cumulative per process.
 

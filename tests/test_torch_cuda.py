@@ -15,6 +15,9 @@ replayed from a CUDA graph.
 The training variants (histogram subtraction, the lossguide grower, the
 host split offload, GOSS, fused rounds as CUDA graphs) are held against
 their direct or host-loop counterparts on the card and against the CPU.
+Missing values, 40-category fields and squared error
+(``tests/test_torch_mixed_fields.py``) hold against the float64 reference
+on the card as on the CPU.
 The out-of-core path: a chunk binned on the card equals the host's codes,
 the pinned upload ring delivers every chunk intact, the chunked grower
 equals the in-memory one on exact-grid statistics, and a stream (with an
@@ -36,6 +39,8 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels import histogram as hist_k
 from repro_torch.kernels import partition as part_k
 from repro_torch.kernels import traversal as trav_k
+
+import test_torch_mixed_fields as mixed_fields
 
 pytestmark = pytest.mark.cuda
 
@@ -1907,3 +1912,29 @@ def test_sharded_predict_on_card(cuda):
         leaf_value=leaves.to(cuda)))
     assert torch.equal(sharded_predict(mesh, pad_trees(dy, 4), data.codes),
                        dy.predict_margin(data))
+
+
+# -- missing values, 40-category fields, squared error: the CPU checks of
+# tests/test_torch_mixed_fields.py, run on the card ------------------------
+@pytest.mark.parametrize("seed", mixed_fields.SEEDS)
+def test_mixed_fields_codes_on_card(cuda, seed):
+    mixed_fields.check_codes(seed, cuda)
+
+
+@pytest.mark.parametrize("seed", mixed_fields.SEEDS)
+def test_mixed_fields_fit_on_card(cuda, seed):
+    mixed_fields.check_fit(seed, cuda)
+
+
+@pytest.mark.parametrize("way", ["left", "right"])
+def test_mixed_fields_missing_direction_on_card(cuda, way):
+    mixed_fields.check_missing_split(way, cuda)
+
+
+@pytest.mark.parametrize("cat", [17, 39])
+def test_mixed_fields_high_category_on_card(cuda, cat):
+    mixed_fields.check_category_split(cat, cuda)
+
+
+def test_mixed_fields_split_counters_on_card(cuda):
+    mixed_fields.check_counters(cuda)
