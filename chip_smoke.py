@@ -129,8 +129,9 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    threshold, is_cat), losses within rtol 1e-4; the steady round wall of
    each and its idle share (a graph replay's span on the card, and phase
    4's one-round profile); (b) ``hist_subtraction=True`` under the host
-   loop and fused rounds: levels >= 1 bin n // 2 records, round 0's tree
-   within the subtraction contract of the direct fit's (feature,
+   loop and fused rounds: every level >= 1 built from its parent's int64
+   sums (the card's exact subtraction, whatever the plan says), round 0's
+   tree within the subtraction contract of the direct fit's (feature,
    threshold, is_cat exact, leaves rtol 1e-4, atol 1e-5), the losses
    within rtol 1e-4 (later trees' differing nodes counted), and on
    exact-grid statistics the subtraction tree bit-equal to the direct
@@ -141,12 +142,13 @@ Phases, each of which fails the script (non-zero exit) if it fails:
    + splits histogram launches; (d) GOSS 0.2/0.1 under the host loop and
    fused rounds: losses within rtol 1e-4; (e) on the Covertype-shaped data
    8 fused rounds against phase 3b's host loop (steady round, idle share),
-   then 4 fused rounds with subtraction (the masked class-batched route
-   inside the graph: one launch of all n records a level) against the host
-   loop with subtraction; (f) the kernels of each part against their plain
-   versions on the same inputs: the subtraction's level histogram
-   (compacted at K = 1, masked at K = 7) bit-equal to the direct pass and to
-   its plain version on exact-grid statistics, the lossguide node
+   then 4 fused rounds with subtraction (the exact route inside the graph:
+   one class-batched launch a level, levels >= 1 from their parents' sums)
+   against the host loop with subtraction; (f) the kernels of each part
+   against their plain versions on the same inputs: the subtraction's
+   level histogram (from the parent level's int64 sums) bit-equal to the
+   direct pass and to its plain version on exact-grid statistics, the
+   lossguide node
    histogram, the host split offload against the device split search, GOSS
    weights on the card against the CPU's.  The numbers go into the
    ``histogram`` and ``histogram_classes`` rows with the card's name and
@@ -2105,13 +2107,13 @@ def busy_ms(fn, reps: int = 5) -> float:
 
 def hist_event_ms(fn, reps: int = 5) -> float:
     """Device ms that a call of ``fn`` spends in the grouped histogram's
-    launches (its counting sort and zeroed output included): CUDA events
-    around each ``histogram_cuda`` call, summed over the call, behind a
-    sleep kernel as in :func:`busy_ms`; median of ``reps`` calls after a
-    warm-up."""
+    launches (its counting sort, zeroed output and finish included): CUDA
+    events around each ``histogram_level_cuda`` call, summed over the
+    call, behind a sleep kernel as in :func:`busy_ms`; median of ``reps``
+    calls after a warm-up."""
     from repro_torch.kernels import histogram as hist_k
 
-    real, spans = hist_k.histogram_cuda, []
+    real, spans = hist_k.histogram_level_cuda, []
 
     def timed(*a, **kw):
         start = torch.cuda.Event(enable_timing=True)
@@ -2123,7 +2125,7 @@ def hist_event_ms(fn, reps: int = 5) -> float:
         return out
 
     fn()
-    hist_k.histogram_cuda = timed
+    hist_k.histogram_level_cuda = timed
     try:
         totals = []
         for _ in range(reps):
@@ -2133,7 +2135,7 @@ def hist_event_ms(fn, reps: int = 5) -> float:
             torch.cuda.synchronize()
             totals.append(sum(a.elapsed_time(b) for a, b in spans))
     finally:
-        hist_k.histogram_cuda = real
+        hist_k.histogram_level_cuda = real
     return statistics.median(totals)
 
 
@@ -2192,49 +2194,41 @@ def exact_grid(shape, gen, dev):
 def subtraction_levels(data, K: int, gen, dev, label: str) -> dict:
     """The subtraction's step ① at each level >= 1 of a tree grown on the
     path's own codes, against the direct pass (CUDA events behind a sleep
-    kernel, :func:`busy_ms`): the histogram's device time (grouped kernel
-    and its sort) in each, the
-    whole step's (counts, compaction or masking, combine), and parity
-    (6f): on exact-grid statistics the subtraction's level histogram
-    equals the direct pass and its plain version bit for bit."""
+    kernel, :func:`busy_ms`): the histogram's device time (the sort, the
+    grouped kernel and the finish) in each, and parity (6f): the level
+    built from the parent level's int64 sums equals the direct pass, and
+    on exact-grid statistics its plain version, bit for bit."""
     from repro_torch.api.plan import ExecutionPlan
-    from repro_torch.core import tree as tree_mod
+    from repro_torch.kernels import histogram as hist_k
     from repro_torch.kernels import ops
 
     plan = ExecutionPlan().resolved()
     plain = ExecutionPlan(hist_strategy="reference").resolved()
     n = data.n_records
     g, h = exact_grid((K, n), gen, dev)
+    scale = hist_k.fixed_point_scale(g, h)
     _, ids = level_ids(data.codes, data.codes_cm, g, h, data, plan)
-
-    def resident(nid, plan):
-        """The grower's in-memory records, at the node ids ``nid``."""
-        records = tree_mod.ResidentRecords(
-            data.codes, data.codes_cm, g, h, n_bins=data.n_bins,
-            missing_bin=data.missing_bin, plan=plan)
-        records.node_ids = nid
-        return records
+    kw = dict(n_bins=data.n_bins, scale=scale)
 
     levels = []
-    parent = ops.build_histogram(data.codes, g, h,
-                                 torch.zeros((K, n), dtype=torch.int32,
-                                             device=dev),
-                                 n_nodes=1, n_bins=data.n_bins, plan=plan)
+    _, parent = hist_k.histogram_level_cuda(
+        data.codes, g, h, torch.zeros((K, n), dtype=torch.int32, device=dev),
+        n_nodes=1, **kw)
     for level in range(1, DEPTH):
         nid, nn = ids[level - 1], 2 ** level
-        direct_fn = lambda: ops.build_histogram(
-            data.codes, g, h, nid, n_nodes=nn, n_bins=data.n_bins, plan=plan)
-        records = resident(nid, plan)
-        sub_fn = lambda: tree_mod.subtract_level_hist(records, parent, nn)
-        direct, sub = direct_fn(), sub_fn()
-        check(torch.equal(sub, direct),
+        direct_fn = lambda: hist_k.histogram_level_cuda(
+            data.codes, g, h, nid, n_nodes=nn, **kw)
+        sub_fn = lambda: hist_k.histogram_level_cuda(
+            data.codes, g, h, nid, n_nodes=nn, parent=parent, **kw)
+        (direct, direct_sums), (sub, sub_sums) = direct_fn(), sub_fn()
+        check(torch.equal(sub, direct) and torch.equal(sub_sums, direct_sums),
               f"{label} level {level}: subtraction bit-equal to the direct "
-              "pass (exact-grid stats)")
+              "pass")
         if level == 3:
-            want = tree_mod.subtract_level_hist(resident(nid, plain),
-                                                parent, nn)
+            want = ops.build_histogram(data.codes, g, h, nid, n_nodes=nn,
+                                       n_bins=data.n_bins, plan=plain)
             check(torch.equal(sub, want), f"{label} level 3: subtraction "
-                  "bit-equal to its plain version")
+                  "bit-equal to its plain version (exact-grid stats)")
             del want
         if level == 1:
             top = sorted(device_by_kernel(sub_fn).items(),
@@ -2246,8 +2240,8 @@ def subtraction_levels(data, K: int, gen, dev, label: str) -> dict:
             direct_fn), sub_hist_ms=hist_event_ms(sub_fn),
             direct_total_ms=busy_ms(direct_fn),
             sub_total_ms=busy_ms(sub_fn)))
-        parent = direct
-        del sub
+        parent = direct_sums
+        del sub, sub_sums, direct
     log(f"{label} subtraction by level (device ms): " + json.dumps(levels))
     return levels
 
@@ -2318,13 +2312,13 @@ def variants_path(config, data, y, dev, host_device_ms, smi: str) -> dict:
 
     # (b) histogram subtraction, host loop and fused
     sub_plan = ExecutionPlan(hist_subtraction=True)
-    seen, real = [], hist_k.histogram_cuda
+    seen, real = [], hist_k.histogram_level_cuda
 
-    def spy(codes, g, *a, **kw):
-        seen.append(codes.shape[0])
-        return real(codes, g, *a, **kw)
+    def spy(*a, parent=None, **kw):
+        seen.append(parent is not None)
+        return real(*a, parent=parent, **kw)
 
-    hist_k.histogram_cuda = spy
+    hist_k.histogram_level_cuda = spy
     try:
         sub_host, _, sub_rounds = stamped_fit(config, data, y, sub_plan)
         host_sizes, seen[:] = list(seen), []
@@ -2332,16 +2326,17 @@ def variants_path(config, data, y, dev, host_device_ms, smi: str) -> dict:
                                                      sub_plan)
         fused_sizes = list(seen)
     finally:
-        hist_k.histogram_cuda = real
-    check(host_sizes == ([n] + [n // 2] * (DEPTH - 1)) * T,
-          "subtraction: levels >= 1 bin n // 2 records (host loop)")
-    check(fused_sizes == ([n] + [n // 2] * (DEPTH - 1)) * 2,
-          "subtraction: the eager round and the capture bin n // 2 records "
-          "at levels >= 1")
+        hist_k.histogram_level_cuda = real
+    check(host_sizes == ([False] + [True] * (DEPTH - 1)) * T,
+          "subtraction: levels >= 1 from their parents' sums (host loop)")
+    check(fused_sizes == ([False] + [True] * (DEPTH - 1)) * 2,
+          "subtraction: the eager round and the capture build levels >= 1 "
+          "from their parents' sums")
     # round 0 grows from the same statistics in every fit and holds the
-    # subtraction contract; later rounds start from margins that differ by
-    # the derived sums' rounding, so near-tied candidates may flip between
-    # any two fits on the card: counted, and the losses gated
+    # subtraction contract; the card's subtraction is exact, but the leaf
+    # sums' float64 atomics add in no fixed order, so later rounds may
+    # start from margins an ulp apart and near-tied candidates may flip
+    # between two fits: counted, and the losses gated
     want0 = TreeArrays(*[a[0] for a in host.model.trees])
     differ = {}
     for what, fit in (("host loop", sub_host), ("fused", sub_fused)):
@@ -2374,7 +2369,7 @@ def variants_path(config, data, y, dev, host_device_ms, smi: str) -> dict:
         f"{out['sub_fused_round_ms']:.3f} ms; round 0 within the "
         f"subtraction contract, losses within rtol 1e-4, node fields that "
         f"differ from the direct fit's over {T} trees {json.dumps(differ)}; "
-        f"exact-grid tree bit-equal; histogram records a round "
+        f"exact-grid tree bit-equal; levels from their parents' sums "
         f"{host_sizes[:DEPTH]}")
     out["sub_levels"] = subtraction_levels(data, 1, gen, dev, "Higgs")
 
@@ -2483,18 +2478,18 @@ def variants_multiclass(config, data, y, dev, host_steady_ms,
     sub_plan = ExecutionPlan(hist_subtraction=True)
     short = dataclasses.replace(config, n_trees=MC_FUSED_ROUNDS)
     host, _, _ = stamped_fit(short, data, y, sub_plan)
-    seen, real = [], hist_k.histogram_cuda
+    seen, real = [], hist_k.histogram_level_cuda
 
-    def spy(codes, g, *a, **kw):
-        seen.append((codes.shape[0], tuple(g.shape)))
-        return real(codes, g, *a, **kw)
+    def spy(codes, g, *a, parent=None, **kw):
+        seen.append((codes.shape[0], tuple(g.shape), parent is not None))
+        return real(codes, g, *a, parent=parent, **kw)
 
-    hist_k.histogram_cuda = spy
+    hist_k.histogram_level_cuda = spy
     try:
         sub, _, sub_rounds = stamped_fit(
             dataclasses.replace(short, fused_rounds=True), data, y, sub_plan)
     finally:
-        hist_k.histogram_cuda = real
+        hist_k.histogram_level_cuda = real
     st = sub.stats
     loss = sub.history["train_loss"]
     log(f"variants (e): {MC_FUSED_ROUNDS} fused rounds with subtraction, "
@@ -2508,13 +2503,14 @@ def variants_multiclass(config, data, y, dev, host_steady_ms,
           and st["launches"]["partition"] == DEPTH * MC_FUSED_ROUNDS
           and st["launches"]["traversal"] == MC_FUSED_ROUNDS,
           "multi-class subtraction: one class-batched launch a level")
-    check(seen == [(n, (K, n))] * DEPTH * 2,
-          "multi-class subtraction: masked statistics over all n records")
+    check(seen == [(n, (K, n), level > 0) for level in range(DEPTH)] * 2,
+          "multi-class subtraction: one class-batched call a level, levels "
+          ">= 1 from their parents' sums")
     check(all(b < a for a, b in zip(loss, loss[1:])),
           "multi-class subtraction: train loss strictly decreases")
-    # a derived sibling reassociates its parent's sum, and the atomics add
-    # in no fixed order, so near-tied candidates of K x 63 nodes may flip
-    # between two fits: counted, not gated
+    # the leaf sums' float64 atomics add in no fixed order, so near-tied
+    # candidates of K x 63 nodes may flip between two fits: counted, not
+    # gated
     differ = int((sub.model.trees.feature[:K]
                   != host.model.trees.feature[:K]).sum())
     log(f"variants (e): round 0 nodes whose field differs from the host "

@@ -86,10 +86,16 @@ class ExecutionPlan:
                          one copy of the decisions back
     hist_subtraction:    at each level > 0 of the depthwise grower bin only
                          the smaller child of every split parent and derive
-                         the sibling as ``parent − smaller`` (paper §II-A).
+                         the sibling as ``parent − smaller`` (paper §II-A)
+                         in float32, where that changes the numbers: on the
+                         CPU, the chunked and sharded layouts, the naive
+                         ``"cuda_packed"`` kernel and the lossguide grower.
                          ``None`` resolves to ``False``: a derived sibling
                          reassociates the parent's sum, so the direct pass
-                         stays the default
+                         stays the default there.  The in-memory grower on
+                         the card's ``"cuda"`` kernel always derives every
+                         level > 0 so, exactly in int64 (bit-equal to the
+                         direct pass), whatever this field says
     packed_codes:        stream bin codes 4-bit packed (two per byte).
                          ``None`` = auto: pack whenever the binner's
                          ``max_bins <= 16``; ``True`` forces packing

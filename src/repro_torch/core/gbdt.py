@@ -45,6 +45,7 @@ from repro_torch.core import tree as tree_mod
 from repro_torch.core import binning as binning_mod
 from repro_torch.core.binning import BinnedDataset, PackedCodes
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels import histogram as hist_k
 from repro_torch.kernels import traversal as trav_k
 from repro_torch.kernels.ref import TreeArrays
 from repro_torch.resilience.errors import (NumericalDivergenceError,
@@ -637,8 +638,10 @@ def train(config: GBDTConfig, data: BinnedDataset, y,
 
 def _fit_end(result: TrainResult) -> TrainResult:
     """A fit's result after its last round, its splits counted
-    (:func:`repro_torch.core.tree.record_splits`)."""
+    (:func:`repro_torch.core.tree.record_splits`) and the histogram's pair
+    counters read (:func:`repro_torch.kernels.histogram.record_pair_counts`)."""
     tree_mod.record_splits(result.model.trees)
+    hist_k.record_pair_counts()
     return result
 
 

@@ -10,9 +10,11 @@ The counterpart of :mod:`repro.core.tree`'s in-memory growers:
     axis folded into the node axis (on the card one launch of the
     split-search kernel, which also writes the level into the tree
     tables; on the host under ``plan.host_offload_split``), and step ③
-    routes every class's records.  With ``plan.hist_subtraction``, levels
-    > 0 bin only the smaller child of every split parent and derive the
-    sibling as ``parent − smaller`` (paper §II-A).  Where the records lie
+    routes every class's records.  Levels > 0 may bin only the smaller
+    child of every parent and derive the sibling as ``parent − smaller``
+    (paper §II-A): on the card's grouped kernel the resident layout always
+    does, exactly, in int64 (bit-equal to the direct pass); elsewhere, in
+    float32, under ``plan.hist_subtraction``.  Where the records lie
     is the loop's one variable: :func:`fit_forest` / :func:`fit_tree` hold
     them on the device (:class:`ResidentRecords`: one histogram and one
     partition launch a level; nothing reads the host, the host offload
@@ -170,7 +172,9 @@ def grow_levels(records, *, depth: int, is_cat_field, field_mask,
     A layout holds the records, their (K, ·) statistics and node ids
     (``node_ids``, the final leaf slots after the last level) and gives
     ``K``, the kernels' ``plan``, the ``device`` of the tables and step ②,
-    and four steps: ``histogram(n_nodes, is_small=None)``, step ①, the
+    ``derives_siblings`` (its step ① derives every level > 0 from the last
+    exactly itself, so ``plan.hist_subtraction`` changes nothing), and
+    four steps: ``histogram(n_nodes, is_small=None)``, step ①, the
     (K, n_nodes, F, n_bins, 2) level histogram on ``device``, with
     ``is_small`` that of the marked children only; ``smaller_is_left
     (n_nodes)``, the (K, n_nodes / 2) choice of the child to bin
@@ -190,6 +194,7 @@ def grow_levels(records, *, depth: int, is_cat_field, field_mask,
         # step ① — one pass bins every vertex of every class; with
         # plan.hist_subtraction, levels > 0 bin only the smaller child of
         # each parent and derive the sibling from the last level's hist
+        # (which a layout that derives siblings itself always does)
         with obs.span(_HIST_SPANS[level]):
             if plan.hist_subtraction and level > 0:
                 hist = subtract_level_hist(records, hist, nn)
@@ -331,7 +336,11 @@ def subtract_level_hist(records, parent_hist, n_nodes: int):
     ``records`` (:func:`grow_levels`) bins only the child of each split
     parent that its own rule calls the smaller, and every sibling is
     derived as ``parent − smaller`` from the last level's histogram
-    ``parent_hist``."""
+    ``parent_hist``.  A layout that ``derives_siblings`` (the resident one
+    on the card) builds the level itself, from its last level's int64
+    sums: exact, so ``parent_hist`` is not read."""
+    if records.derives_siblings:
+        return records.histogram(n_nodes)
     is_small = _child_is_smaller(records.smaller_is_left(n_nodes))
     return _combine_sibling_hist(
         parent_hist, records.histogram(n_nodes, is_small), is_small)
@@ -400,16 +409,27 @@ def node_counts(nid, n_nodes: int):
 class ResidentRecords:
     """Every record on the grower's device: the layout of
     :func:`fit_forest` (see :func:`grow_levels`), its arguments as it
-    takes them.  Step ① bins on the tree's fixed-point grid
-    (:func:`fixed_point_grid`, which holds the masked g, h too).
+    takes them.
 
-    The smaller child has fewer records (:func:`node_counts`, on the
-    device).  As in ``repro``, the class-batched CUDA kernels
-    (``"cuda"``, ``"cuda_packed"``) read the codes once for all K classes,
-    so at K > 1 they keep one launch with the bigger child's statistics
-    masked to zero (``repro``'s Pallas route); everywhere else each
-    class's smaller-child records are compacted into an ``n // 2`` buffer
-    and binned by one launch a class, half the record stream each.
+    On the card's grouped kernel (``hist_strategy="cuda"``) step ① bins on
+    the tree's fixed-point grid (:func:`fixed_point_grid`) and keeps the
+    int64 sums of the level it built; once step ③ has routed that level's
+    records, the next level comes by exact subtraction
+    (``kernels/histogram.histogram_level_cuda`` given those sums as the
+    parent's: only each parent's smaller child binned, its sibling derived
+    in int64), bit-equal to the direct pass, so ``derives_siblings`` holds
+    and ``plan.hist_subtraction`` changes nothing there.  Each such level
+    adds one to the ``hist.levels_subtracted`` counter (``repro_torch.obs``)
+    as the host enqueues it.
+
+    Elsewhere subtraction is ``plan.hist_subtraction``'s, in float32, and
+    the smaller child has fewer records (:func:`node_counts`).  As in
+    ``repro``, the class-batched routes ``"cuda"`` (the CPU's plain
+    version) and ``"cuda_packed"`` read the codes once for all K classes,
+    so at K > 1 they keep one call with the bigger child's statistics
+    masked to zero (``repro``'s Pallas route); everywhere else each class's
+    smaller-child records are compacted into an ``n // 2`` buffer and
+    binned by one call a class.
     """
 
     def __init__(self, codes, codes_cm, g, h, *, n_bins: int,
@@ -421,34 +441,56 @@ class ResidentRecords:
         self.node_ids = torch.zeros(g.shape, dtype=torch.int32,
                                     device=self.device)
         self.scale = fixed_point_grid([(g, h)], plan)
+        self.derives_siblings = self.scale is not None
+        # the int64 sums of the last level built, the node ids they were
+        # built over, and the ids step ③ routed from those: the next
+        # level's, whose parent sums they are
+        self._sums = self._sums_of = self._routed = None
 
     def histogram(self, n_nodes: int, is_small=None):
+        if self.derives_siblings:
+            return self._level(n_nodes)
         kw = dict(n_nodes=n_nodes, n_bins=self.n_bins, plan=self.plan)
         if is_small is None:
             return ops.build_histogram(self.codes, self.g, self.h,
-                                       self.node_ids, scale=self.scale, **kw)
+                                       self.node_ids, **kw)
         sel = torch.gather(is_small, 1, self.node_ids.long())      # (K, n)
         if self.K > 1 and self.plan.hist_strategy in ("cuda", "cuda_packed"):
             w = sel.to(torch.float32)
             return ops.build_histogram(self.codes, self.g * w, self.h * w,
-                                       self.node_ids, scale=self.scale, **kw)
+                                       self.node_ids, **kw)
         n_half = max(1, self.g.shape[1] // 2)
         return torch.stack([ops.build_histogram(
             *_compact_selected(self.codes, self.g[k], self.h[k],
-                               self.node_ids[k], sel[k], n_half),
-            scale=None if self.scale is None else self.scale[k], **kw)
+                               self.node_ids[k], sel[k], n_half), **kw)
             for k in range(self.K)])
+
+    def _level(self, n_nodes: int):
+        """Step ① on the card: by exact subtraction from the parent sums
+        where the node ids are their level's after step ③, else (level 0,
+        or node ids set from outside) directly; the level's sums kept."""
+        parent = self._sums if self._routed is self.node_ids else None
+        hist, self._sums = hist_k.histogram_level_cuda(
+            self.codes, self.g, self.h, self.node_ids, n_nodes=n_nodes,
+            n_bins=self.n_bins, scale=self.scale, parent=parent)
+        self._sums_of, self._routed = self.node_ids, None
+        if parent is not None:
+            obs.record("hist.levels_subtracted")
+        return hist
 
     def smaller_is_left(self, n_nodes: int):
         counts = node_counts(self.node_ids, n_nodes)
         return counts[:, 0::2] <= counts[:, 1::2]
 
     def partition(self, tables, best, do_split):
+        routed = self._sums_of is self.node_ids
         self.node_ids = ops.partition_level_cm(
             self.node_ids, self.codes_cm, *tables,
             missing_bin=self.missing_bin, plan=self.plan)
+        self._sums_of, self._routed = None, self.node_ids if routed else None
 
     def bottom_sums(self, n_leaf: int):
+        self._sums = self._routed = None       # no level follows the last
         return bottom_sums(self.g, self.h, self.node_ids, n_leaf)
 
 
@@ -472,6 +514,7 @@ class ChunkedRecords:
     each chunk first; ``node_ids`` ends as the (K, n) final leaf slots on
     the device.
     """
+    derives_siblings = False
 
     def __init__(self, chunks, g, h, *, n_fields: int, n_bins: int,
                  missing_bin: int, plan: ExecutionPlan, device):

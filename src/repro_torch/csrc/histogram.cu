@@ -28,9 +28,23 @@
 //     each block reserves its run of every slot and each warp group its
 //     place in it.  With one slot (K*NN = 1) the list is the identity and
 //     the sort is skipped.
+//   * Exact subtraction (paper §II-A).  At a level > 0 the two children of
+//     a parent (slots 2p and 2p + 1 of a class) hold exactly its records,
+//     so given the parent level's int64 sums the scan lists only each
+//     parent's smaller child (by record count, the left one on a tie): the
+//     larger child's run is empty and its cursor SKIP, so the scatter
+//     writes none of its records and the kernel reads none.  The finish
+//     pass then writes that child's sums as parent - sibling, in place, and
+//     its float32 histogram from them.  Integer subtraction is exact, so
+//     the level equals the direct pass bit for bit; the list holds at most
+//     K*n/2 positions, and a parent that stopped splitting (every record
+//     on one side) costs nothing.  The scan also adds the pairs it listed
+//     and the pairs a direct pass would have listed into a two-word
+//     counter (kernels/histogram.py, record_pair_counts).
 //   * One block, one slot's histogram.  A block holds every field's bins
 //     of one slot (of a field tile, where the bins pass the budget) and
-//     takes an equal share of the sorted list, whatever the slots' sizes;
+//     takes an equal share of the sorted list, whatever the slots' sizes
+//     (the list's length read on the device, offsets[S]);
 //     where its share crosses into the next slot it flushes and starts
 //     again.  So each record (each (class, record) pair) is read once per
 //     level, with no per-slot test.
@@ -127,11 +141,14 @@ constexpr int STEP_RECORDS = 16;
 constexpr int STAGE_INTS = 5 * 32;
 constexpr int GROUPED_STAGE_BYTES = GROUPED_THREADS / 32 * STAGE_INTS * 4;
 constexpr int SORT_NODE_BYTES = 12;        // a node's base (8 B) and counter
+// The scatter cursor of a slot that exact subtraction does not bin
+constexpr unsigned long long SKIP = ~0ull;
 
 // One pass of a block over its records [r0, r1) of one class: lanes whose
 // records share a node form one group (__match_any_sync), whose first lane
 // adds the group's size to the node's shared counter.  With ``order`` the
-// pass also writes each record at base[node] + its rank in the block.
+// pass also writes each record at base[node] + its rank in the block,
+// skipping the records of a node whose base is SKIP.
 __device__ __forceinline__ void rank_pass(const int32_t* __restrict__ nk,
                                           long long r0, long long r1, int NN,
                                           unsigned* cnt,
@@ -141,7 +158,9 @@ __device__ __forceinline__ void rank_pass(const int32_t* __restrict__ nk,
     for (long long w = r0 + (threadIdx.x & ~31u); w < r1; w += blockDim.x) {
         const long long r = w + lane;
         const int nd = r < r1 ? nk[r] : -1;
-        const int s = nd >= 0 && nd < NN ? nd : -1;   // others add nothing
+        // others add nothing
+        const int s = nd >= 0 && nd < NN
+                      && (order == nullptr || base[nd] != SKIP) ? nd : -1;
         const unsigned peers = __match_any_sync(FULL_MASK, s);
         if (s < 0) continue;
         const int rank = __popc(peers & ((1u << lane) - 1u));
@@ -156,8 +175,9 @@ __device__ __forceinline__ void rank_pass(const int32_t* __restrict__ nk,
 
 // blockIdx.y = class k, blockIdx.x = a chunk of its records.  Without
 // SCATTER: add the chunk's count of every slot of class k into totals.
-// With SCATTER: totals holds each slot's next free position; reserve the
-// chunk's run of every slot there, then write the record indices.
+// With SCATTER: totals holds each slot's next free position (SKIP where
+// the slot is not binned); reserve the chunk's run of every binned slot
+// there, then write the record indices.
 template <bool SCATTER>
 __global__ void __launch_bounds__(SORT_THREADS)
 slot_sort_kernel(const int32_t* __restrict__ node, long long n, int NN,
@@ -180,7 +200,7 @@ slot_sort_kernel(const int32_t* __restrict__ node, long long n, int NN,
         if (!SCATTER) {
             if (c) atomicAdd(tk + i, c);
         } else {
-            base[i] = c ? atomicAdd(tk + i, c) : 0ull;
+            base[i] = tk[i] == SKIP ? SKIP : c ? atomicAdd(tk + i, c) : 0ull;
             cnt[i] = 0;
         }
     }
@@ -189,19 +209,37 @@ slot_sort_kernel(const int32_t* __restrict__ node, long long n, int NN,
     rank_pass(nk, r0, r1, NN, cnt, base, order);
 }
 
-// One block: offsets = the exclusive scan of counts (S + 1 entries, the
-// last the total), and cursor = offsets[:S], the scatter's first free
-// positions.
+// Whether slot s of a level of sibling pairs (slots 2p, 2p + 1) is binned
+// under exact subtraction: the child with fewer records, the left one on a
+// tie (core/tree.ResidentRecords.smaller_is_left's rule).
+__device__ __forceinline__ bool smaller_child(
+        const unsigned long long* __restrict__ counts, int s) {
+    const unsigned long long c = counts[s], sibling = counts[s ^ 1];
+    return (s & 1) ? c < sibling : c <= sibling;
+}
+
+// One block: offsets = the exclusive scan of the listed counts (S + 1
+// entries, the last the total), and cursor = offsets[:S], the scatter's
+// first free positions.  Every slot is listed, or with ``subtract`` only
+// each pair's smaller child: the other's run is empty and its cursor
+// SKIP.  ``pairs`` (or null): two int64 words that gain the pairs listed
+// and the pairs of every slot.
 __global__ void __launch_bounds__(SCAN_THREADS)
 slot_scan_kernel(const unsigned long long* __restrict__ counts,
                  unsigned long long* __restrict__ offsets,
-                 unsigned long long* __restrict__ cursor, int S) {
+                 unsigned long long* __restrict__ cursor, int S,
+                 bool subtract, unsigned long long* __restrict__ pairs) {
     __shared__ unsigned long long warp_total[SCAN_THREADS / 32];
+    __shared__ unsigned long long every;
+    if (threadIdx.x == 0) every = 0;
     const int per = (S + blockDim.x - 1) / blockDim.x;
     const int lo = min(S, static_cast<int>(threadIdx.x) * per);
     const int hi = min(S, lo + per);
-    unsigned long long sum = 0;
-    for (int i = lo; i < hi; ++i) sum += counts[i];
+    unsigned long long sum = 0, all = 0;
+    for (int i = lo; i < hi; ++i) {
+        all += counts[i];
+        if (!subtract || smaller_child(counts, i)) sum += counts[i];
+    }
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     unsigned long long incl = sum;
     for (int d = 1; d < 32; d <<= 1) {
@@ -210,6 +248,7 @@ slot_scan_kernel(const unsigned long long* __restrict__ counts,
     }
     if (lane == 31) warp_total[warp] = incl;
     __syncthreads();
+    if (all) atomicAdd(&every, all);
     if (warp == 0) {
         unsigned long long t = lane < static_cast<int>(blockDim.x >> 5)
                                    ? warp_total[lane] : 0ull;
@@ -222,11 +261,18 @@ slot_scan_kernel(const unsigned long long* __restrict__ counts,
     __syncthreads();
     unsigned long long run = incl - sum + (warp ? warp_total[warp - 1] : 0ull);
     for (int i = lo; i < hi; ++i) {
+        const bool listed = !subtract || smaller_child(counts, i);
         offsets[i] = run;
-        cursor[i] = run;
-        run += counts[i];
+        cursor[i] = listed ? run : SKIP;
+        if (listed) run += counts[i];
     }
-    if (threadIdx.x == blockDim.x - 1) offsets[S] = run;
+    if (threadIdx.x == blockDim.x - 1) {
+        offsets[S] = run;
+        if (pairs != nullptr) {
+            atomicAdd(pairs, run);
+            atomicAdd(pairs + 1, every);
+        }
+    }
 }
 
 // -- the grouped histogram over the sorted list ------------------------------
@@ -340,19 +386,21 @@ __device__ __forceinline__ void flush_slot(unsigned* bins,
 }
 
 // The schedule of both histogram kernels.  blockIdx.y is a field tile and
-// blockIdx.x a share of per_block positions of the sorted list (every share
-// the same size, whatever the slots' sizes).  The block zeroes its ``words``
-// bins, then calls run(s, a, e) for each slot s whose positions [a, e) meet
-// its share, in order; run adds them into the bins and flushes them, which
-// zeroes them again.  Without ``order`` (one slot) the list is the n
-// records.
+// blockIdx.x an equal share of the sorted list, whatever the slots' sizes:
+// the list's length is read here (offsets[S]; exact subtraction lists at
+// most half the pairs), so every block takes a share of what was listed.
+// The block zeroes its ``words`` bins, then calls run(s, a, e) for each
+// slot s whose positions [a, e) meet its share, in order; run adds them
+// into the bins and flushes them, which zeroes them again.  Without
+// ``order`` (one slot) the list is the n records.
 template <typename Word, typename Run>
 __device__ __forceinline__ void for_each_slot(
         const int32_t* __restrict__ order,
         const unsigned long long* __restrict__ offsets, long long n, int S,
-        long long per_block, Word* bins, int words, Run run) {
+        Word* bins, int words, Run run) {
     const long long total =
         order != nullptr ? static_cast<long long>(offsets[S]) : n;
+    const long long per_block = (total + gridDim.x - 1) / gridDim.x;
     long long p = static_cast<long long>(blockIdx.x) * per_block;
     const long long p_end = min(total, p + per_block);
     if (p >= p_end) return;
@@ -381,7 +429,8 @@ __device__ __forceinline__ void for_each_slot(
 
 // scale: (K, 2) float32, the grid of each class's g and h; sums: the
 // zeroed int64 (K*NN, NB, F, 2) scratch.  A block flushes at each slot's
-// edge and every flush_every positions (<= 2^16: see the header).
+// edge and every flush_every positions (<= 2^16: see the header), and at
+// the end of its share.
 template <bool NIBBLE>
 __global__ void __launch_bounds__(GROUPED_THREADS, 1)
 hist_grouped_kernel(const uint8_t* __restrict__ codes,
@@ -392,7 +441,7 @@ hist_grouped_kernel(const uint8_t* __restrict__ codes,
                     const float* __restrict__ scale,
                     unsigned long long* __restrict__ sums, long long n,
                     int F, int row_bytes, int NN, int S, int NB, int FT,
-                    int row, long long per_block, long long flush_every) {
+                    int row, long long flush_every) {
     // [4][NB + 1][row]: g hi, lo, h hi, lo, each with bin NB for what is
     // not added (the naive kernel's bins are float); then each warp's
     // stage
@@ -403,7 +452,7 @@ hist_grouped_kernel(const uint8_t* __restrict__ codes,
                  + (threadIdx.x >> 5) * STAGE_INTS;
     const int f0 = blockIdx.y * FT;
     const int ft = min(FT, F - f0);
-    for_each_slot(order, offsets, n, S, per_block, bins, 4 * words,
+    for_each_slot(order, offsets, n, S, bins, 4 * words,
                   [&](int s, long long a, long long e) {
         const int k = s / NN;
         const long long kn = static_cast<long long>(k) * n;
@@ -423,9 +472,14 @@ hist_grouped_kernel(const uint8_t* __restrict__ codes,
 
 // The float32 (K*NN, F, NB, 2) histogram from the level's int64 (K*NN, NB,
 // F, 2) sums: out = sum / scale, one (g, h) pair of the output a thread.
-// scale 0 marks a non-finite statistic, whose histogram is NaN.
+// scale 0 marks a non-finite statistic, whose histogram is NaN.  With
+// ``parent`` (the last level's (K*NN/2, NB, F, 2) sums) a slot whose
+// cursor is SKIP was not binned: its sums are parent - sibling, written
+// back into ``sums`` for the next level (the sibling's are final).
 __global__ void __launch_bounds__(FINISH_THREADS)
-hist_grouped_kernel_finish(const longlong2* __restrict__ sums,
+hist_grouped_kernel_finish(longlong2* __restrict__ sums,
+                           const longlong2* __restrict__ parent,
+                           const unsigned long long* __restrict__ cursor,
                            const float* __restrict__ scale,
                            float2* __restrict__ out, long long pairs, int NN,
                            int F, int NB) {
@@ -438,7 +492,16 @@ hist_grouped_kernel_finish(const longlong2* __restrict__ sums,
         const int f = rem / NB, c = rem - f * NB;
         const int k = static_cast<int>(s / NN);
         const float sg = scale[2 * k], sh = scale[2 * k + 1];
-        const longlong2 v = sums[(s * NB + c) * F + f];
+        const long long at = (s * NB + c) * F + f;
+        longlong2 v;
+        if (parent != nullptr && cursor[s] == SKIP) {
+            const longlong2 whole = parent[((s >> 1) * NB + c) * F + f];
+            const longlong2 sibling = sums[((s ^ 1) * NB + c) * F + f];
+            v = make_longlong2(whole.x - sibling.x, whole.y - sibling.y);
+            sums[at] = v;
+        } else {
+            v = sums[at];
+        }
         out[i] = make_float2(
             sg > 0.f ? __ll2float_rn(v.x) / sg : __int_as_float(0x7fc00000),
             sh > 0.f ? __ll2float_rn(v.y) / sh : __int_as_float(0x7fc00000));
@@ -554,12 +617,12 @@ hist_naive_kernel(const uint8_t* __restrict__ codes,
                   const int32_t* __restrict__ order,
                   const unsigned long long* __restrict__ offsets,
                   float* __restrict__ out, long long n, int F, int NN, int S,
-                  int NB, int FT, long long per_block) {
+                  int NB, int FT) {
     extern __shared__ float bins[];      // [ft][NB][2], the output's layout
     const int f0 = blockIdx.y * FT;
     const int ft = min(FT, F - f0);
     const int words = 2 * ft * NB;
-    for_each_slot(order, offsets, n, S, per_block, bins, words,
+    for_each_slot(order, offsets, n, S, bins, words,
                   [&](int s, long long a, long long e) {
         const long long kn = static_cast<long long>(s / NN) * n;
         add_rows<WORDS>(bins, codes, g + kn, h + kn, node, order, a, e, F,
@@ -575,11 +638,14 @@ hist_naive_kernel(const uint8_t* __restrict__ codes,
 
 // The counting sort of the (class, record) pairs by slot into ord.  counts:
 // 3 * K * NN + 1 zeroed uint64 — counts, offsets (the exclusive scan, its
-// last entry the total), cursor.
+// last entry the total), cursor.  With ``subtract`` only each sibling
+// pair's smaller child is listed; ``pairs`` (or null) gains the pairs
+// listed and the pairs of every slot.
 static cudaError_t sort_by_slot(const int32_t* nodes, int32_t* ord,
                                 unsigned long long* counts, long long n,
                                 int K, int NN, int sort_blocks,
-                                long long sort_chunk, cudaStream_t st) {
+                                long long sort_chunk, bool subtract,
+                                unsigned long long* pairs, cudaStream_t st) {
     const int S = K * NN;
     const int sort_smem = NN * SORT_NODE_BYTES;
     cudaError_t err = cudaFuncSetAttribute(
@@ -594,7 +660,7 @@ static cudaError_t sort_by_slot(const int32_t* nodes, int32_t* ord,
     slot_sort_kernel<false><<<grid, SORT_THREADS, sort_smem, st>>>(
         nodes, n, NN, sort_chunk, counts, nullptr);
     slot_scan_kernel<<<1, SCAN_THREADS, 0, st>>>(
-        counts, counts + S, counts + 2 * S + 1, S);
+        counts, counts + S, counts + 2 * S + 1, S, subtract, pairs);
     slot_sort_kernel<true><<<grid, SORT_THREADS, sort_smem, st>>>(
         nodes, n, NN, sort_chunk, counts + 2 * S + 1, ord);
     return cudaGetLastError();
@@ -608,12 +674,14 @@ static int launch_sorted(Kernel kernel, int threads, int smem,
                          const void* node, void* order, void* slots,
                          long long n, int K, int NN, int n_ftiles,
                          int blocks, int sort_blocks, long long sort_chunk,
-                         cudaStream_t st, Args... args) {
+                         bool subtract, void* pairs, cudaStream_t st,
+                         Args... args) {
     if (order != nullptr) {
         const cudaError_t err = sort_by_slot(
             static_cast<const int32_t*>(node), static_cast<int32_t*>(order),
             static_cast<unsigned long long*>(slots), n, K, NN, sort_blocks,
-            sort_chunk, st);
+            sort_chunk, subtract, static_cast<unsigned long long*>(pairs),
+            st);
         if (err != cudaSuccess) return static_cast<int>(err);
     }
     const cudaError_t err = cudaFuncSetAttribute(
@@ -667,52 +735,58 @@ extern "C" int hist_grouped_limits(int device, int* out) {
     const void *codes, const void *g, const void *h, const void *node,      \
         void *order, void *slots, long long n, int F, int K, int NN,        \
         int NB, int FT, int row, int n_ftiles, int blocks,                  \
-        long long per_block, int sort_blocks, long long sort_chunk
+        int sort_blocks, long long sort_chunk
 #define GROUPED_ENTRY_ARGS                                                  \
     HIST_ENTRY_ARGS, const void *scale, void *sums, long long flush_every,  \
-        void *stream
+        bool subtract, void *pairs, void *stream
 
 // The grouped entries then take scale ((K, 2) float32), sums (the (K * NN,
 // NB, F, 2) int64 scratch, zeroed here) and flush_every, and leave the
-// level's exact sums there (hist_grouped_finish turns them into floats).
+// level's exact sums there (hist_grouped_finish turns them into floats);
+// with ``subtract`` (NN even, the last level's sums at hand) they bin only
+// each parent's smaller child, for the finish to derive its sibling, and
+// add the pairs listed and the pairs in all into ``pairs`` (or null).
 template <bool NIBBLE>
 static int launch_grouped(GROUPED_ENTRY_ARGS) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const long long pairs = static_cast<long long>(K) * NN * F * NB;
-    cudaError_t err = cudaMemsetAsync(sums, 0, pairs * 16, st);
+    const long long pairs_out = static_cast<long long>(K) * NN * F * NB;
+    cudaError_t err = cudaMemsetAsync(sums, 0, pairs_out * 16, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     return launch_sorted(
         hist_grouped_kernel<NIBBLE>, GROUPED_THREADS,
         16 * (NB + 1) * row + GROUPED_STAGE_BYTES, node, order, slots, n, K,
-        NN, n_ftiles, blocks, sort_blocks, sort_chunk, st,
+        NN, n_ftiles, blocks, sort_blocks, sort_chunk, subtract, pairs, st,
         static_cast<const uint8_t*>(codes), static_cast<const float*>(g),
         static_cast<const float*>(h), static_cast<const int32_t*>(node),
         static_cast<const int32_t*>(order),
         static_cast<const unsigned long long*>(slots) + K * NN,
         static_cast<const float*>(scale),
         static_cast<unsigned long long*>(sums), n, F,
-        NIBBLE ? (F + 1) / 2 : F, NN, K * NN, NB, FT, row, per_block,
-        flush_every);
+        NIBBLE ? (F + 1) / 2 : F, NN, K * NN, NB, FT, row, flush_every);
 }
 
 extern "C" int hist_grouped_launch(GROUPED_ENTRY_ARGS) {
     return launch_grouped<false>(codes, g, h, node, order, slots, n, F, K,
                                  NN, NB, FT, row, n_ftiles, blocks,
-                                 per_block, sort_blocks, sort_chunk, scale,
-                                 sums, flush_every, stream);
+                                 sort_blocks, sort_chunk, scale, sums,
+                                 flush_every, subtract, pairs, stream);
 }
 
 // codes: the (n, ceil(F/2)) packed bytes of PackedCodes.data
 extern "C" int hist_nibble_launch(GROUPED_ENTRY_ARGS) {
     return launch_grouped<true>(codes, g, h, node, order, slots, n, F, K,
-                                NN, NB, FT, row, n_ftiles, blocks, per_block,
+                                NN, NB, FT, row, n_ftiles, blocks,
                                 sort_blocks, sort_chunk, scale, sums,
-                                flush_every, stream);
+                                flush_every, subtract, pairs, stream);
 }
 
 // The float32 (S, F, NB, 2) histogram ``out`` of S = K * NN slots from
 // their (S, NB, F, 2) int64 sums on the grid ``scale`` ((K, 2) float32).
-extern "C" int hist_grouped_finish(const void* sums, const void* scale,
+// With ``parent`` (the last level's (S / 2, NB, F, 2) sums; null for a
+// direct pass) the slots whose ``cursor`` (the entry's slots + 2 * S + 1)
+// is SKIP take parent - sibling, in ``sums`` too.
+extern "C" int hist_grouped_finish(void* sums, const void* parent,
+                                   const void* cursor, const void* scale,
                                    void* out, long long S, int NN, int F,
                                    int NB, void* stream) {
     const long long pairs = S * F * NB;
@@ -721,8 +795,11 @@ extern "C" int hist_grouped_finish(const void* sums, const void* scale,
     hist_grouped_kernel_finish<<<static_cast<unsigned>(blocks),
                                  FINISH_THREADS, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const longlong2*>(sums), static_cast<const float*>(scale),
-        static_cast<float2*>(out), pairs, NN, F, NB);
+        static_cast<longlong2*>(sums),
+        static_cast<const longlong2*>(parent),
+        static_cast<const unsigned long long*>(cursor),
+        static_cast<const float*>(scale), static_cast<float2*>(out), pairs,
+        NN, F, NB);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -737,10 +814,10 @@ extern "C" int hist_naive_launch(HIST_ENTRY_ARGS, void *out, void *stream) {
     return launch_sorted(
         kernel, NAIVE_THREADS, 2 * NB * row * static_cast<int>(sizeof(float)),
         node, order, slots, n, K, NN, n_ftiles, blocks, sort_blocks,
-        sort_chunk, static_cast<cudaStream_t>(stream),
+        sort_chunk, false, nullptr, static_cast<cudaStream_t>(stream),
         static_cast<const uint8_t*>(codes), static_cast<const float*>(g),
         static_cast<const float*>(h), static_cast<const int32_t*>(node),
         static_cast<const int32_t*>(order),
         static_cast<const unsigned long long*>(slots) + K * NN,
-        static_cast<float*>(out), n, F, NN, K * NN, NB, FT, per_block);
+        static_cast<float*>(out), n, F, NN, K * NN, NB, FT);
 }

@@ -259,9 +259,10 @@ class ShardedRecords:
     exact int64 sums are summed before one conversion to float32: the
     single-device histogram, bit for bit, at any shard count.  The smaller
     child is picked by record counts summed exactly over the shards, the
-    bigger child's statistics masked to zero.  ``node_ids``: each shard's
-    (K, n_l) node ids.
+    bigger child's statistics masked to zero (``plan.hist_subtraction``,
+    in float32).  ``node_ids``: each shard's (K, n_l) node ids.
     """
+    derives_siblings = False
 
     def __init__(self, placed: ShardedDataset, g, h, *, plan: ExecutionPlan,
                  hist_slices: int = 1):

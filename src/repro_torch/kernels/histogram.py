@@ -31,6 +31,16 @@ K·NN slots.
     from launch to launch, and bit-equal to :func:`histogram_plain` where
     g and h lie on the grid and every float32 partial sum is exact
     (dyadic g, h).  A non-finite g (h) makes its statistic's histogram NaN.
+  * :func:`histogram_level_cuda` — the same kernels for one level of the
+    depthwise grower, which also hands back the level's int64 sums; given
+    the last level's (``parent``) it builds the level by exact subtraction
+    (paper §II-A): the counting sort lists only each parent's smaller
+    child (:func:`smaller_child_plain`), the kernel bins at most half the
+    (class, record) pairs, and the finish pass derives each sibling as
+    ``parent − smaller`` in int64 (:func:`derive_siblings_plain`), so the
+    level equals the direct pass bit for bit.  The pairs listed and the
+    pairs a direct pass lists add into a device counter
+    (:func:`record_pair_counts`).
   * :func:`histogram_naive_cuda` — the naive-packing twin on uint8 codes:
     the same sort and schedule, but a block's bins are one slot's flat
     float32 [field][bin][2] array and each thread adds a whole record's
@@ -44,10 +54,11 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.binning import PackedCodes, as_unpacked
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import histogram_ref
@@ -119,7 +130,9 @@ class GroupedGeometry(NamedTuple):
     1)·row and the warps' stages grouped, 8·NB·row naive), flushing them
     at each slot's edge and every ``flush_every`` positions; the counting
     sort runs ``sort_blocks`` blocks of ``sort_chunk`` records a class (none
-    with one slot)."""
+    with one slot).  ``per_block`` is the share of a list of every pair:
+    the kernels take an equal share of the list's length as the device
+    reads it (``_flush_runs`` in the tests mirrors that)."""
     field_tile: int
     n_ftiles: int
     row: int
@@ -241,17 +254,16 @@ def histogram_cuda(codes, g: torch.Tensor, h: torch.Tensor,
     :func:`fixed_point_scale` of g and h or of statistics whose magnitudes
     bound theirs (the tree's, where g and h are masked to some of its
     records); computed here when None.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel (:func:`histogram_sums_cuda`, then
-    :func:`histogram_from_sums`) or raise.
+    CUDA tensors launch the kernel (:func:`histogram_level_cuda`'s direct
+    pass) or raise.
     """
     if codes.device.type == "cpu":
         return histogram_plain(codes, g, h, node_ids, n_nodes, n_bins)
     if scale is None:
         _prepare("histogram", codes, g, h, node_ids, n_nodes, n_bins)
         scale = fixed_point_scale(g, h)     # g, h checked first
-    return histogram_from_sums(
-        histogram_sums_cuda(codes, g, h, node_ids, n_nodes=n_nodes,
-                            n_bins=n_bins, scale=scale), scale)
+    return histogram_level_cuda(codes, g, h, node_ids, n_nodes=n_nodes,
+                                n_bins=n_bins, scale=scale)[0]
 
 
 def histogram_sums_cuda(codes, g: torch.Tensor, h: torch.Tensor,
@@ -263,12 +275,35 @@ def histogram_sums_cuda(codes, g: torch.Tensor, h: torch.Tensor,
     Sums of shards of the records on one grid add up exactly to the sums of
     all of them; :func:`histogram_from_sums` turns them into the float32
     histogram."""
-    if isinstance(codes, PackedCodes):
-        return _launch_grouped("hist_nibble_launch", "histogram_nibble",
-                               codes, g, h, node_ids, n_nodes, n_bins,
-                               scale=scale)
-    return _launch_grouped("hist_grouped_launch", "histogram", codes, g, h,
-                           node_ids, n_nodes, n_bins, scale=scale)
+    return _launch_grouped(codes, g, h, node_ids, n_nodes, n_bins,
+                           scale=scale)[0]
+
+
+def histogram_level_cuda(codes, g: torch.Tensor, h: torch.Tensor,
+                         node_ids: torch.Tensor, *, n_nodes: int,
+                         n_bins: int, scale: torch.Tensor,
+                         parent: Optional[torch.Tensor] = None):
+    """One level's step ① on the card: ``(hist, sums)``, the float32
+    histogram of :func:`histogram_cuda` and the int64 sums of
+    :func:`histogram_sums_cuda` it came from, for inputs as those take
+    them.
+
+    ``parent``: None for a direct pass; or the sums this call returned for
+    the last level, when ``node_ids`` are that level's ids after step ③
+    (node p's children at 2p and 2p + 1, ``n_nodes`` twice its nodes).
+    Then the counting sort lists only each parent's smaller child (the
+    left on a tie), the kernel bins at most half the (class, record) pairs
+    and the finish pass writes every sibling's sums as ``parent −
+    smaller``, exactly: both outputs equal the direct pass's bit for bit.
+    The pairs listed and the pairs a direct pass lists add into the
+    device's pair counter (:func:`record_pair_counts`).  Reads nothing
+    back, so a CUDA graph can capture it.
+    """
+    sums, slots = _launch_grouped(codes, g, h, node_ids, n_nodes, n_bins,
+                                  scale=scale, parent=parent)
+    if slots is None:          # no sort: one slot, or no record
+        parent = None
+    return _finish(sums, scale, parent, slots), sums
 
 
 def histogram_from_sums(sums: torch.Tensor,
@@ -277,6 +312,14 @@ def histogram_from_sums(sums: torch.Tensor,
     :func:`histogram_sums_cuda`'s sums on the grid ``scale``: each sum
     rounded once to float32 and divided by its scale (NaN where the scale
     is 0: a non-finite g or h)."""
+    return _finish(sums, scale)
+
+
+def _finish(sums: torch.Tensor, scale: torch.Tensor,
+            parent: Optional[torch.Tensor] = None,
+            slots: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The finish pass: the float32 histogram of ``sums``, with ``parent``
+    the unbinned slots (their cursors in ``slots``, SKIP) derived first."""
     *lead, NB, F, _ = sums.shape
     if sums.dtype != torch.int64 or not sums.is_contiguous() \
             or sums.device.type != "cuda" or scale.dtype != torch.float32 \
@@ -289,14 +332,87 @@ def histogram_from_sums(sums: torch.Tensor,
                       device=sums.device)
     if out.numel() == 0:
         return out
+    S = math.prod(lead)
     P, I, I64 = _build.POINTER, _build.INT, _build.INT64
     fn = _build.function("histogram", "hist_grouped_finish",
-                         [P, P, P, I64, I, I, I, P])
+                         [P, P, P, P, P, I64, I, I, I, P])
     _build.check("histogram", fn(
-        sums.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        math.prod(lead), lead[-1], F, NB,
+        sums.data_ptr(), None if parent is None else parent.data_ptr(),
+        None if parent is None else slots[2 * S + 1:].data_ptr(),
+        scale.data_ptr(), out.data_ptr(), S, lead[-1], F, NB,
         torch.cuda.current_stream(sums.device).cuda_stream), "histogram")
     return out
+
+
+# The device's (2,) int64 pair counter: the (class, record) pairs that the
+# exact subtraction's sorts listed, and those a direct pass would have
+# listed; made once a device, outside any capture, so that a CUDA graph's
+# replays add into it; and what record_pair_counts last read of it.
+_PAIRS: Dict[torch.device, torch.Tensor] = {}
+_PAIRS_READ: Dict[torch.device, Tuple[int, int]] = {}
+PAIR_COUNTERS = ("hist.pairs_binned", "hist.pairs_total")
+
+
+def _pair_counter(device: torch.device) -> Optional[torch.Tensor]:
+    """The device's pair counter, made at its first use outside a CUDA
+    graph's capture (None inside one before that: the level is not
+    counted)."""
+    acc = _PAIRS.get(device)
+    if acc is None and not torch.cuda.is_current_stream_capturing():
+        acc = _PAIRS[device] = torch.zeros(2, dtype=torch.int64,
+                                           device=device)
+    return acc
+
+
+def record_pair_counts() -> None:
+    """Add what every device's pair counter gained since the last read to
+    ``obs``'s ``PAIR_COUNTERS``: one copy to the host a device, no kernel;
+    the trainer calls it once a fit, after its last round."""
+    for device, acc in _PAIRS.items():
+        binned, total = acc.tolist()
+        before = _PAIRS_READ.get(device, (0, 0))
+        _PAIRS_READ[device] = (binned, total)
+        for name, now, was in zip(PAIR_COUNTERS, (binned, total), before):
+            obs.record(name, now - was)
+
+
+def smaller_child_plain(counts: torch.Tensor) -> torch.Tensor:
+    """Plain version of the counting sort's choice under exact subtraction:
+    for (..., NN) records a node (children of parent p at 2p and 2p + 1), a
+    (..., NN) bool of the child each parent bins, the one with fewer
+    records, the left on a tie; the other is derived."""
+    left, right = counts[..., 0::2], counts[..., 1::2]
+    return torch.stack((left <= right, right < left), -1).flatten(-2)
+
+
+def derive_siblings_plain(parent: torch.Tensor, sums: torch.Tensor,
+                          binned: torch.Tensor) -> torch.Tensor:
+    """Plain version of the finish pass's derivation: the (..., NN, NB, F,
+    2) int64 sums of a level whose ``binned`` (..., NN) slots hold their own
+    sums, every other slot taking ``parent − sibling`` from the last level's
+    (..., NN/2, NB, F, 2) ``parent``."""
+    sibling = sums.unflatten(-4, (-1, 2)).flip(-4).flatten(-5, -4)
+    derived = parent.repeat_interleave(2, dim=-4) - sibling
+    return torch.where(binned[..., None, None, None], sums, derived)
+
+
+def histogram_sums_plain(codes, g, h, node_ids, n_nodes: int, n_bins: int,
+                         scale: torch.Tensor) -> torch.Tensor:
+    """Plain version of the grouped kernel's sums: the int64 ((K,) n_nodes,
+    n_bins, F, 2) sums of each record's rint(g·scale), rint(h·scale)."""
+    codes = as_unpacked(codes).long()
+    if g.ndim == 1:
+        return histogram_sums_plain(codes, g[None], h[None], node_ids[None],
+                                    n_nodes, n_bins, scale[None])[0]
+    K, n = g.shape
+    F = codes.shape[1]
+    q = torch.round(torch.stack((g, h), -1) * scale[:, None, :]).long()
+    slot = node_ids.long() + n_nodes * torch.arange(K)[:, None]   # (K, n)
+    at = (slot[:, :, None] * n_bins + codes[None]) * F + torch.arange(F)
+    out = torch.zeros((K * n_nodes * n_bins * F, 2), dtype=torch.int64)
+    out.index_add_(0, at.reshape(-1),
+                   q[:, :, None, :].expand(K, n, F, 2).reshape(-1, 2))
+    return out.reshape(K, n_nodes, n_bins, F, 2)
 
 
 def histogram_naive_cuda(codes: torch.Tensor, g: torch.Tensor,
@@ -308,8 +424,8 @@ def histogram_naive_cuda(codes: torch.Tensor, g: torch.Tensor,
         raise ValueError("histogram_naive: codes must be unpacked uint8")
     if codes.device.type == "cpu":
         return histogram_plain(codes, g, h, node_ids, n_nodes, n_bins)
-    return _launch_grouped("hist_naive_launch", "histogram_naive", codes, g,
-                           h, node_ids, n_nodes, n_bins, naive=True)
+    return _launch_grouped(codes, g, h, node_ids, n_nodes, n_bins,
+                           naive=True)[0]
 
 
 def _prepare(counter: str, codes, g, h, node_ids, n_nodes: int,
@@ -346,12 +462,18 @@ def _prepare(counter: str, codes, g, h, node_ids, n_nodes: int,
     return data, n, F, K
 
 
-def _launch_grouped(symbol: str, counter: str, codes, g, h, node_ids,
-                    n_nodes: int, n_bins: int, naive: bool = False,
-                    scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _launch_grouped(codes, g, h, node_ids, n_nodes: int, n_bins: int,
+                    naive: bool = False,
+                    scale: Optional[torch.Tensor] = None,
+                    parent: Optional[torch.Tensor] = None):
     """The grouped kernel (uint8 or nibble entry): counting sort by slot,
-    then the int64 sums on the grid ``scale``; or, with ``naive``, the
-    naive-packing kernel's float32 histogram."""
+    then the int64 sums on the grid ``scale``, with ``parent`` those of
+    each parent's smaller child only; or, with ``naive``, the naive-packing
+    kernel's float32 histogram.  Returns (output, the sort's slots or None
+    where it did not run)."""
+    packed = isinstance(codes, PackedCodes)
+    counter = ("histogram_naive" if naive
+               else "histogram_nibble" if packed else "histogram")
     data, n, F, K = _prepare(counter, codes, g, h, node_ids, n_nodes,
                              n_bins)
     limits = grouped_limits(data.device)
@@ -367,11 +489,18 @@ def _launch_grouped(symbol: str, counter: str, codes, g, h, node_ids,
                          f"{data.device}")
     shape = g.shape[:-1] + ((n_nodes, F, n_bins, 2) if naive
                             else (n_nodes, n_bins, F, 2))
+    if parent is not None and (
+            n_nodes % 2 or parent.dtype != torch.int64
+            or parent.device != data.device or not parent.is_contiguous()
+            or parent.shape != g.shape[:-1] + (n_nodes // 2, n_bins, F, 2)):
+        raise ValueError(f"{counter}: parent must be the last level's "
+                         f"contiguous int64 sums of {n_nodes // 2} nodes on "
+                         f"{data.device}")
     out = torch.zeros(shape, dtype=torch.float32 if naive else torch.int64,
                       device=data.device) if n == 0 or F == 0 or naive \
         else torch.empty(shape, dtype=torch.int64, device=data.device)
     if n == 0 or F == 0:
-        return out
+        return out, None
     geo = grouped_geometry(n, K, n_nodes, F, n_bins, limits, naive)
     order = slots = None
     if K * n_nodes > 1:
@@ -383,16 +512,21 @@ def _launch_grouped(symbol: str, counter: str, codes, g, h, node_ids,
             None if order is None else order.data_ptr(),
             None if slots is None else slots.data_ptr(), n, F, K, n_nodes,
             n_bins, geo.field_tile, geo.row, geo.n_ftiles, geo.blocks,
-            geo.per_block, geo.sort_blocks, geo.sort_chunk]
-    types = [P] * 6 + [I64, I, I, I, I, I, I, I, I, I64, I, I64]
+            geo.sort_blocks, geo.sort_chunk]
+    types = [P] * 6 + [I64, I, I, I, I, I, I, I, I, I, I64]
     stream = torch.cuda.current_stream(data.device).cuda_stream
     if naive:
-        fn = _build.function("histogram", symbol, types + [P, P])
+        fn = _build.function("histogram", "hist_naive_launch", types + [P, P])
         err = fn(*args, out.data_ptr(), stream)
     else:
-        fn = _build.function("histogram", symbol, types + [P, P, I64, P])
+        pairs = None if parent is None else _pair_counter(data.device)
+        fn = _build.function(
+            "histogram", "hist_nibble_launch" if packed
+            else "hist_grouped_launch",
+            types + [P, P, I64, ctypes.c_bool, P, P])
         err = fn(*args, scale.data_ptr(), out.data_ptr(), geo.flush_every,
-                 stream)
+                 parent is not None,
+                 None if pairs is None else pairs.data_ptr(), stream)
     _build.check("histogram", err, counter)
     _build.count(counter)
-    return out
+    return out, slots

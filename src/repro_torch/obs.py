@@ -11,6 +11,17 @@ take a :func:`snapshot` before a region and read :func:`delta` after it.
     ``core/gbdt.train`` grew, those on a categorical field, and those
     that send the missing bin left; added once a fit, after its last
     round, from its tree tables (``core/tree.record_splits``).
+  * ``"hist.levels_subtracted"`` — levels whose histogram the card built
+    by exact subtraction (``core/tree.ResidentRecords``: levels > 0 on the
+    grouped kernel), one each as the host enqueues it; a fused round's
+    CUDA graph adds its levels at its capture, not at its replays.
+  * ``"hist.pairs_binned"``, ``"hist.pairs_total"`` — over those levels,
+    the (class, record) pairs the counting sort listed for the kernel to
+    bin, and the pairs a direct pass would have listed.  The sort adds
+    both into a device counter (replays included); the trainer reads it
+    once a fit, after its last round, with one copy to the host
+    (``kernels/histogram.record_pair_counts``).  Their ratio is the share
+    of step ①'s record stream that those levels still read (at most 1/2).
 
 Counters are cumulative per process.
 

@@ -1214,46 +1214,203 @@ def _on(common, device):
             for k, v in common.items()}
 
 
-@pytest.mark.parametrize("K", [1, 4])
-def test_subtraction_level_on_card_bit_equal_to_direct(cuda, K, monkeypatch):
-    """Masked statistics in one class-batched launch at K > 1, the
-    smaller children compacted into n // 2 records at K = 1: either way
-    the level's histogram equals the direct pass on dyadic stats."""
-    from repro_torch.kernels import ops
+def _pairs_delta(fn):
+    """Run ``fn``; returns its result and what the histogram's pair
+    counters and ``hist.levels_subtracted`` gained meanwhile."""
+    hist_k.record_pair_counts()
+    before = obs.snapshot()
+    out = fn()
+    hist_k.record_pair_counts()
+    return out, obs.delta(before)
 
+
+def _slot_counts(nid, n_nodes):
+    """(K, n_nodes) records a node of (K, n) node ids, on the host."""
+    K = nid.shape[0]
+    slot = nid.long().cpu() + n_nodes * torch.arange(K)[:, None]
+    return torch.bincount(slot.reshape(-1),
+                          minlength=K * n_nodes).reshape(K, n_nodes)
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_subtraction_level_on_card_bit_equal_to_direct(cuda, K):
+    """A level from the last level's int64 sums, only each parent's
+    smaller child binned, equals the direct pass bit for bit on real
+    statistics: the float32 histogram, and the int64 sums (also the plain
+    version's); the pair counter gains the pairs listed and the pairs in
+    all."""
     rng = np.random.default_rng(40 + K)
     n, F = 20_001, 28
     codes = torch.from_numpy(_codes(n, F, 256, rng)).to(cuda)
-    g, h, parent = _dyadic_stats(K, n, 8, rng, cuda)
-    if K == 1:
-        g, h, parent = g[None], h[None], parent[None]
+    g = torch.from_numpy(rng.normal(size=(K, n))).float().to(cuda)
+    h = torch.from_numpy(rng.uniform(0.01, 1, (K, n))).float().to(cuda)
+    parent = torch.from_numpy(rng.integers(0, 8, (K, n))).int().to(cuda)
     child = (2 * parent + torch.randint(0, 2, parent.shape, device=cuda,
                                         dtype=torch.int32)).contiguous()
-    plan = ExecutionPlan().resolved()
-    parent_hist = ops.build_histogram(codes, g, h, parent, n_nodes=8,
-                                      n_bins=256, plan=plan)
-    seen = []
-    real = hist_k.histogram_cuda
+    scale = hist_k.fixed_point_scale(g, h)
+    kw = dict(n_bins=256, scale=scale)
+    _, parent_sums = hist_k.histogram_level_cuda(codes, g, h, parent,
+                                                 n_nodes=8, **kw)
+    (got, got_sums), gained = _pairs_delta(
+        lambda: hist_k.histogram_level_cuda(codes, g, h, child, n_nodes=16,
+                                            parent=parent_sums, **kw))
+    want, want_sums = hist_k.histogram_level_cuda(codes, g, h, child,
+                                                  n_nodes=16, **kw)
+    assert torch.equal(got, want) and torch.equal(got_sums, want_sums)
+    plain = hist_k.histogram_sums_plain(codes.cpu(), g.cpu(), h.cpu(),
+                                        child.cpu(), 16, 256, scale.cpu())
+    assert torch.equal(got_sums.cpu(), plain)
+    counts = _slot_counts(child, 16)
+    binned = int(counts[hist_k.smaller_child_plain(counts)].sum())
+    assert 2 * binned <= K * n
+    assert (gained.get("hist.pairs_binned", 0),
+            gained["hist.pairs_total"]) == (binned, K * n)
 
-    def spy(codes, g, *a, **kw):
-        seen.append((codes.shape[0], tuple(g.shape)))
-        return real(codes, g, *a, **kw)
 
-    def level(codes, g, h, child, parent_hist):
-        records = tree_mod.ResidentRecords(codes, None, g, h, n_bins=256,
-                                           missing_bin=255, plan=plan)
-        records.node_ids = child
-        return tree_mod.subtract_level_hist(records, parent_hist, 16)
+@pytest.mark.parametrize("packed", [False, True])
+def test_subtraction_short_list_on_card(cuda, packed):
+    """A list shortened to a few positions (every parent but one sends
+    all its records left, the last splits 37 against the rest), and one
+    of none (no parent splits): the blocks share what the device listed,
+    and the level's sums equal the direct sums of those slots."""
+    rng = np.random.default_rng(7 + packed)
+    n, F, NB, NN = 200_000, 115 if packed else 28, 16 if packed else 256, 16
+    raw = _codes(n, F, NB, rng)
+    codes = (PackedCodes.pack(torch.from_numpy(raw)) if packed
+             else torch.from_numpy(raw)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(1, n))).float().to(cuda)
+    h = torch.from_numpy(rng.uniform(0.01, 1, (1, n))).float().to(cuda)
+    parent = torch.from_numpy(rng.integers(0, NN // 2, (1, n))).int()
+    scale = hist_k.fixed_point_scale(g, h)
+    kw = dict(n_bins=NB, scale=scale)
+    _, parent_sums = hist_k.histogram_level_cuda(codes, g, h,
+                                                 parent.to(cuda),
+                                                 n_nodes=NN // 2, **kw)
+    last = torch.nonzero(parent[0] == NN // 2 - 1)[:37, 0]
+    split = 2 * parent
+    split[0, last] += 1
+    for child, listed in ((split, 37), (2 * parent, 0)):
+        child = child.to(cuda)
+        (got, got_sums), gained = _pairs_delta(
+            lambda: hist_k.histogram_level_cuda(
+                codes, g, h, child, n_nodes=NN, parent=parent_sums, **kw))
+        want, want_sums = hist_k.histogram_level_cuda(codes, g, h, child,
+                                                      n_nodes=NN, **kw)
+        assert torch.equal(got_sums, want_sums) and torch.equal(got, want)
+        assert (gained.get("hist.pairs_binned", 0),
+                gained["hist.pairs_total"]) == (listed, n)
 
-    monkeypatch.setattr(hist_k, "histogram_cuda", spy)
-    got = level(codes, g, h, child, parent_hist)
-    assert seen == ([(n, (K, n))] if K > 1 else [(n // 2, (n // 2,))])
-    direct = ops.build_histogram(codes, g, h, child, n_nodes=16, n_bins=256,
-                                 plan=plan)
-    assert torch.equal(got, direct)
-    plain = level(codes.cpu(), g.cpu(), h.cpu(), child.cpu(),
-                  parent_hist.cpu())
-    assert torch.equal(got.cpu(), plain)
+
+def _cell_case(cell, n, rng):
+    """A training cell's shape cut to n records, on the CPU: the dataset,
+    real (K, n) statistics and the growers' keywords.  ``higgs``: 28
+    fields of 256 bins, K = 1; ``covertype``: 10 such fields and 44
+    two-category indicators, K = 7; ``iot``: 115 fields of 16 bins, 4-bit
+    packed; ``allstate``: 16 numeric fields and 16 of 40 categories, 5 %
+    of every field missing."""
+    K, n_bins, packed = 1, 256, False
+    if cell == "higgs":
+        codes, cats = _codes(n, 28, 256, rng), np.zeros(28, bool)
+    elif cell == "covertype":
+        codes = np.concatenate([_codes(n, 10, 256, rng),
+                                rng.integers(0, 2, (n, 44)).astype(np.uint8)],
+                               1)
+        cats, K = np.arange(54) >= 10, 7
+    elif cell == "iot":
+        codes, cats = _codes(n, 115, 16, rng), np.zeros(115, bool)
+        n_bins, packed = 16, True
+    else:
+        codes = np.concatenate([rng.integers(0, 255, (n, 16)),
+                                rng.integers(0, 40, (n, 16))],
+                               1).astype(np.uint8)
+        codes[rng.uniform(size=codes.shape) < 0.05] = 255
+        cats = np.arange(32) >= 16
+    data = binning.dataset_from_codes(codes, cats, n_bins, packed=packed,
+                                      device="cpu")
+    g = torch.from_numpy(rng.normal(size=(K, n))).float()
+    h = torch.from_numpy(rng.uniform(0.01, 1.0, (K, n))).float()
+    common = dict(n_bins=n_bins, missing_bin=n_bins - 1,
+                  is_cat_field=torch.from_numpy(cats),
+                  field_mask=torch.ones(len(cats), dtype=torch.bool),
+                  lambda_=1.0, gamma=0.0, min_child_weight=0.5)
+    return data, g, h, common
+
+
+def _kernel_names(fn):
+    """``fn()`` and the names of the kernels it ran on the card, counted
+    (``torch.profiler``)."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, collections.Counter(
+        e.name for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+@pytest.mark.parametrize("cell", ["higgs", "covertype", "iot", "allstate"])
+def test_resident_levels_by_subtraction_equal_direct(cuda, cell,
+                                                     monkeypatch):
+    """At each training cell's shape, cut in n, on real statistics: the
+    in-memory grower builds every level > 0 by exact subtraction, and each
+    level's float32 histogram and int64 sums equal the direct pass's bit
+    for bit; the trees equal those of the direct route (every level
+    binned in full), with the same kernel launches; the counters gain five
+    levels, the pairs listed and K·n pairs a level."""
+    rng = np.random.default_rng(sum(map(ord, cell)))
+    data, g, h, common = _cell_case(cell, 60_000, rng)
+    dev = data.to(cuda)
+    g, h = g.to(cuda), h.to(cuda)
+    K, n = g.shape
+    real = hist_k.histogram_level_cuda
+    levels, direct = [], []
+
+    def spy(codes, g, h, nid, *, parent=None, **kw):
+        # the direct route drops the parent; both keep the same copies
+        out = real(codes, g, h, nid, parent=None if direct else parent,
+                   **kw)
+        levels.append((nid.clone(), parent is not None, kw,
+                       *[t.clone() for t in out]))
+        return out
+
+    def fit():
+        _build.reset_launch_counts()
+        trees = tree_mod.fit_forest(dev.codes, dev.codes_cm, g, h, depth=6,
+                                    plan=ExecutionPlan(),
+                                    **_on(common, cuda))
+        return trees, _build.launch_counts()
+
+    monkeypatch.setattr(hist_k, "histogram_level_cuda", spy)
+    fit()                    # first uses (the pair counter, the libraries)
+    levels.clear()
+    ((sub, sub_counts), sub_names), gained = _pairs_delta(
+        lambda: _kernel_names(fit))
+    sub_levels = list(levels)
+    levels.clear()
+    direct.append(True)
+    (want, want_counts), want_names = _kernel_names(fit)
+    for a, b in zip(sub, want):
+        assert torch.equal(a, b)
+    assert sub_counts == want_counts and sub_names == want_names
+    assert [lv[1] for lv in sub_levels] == [False] + [True] * 5
+    assert len(levels) == len(sub_levels) == 6
+    listed = 0
+    for (nid, _, kw, hist, sums), (_, _, _, hist_d, sums_d) in zip(
+            sub_levels, levels):
+        assert torch.equal(hist, hist_d) and torch.equal(sums, sums_d)
+        want_hist, want_sums = real(dev.codes, g, h, nid, **kw)
+        assert torch.equal(hist, want_hist) and torch.equal(sums, want_sums)
+        if kw["n_nodes"] > 1:
+            counts = _slot_counts(nid, kw["n_nodes"])
+            listed += int(counts[hist_k.smaller_child_plain(counts)].sum())
+    assert gained["hist.levels_subtracted"] == 5
+    assert (gained.get("hist.pairs_binned", 0),
+            gained["hist.pairs_total"]) == (listed, 5 * K * n)
+    assert 2 * listed <= 5 * K * n
 
 
 @pytest.mark.parametrize("K,packed", [(1, False), (4, False), (1, True)])
@@ -1591,6 +1748,35 @@ def test_fused_fit_on_card_matches_host_loop(cuda, case):
     again = gbdt.train(dataclasses.replace(config, fused_rounds=True,
                                            seed=3), data, y, plan=plan).stats
     assert (again["graph_captures"], again["graph_replays"]) == (0, 5)
+
+
+@pytest.mark.parametrize("K", [None, 4])
+def test_fused_round_replays_exact_subtraction(cuda, K):
+    """The fused round captures the exact subtraction once and replays it:
+    the host counts its levels at the eager round and the capture, the
+    device's pair counter every round's, replays included; round 0's trees
+    equal the host loop's, whose levels are built the same way."""
+    kw = (dict(objective="multi:softmax", n_classes=K) if K
+          else dict(objective="binary:logistic"))
+    n, depth, rounds = 20_000, 4, 5
+    data, y = _variant_fit_data(K, n)
+    config = gbdt.GBDTConfig(n_trees=rounds, max_depth=depth, seed=2, **kw)
+    gbdt.round_step_cache_clear()
+    host, host_gained = _pairs_delta(lambda: gbdt.train(config, data, y))
+    fused, gained = _pairs_delta(lambda: gbdt.train(
+        dataclasses.replace(config, fused_rounds=True), data, y))
+    stats = fused.stats
+    assert stats["fused_graph"]
+    assert (stats["graph_captures"], stats["graph_replays"]) == (1, 4)
+    Kt = K or 1
+    assert host_gained["hist.levels_subtracted"] == rounds * (depth - 1)
+    assert gained["hist.levels_subtracted"] == 2 * (depth - 1)
+    for got in (host_gained, gained):
+        assert got["hist.pairs_total"] == rounds * (depth - 1) * Kt * n
+        assert 0 < 2 * got["hist.pairs_binned"] <= got["hist.pairs_total"]
+    for field in ("feature", "threshold", "is_cat"):
+        assert torch.equal(getattr(fused.model.trees, field)[:Kt],
+                           getattr(host.model.trees, field)[:Kt]), field
 
 
 def test_fused_fit_on_packed_codes_on_card(cuda):

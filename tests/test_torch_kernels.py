@@ -171,12 +171,14 @@ def test_grouped_geometry_at_the_paths_shapes():
     assert (wide.n_ftiles, wide.field_tile) == (4, 29)
 
 
-def _flush_runs(offsets, per_block, flush_every, block):
-    """The runs of sorted positions that block ``block`` adds between two
-    flushes, walked as ``csrc/histogram.cu``'s ``for_each_slot`` and
-    ``hist_grouped_kernel`` walk them: its share of the list cut at each
-    slot's edge (``offsets``: the slots' exclusive scan, the total last),
-    then every ``flush_every`` positions.  (slot, first, end) each."""
+def _flush_runs(offsets, blocks, flush_every, block):
+    """The runs of sorted positions that block ``block`` of ``blocks`` adds
+    between two flushes, walked as ``csrc/histogram.cu``'s
+    ``for_each_slot`` and ``hist_grouped_kernel`` walk them: an equal
+    share of the list's length as the device reads it (``offsets``: the
+    slots' exclusive scan, the total last), cut at each slot's edge, then
+    every ``flush_every`` positions.  (slot, first, end) each."""
+    per_block = -(-offsets[-1] // blocks)
     p = block * per_block
     end = min(offsets[-1], p + per_block)
     runs, s = [], 0
@@ -190,27 +192,180 @@ def _flush_runs(offsets, per_block, flush_every, block):
     return runs
 
 
-@pytest.mark.parametrize("n,K,NN", [
+@pytest.mark.parametrize("n,K,NN,subtract", [
     # one slot, shares past 2^16 positions; Higgs's deepest level; one
-    # slot holding nearly every record; Covertype's classes
-    (20_000_000, 1, 1), (10_000_000, 1, 32), (12_000_000, 1, 8),
-    (581_012, 7, 32)])
-def test_grouped_blocks_flush_every_2_16_positions(n, K, NN):
+    # slot holding nearly every record; Covertype's classes; the last three
+    # listing only each sibling pair's smaller child
+    (20_000_000, 1, 1, False), (10_000_000, 1, 32, False),
+    (12_000_000, 1, 8, False), (581_012, 7, 32, False),
+    (10_000_000, 1, 32, True), (12_000_000, 1, 8, True),
+    (581_012, 7, 32, True)])
+def test_grouped_blocks_flush_every_2_16_positions(n, K, NN, subtract):
     """No block adds more than 2^16 sorted positions between two flushes,
     where its share holds more, and each run lies in one slot: the blocks'
-    runs cover the sorted list once."""
+    runs cover the sorted list once.  Where exact subtraction lists only
+    each sibling pair's smaller child, every block still takes an equal
+    share of the shorter list."""
     geo = hist_k.grouped_geometry(n, K, NN, 28, 256, H100)
     rng = np.random.default_rng(n + NN)
     sizes = rng.multinomial(K * n, rng.dirichlet(np.ones(K * NN) / 4))
+    if subtract:
+        sizes = np.where(hist_k.smaller_child_plain(
+            torch.from_numpy(sizes)).numpy(), sizes, 0)
+        assert 2 * sizes.sum() <= K * n
     offsets = np.concatenate([[0], np.cumsum(sizes)]).tolist()
     runs = [r for b in range(geo.blocks)
-            for r in _flush_runs(offsets, geo.per_block, geo.flush_every, b)]
+            for r in _flush_runs(offsets, geo.blocks, geo.flush_every, b)]
     assert max(e - a for _, a, e in runs) <= 2 ** 16
     assert all(offsets[s] <= a < e <= offsets[s + 1] for s, a, e in runs)
     assert [a for _, a, _ in runs] == [0] + [e for _, _, e in runs][:-1]
-    assert runs[-1][2] == K * n
+    assert runs[-1][2] == offsets[-1]
+    busy = {b for b in range(geo.blocks)
+            if _flush_runs(offsets, geo.blocks, geo.flush_every, b)}
+    assert busy == set(range(geo.blocks))
     if n > 2 ** 16 * geo.blocks:
         assert geo.per_block > 2 ** 16 == geo.flush_every
+
+
+def test_smaller_child_rule():
+    """The counting sort lists each parent's child with fewer records, the
+    left one on a tie; an empty child is the smaller (a parent that did
+    not split sends every record left, so its empty right child is binned
+    for nothing), and an empty parent bins its left child."""
+    counts = torch.tensor([[5, 3, 2, 2, 0, 7, 4, 0],
+                           [1, 2, 9, 9, 0, 0, 3, 1]])
+    T, F_ = True, False
+    assert hist_k.smaller_child_plain(counts).tolist() == [
+        [F_, T, T, F_, T, F_, F_, T], [T, F_, T, F_, T, F_, F_, T]]
+    # exactly one child of every parent, and never the larger
+    binned = hist_k.smaller_child_plain(counts)
+    assert torch.all(binned[:, 0::2] ^ binned[:, 1::2])
+    assert torch.all(torch.where(binned, counts, 0).unflatten(1, (-1, 2))
+                     .sum(-1) <= counts.unflatten(1, (-1, 2)).amin(-1))
+
+
+def _level_case(K, n, F, NB, NN, seed):
+    """Random codes and real (K, n) statistics on their grid, the parent
+    level's node ids in [0, NN/2) and the children's (2p or 2p + 1); the
+    first parent does not split (every record goes left), the second
+    sends every record right."""
+    rng = np.random.default_rng(seed)
+    codes = torch.from_numpy(rng.integers(0, NB, (n, F)).astype(np.uint8))
+    g = torch.from_numpy(rng.normal(size=(K, n))).float()
+    h = torch.from_numpy(rng.uniform(0.01, 1.0, (K, n))).float()
+    parent = torch.from_numpy(rng.integers(0, NN // 2, (K, n))).int()
+    side = torch.from_numpy(rng.integers(0, 2, (K, n))).int()
+    side = torch.where(parent == 0, 0, torch.where(parent == 1, 1, side))
+    return codes, g, h, parent, 2 * parent + side
+
+
+@pytest.mark.parametrize("K", [1, 7])
+def test_exact_subtraction_equals_direct_sums(K):
+    """Parent − smaller in int64 gives every child's sums exactly as the
+    direct pass sums its records, on one grid (real g, h): a parent that
+    did not split passes its sums to its one child unchanged, and the pairs
+    binned are at most K·n/2."""
+    n, F, NB, NN = 3001, 5, 16, 8
+    codes, g, h, parent, child = _level_case(K, n, F, NB, NN, 70 + K)
+    scale = hist_k.fixed_point_scale(g, h)
+    parent_sums = hist_k.histogram_sums_plain(codes, g, h, parent, NN // 2,
+                                              NB, scale)
+    direct = hist_k.histogram_sums_plain(codes, g, h, child, NN, NB, scale)
+    slot = child.long() + NN * torch.arange(K)[:, None]
+    counts = torch.bincount(slot.reshape(-1),
+                            minlength=K * NN).reshape(K, NN)
+    binned = hist_k.smaller_child_plain(counts)
+    listed = torch.gather(binned, 1, child.long()).float()
+    small = hist_k.histogram_sums_plain(codes, g * listed, h * listed, child,
+                                        NN, NB, scale)
+    assert torch.equal(small[binned], direct[binned])
+    assert torch.all(small[~binned] == 0)
+    got = hist_k.derive_siblings_plain(parent_sums, small, binned)
+    assert torch.equal(got, direct)
+    assert torch.equal(got[:, 0], parent_sums[:, 0])     # did not split
+    assert torch.equal(got[:, 3], parent_sums[:, 1])     # all went right
+    assert torch.all(got[:, 1] == 0) and torch.all(got[:, 2] == 0)
+    assert 2 * int(counts[binned].sum()) <= K * n
+    # the (n,) form at K = 1
+    if K == 1:
+        assert torch.equal(hist_k.derive_siblings_plain(
+            parent_sums[0], small[0], binned[0]), direct[0])
+
+
+def test_histogram_sums_plain_is_the_histogram_on_its_grid():
+    """The plain int64 sums divided by their grid give the plain histogram
+    on dyadic statistics (every sum exact either way)."""
+    codes, g, h, nid = _hist_inputs(777, 13, 16, 4, 5, dyadic=True)
+    codes, g, h, nid = _t(codes), _t(g)[None], _t(h)[None], _t(nid)[None]
+    scale = hist_k.fixed_point_scale(g, h)
+    sums = hist_k.histogram_sums_plain(codes, g, h, nid, 4, 16, scale)
+    want = hist_k.histogram_plain(codes, g, h, nid, 4, 16)
+    got = (sums.double() / scale.double()[:, None, None, None, :]).float()
+    assert torch.equal(got.transpose(-3, -2), want)
+
+
+@pytest.mark.parametrize("K", [1, 3])
+def test_resident_layout_hands_each_level_its_parent_sums(K, monkeypatch):
+    """The resident layout's bookkeeping, run on the CPU with the card's
+    level entry replaced by its plain mirror: every level > 0 is given
+    the int64 sums of the level step ③ routed it from, so the sums it
+    derives equal the direct pass's and the trees equal a fit that bins
+    every level; node ids set from outside get a direct pass."""
+    from repro_torch import obs
+    from repro_torch.core import tree as tree_mod
+
+    n, F, NB, depth = 4000, 6, 16, 4
+    rng = np.random.default_rng(90 + K)
+    codes = torch.from_numpy(rng.integers(0, NB, (n, F)).astype(np.uint8))
+    g = torch.from_numpy(rng.normal(size=(K, n))).float()
+    h = torch.from_numpy(rng.uniform(0.01, 1.0, (K, n))).float()
+    calls = []
+
+    def plain_level(codes, g, h, nid, *, n_nodes, n_bins, scale,
+                    parent=None):
+        sums = hist_k.histogram_sums_plain(codes, g, h, nid, n_nodes,
+                                           n_bins, scale)
+        if parent is not None and subtract:
+            slot = nid.long() + n_nodes * torch.arange(K)[:, None]
+            counts = torch.bincount(slot.reshape(-1), minlength=K * n_nodes)
+            binned = hist_k.smaller_child_plain(counts.view(K, n_nodes))
+            w = torch.gather(binned, 1, nid.long()).float()
+            small = hist_k.histogram_sums_plain(codes, g * w, h * w, nid,
+                                                n_nodes, n_bins, scale)
+            derived = hist_k.derive_siblings_plain(parent, small, binned)
+            assert torch.equal(derived, sums)
+            sums = derived
+        calls.append(parent is not None)
+        hist = sums.double() / scale.double()[:, None, None, None, :]
+        return hist.float().transpose(-3, -2).contiguous(), sums
+
+    monkeypatch.setattr(tree_mod, "fixed_point_grid",
+                        lambda parts, plan: hist_k.fixed_point_scale(
+                            *parts[0]))
+    monkeypatch.setattr(hist_k, "histogram_level_cuda", plain_level)
+    kw = dict(depth=depth, n_bins=NB, missing_bin=NB - 1,
+              is_cat_field=torch.zeros(F, dtype=torch.bool),
+              field_mask=torch.ones(F, dtype=torch.bool), lambda_=1.0,
+              gamma=0.0, min_child_weight=0.5, plan=ExecutionPlan())
+    fits = {}
+    for subtract in (True, False):
+        calls.clear()
+        before = obs.snapshot()
+        fits[subtract] = tree_mod.fit_forest(codes, codes.T.contiguous(),
+                                             g, h, **kw)
+        assert calls == [False] + [True] * (depth - 1)
+        assert obs.delta(before).get("hist.levels_subtracted") == depth - 1
+    for a, b in zip(fits[True], fits[False]):
+        assert torch.equal(a, b)
+    records = tree_mod.ResidentRecords(codes, codes.T.contiguous(), g, h,
+                                       n_bins=NB, missing_bin=NB - 1,
+                                       plan=ExecutionPlan())
+    assert records.derives_siblings
+    calls.clear()
+    records.histogram(1)
+    records.node_ids = torch.randint(0, 2, (K, n), dtype=torch.int32)
+    records.histogram(2)
+    assert calls == [False, False]
 
 
 @pytest.mark.parametrize("K", [None, 3])

@@ -192,13 +192,25 @@ def check_category_split(cat, device):
 
 def check_counters(device):
     """A fit adds its splits, its categorical splits and its splits that
-    send the missing bin left to the process's counters, once."""
+    send the missing bin left to the process's counters, once; on the card
+    also the levels its histogram built by exact subtraction and their
+    pairs, and nothing else."""
     X, y, cats = seeded_table(SEEDS[0], n=5000)
     _, ds, _ = _binned(X, cats, device)
     before = obs.counts()
     res = train(CONFIG, ds, torch.as_tensor(y, dtype=torch.float32),
                 device=device)
     grown = obs.delta(before)
+    hist = {k: grown.pop(k) for k in ("hist.levels_subtracted",
+                                      "hist.pairs_binned", "hist.pairs_total")
+            if k in grown}
+    if torch.device(device).type == "cuda":
+        levels = ROUNDS * (DEPTH - 1)
+        assert hist["hist.levels_subtracted"] == levels
+        assert hist["hist.pairs_total"] == levels * len(y)
+        assert 0 < 2 * hist["hist.pairs_binned"] <= hist["hist.pairs_total"]
+    else:
+        assert hist == {}
     t = res.model.trees
     split = t.feature >= 0
     assert grown == {
